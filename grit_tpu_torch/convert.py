@@ -6,6 +6,9 @@ that the model recomputes or never uses are dropped
 (``load_reference_checkpoint``).  ``params_to_state_dict`` is the inverse of
 ``grit_tpu/convert.py::translate``: it maps a flax params tree of numpy
 arrays (the JAX package's parameters) to the port's state_dict.
+``state_dict_to_params`` goes the other way, for a state_dict or a dict of
+gradients by parameter name, so that gradients and updated parameters
+compare leaf by leaf with the JAX package's trees.
 """
 
 from __future__ import annotations
@@ -69,6 +72,49 @@ def params_to_state_dict(params: dict) -> dict[str, np.ndarray]:
         key = ".".join([_torch_token(t) for t in mods] + [leaf])
         out[key] = np.ascontiguousarray(value)
     return out
+
+
+def _flax_token(mods: list[str]) -> list[str]:
+    """Module path of the port -> module path of the flax tree."""
+    out, i = [], 0
+    while i < len(mods):
+        tok = mods[i]
+        nxt = mods[i + 1] if i + 1 < len(mods) else None
+        if tok == "input_proj":          # input_proj.N.{0,1} -> input_proj_N_{conv,norm}
+            out.append(f"input_proj_{nxt}_{'conv' if mods[i + 2] == '0' else 'norm'}")
+            i += 3
+        elif tok == "patch_embed":       # patch_embed.{proj,norm} -> patch_embed_{proj,norm}
+            out.append(f"patch_embed_{nxt}")
+            i += 2
+        elif nxt is not None and nxt.isdigit():
+            out.append(f"{tok}_{nxt}")
+            i += 2
+        else:
+            out.append(tok)
+            i += 1
+    return out
+
+
+def state_dict_to_params(state_dict: dict) -> dict:
+    """Port state_dict, or gradients by parameter name (numpy or tensor
+    values) -> flax params tree of numpy arrays; the inverse of
+    ``params_to_state_dict``."""
+    params: dict = {}
+    for key, value in state_dict.items():
+        value = value.detach().cpu().numpy() if torch.is_tensor(value) else np.asarray(value)
+        *mods, leaf = key.split(".")
+        if leaf == "weight" and mods[-1] in _EMBEDDINGS:
+            mods, leaf = mods[:-1], mods[-1]
+        elif leaf == "weight" and value.ndim == 1:
+            leaf = "scale"
+        elif leaf == "weight":
+            value = value.T if value.ndim == 2 else value.transpose(2, 3, 1, 0)
+            leaf = "kernel"
+        node = params
+        for tok in _flax_token(mods):
+            node = node.setdefault(tok, {})
+        node[leaf] = np.ascontiguousarray(value)
+    return params
 
 
 def load_reference_checkpoint(path: str) -> dict[str, torch.Tensor]:

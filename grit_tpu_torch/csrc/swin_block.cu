@@ -1,4 +1,5 @@
-// Swin block kernels: K1 (attention half-block) and K2 (MLP half-block).
+// Swin block kernels: K1 (attention half-block), K2 (MLP half-block), K4 (the
+// training block's attention branch) and K5 (window-attention backward).
 //
 // Replaces the TPU's grit_tpu/ops/window_attention.py::_band_kernel (K1,
 // reached through fused_block_step / fused_block_mlp_step) and ::_mlp_kernel
@@ -22,6 +23,22 @@
 // exact-erf GELU; the TPU's rational/A&S approximations existed only because
 // Mosaic has no erf), gemm (EPI_RESID).  fused_block_mlp_step is K1 then K2.
 //
+// K4 replaces ::_block_kernel (through fused_block_attention, forward with
+// save_attn): on the LayerNorm'd, zero-padded map it is K1's launches 2-4
+// without LN, pad masking or residual.  The qkv GEMM gathers its A rows from
+// the map in window order (a_gather), the attention core's output IS the
+// pre-projection attention output that the backward wants, and the proj GEMM
+// stores through the window-reverse + unshift address (EPI_MAP).
+//
+// K5 replaces ::_bwd_kernel (through _backward): one block per (window of the
+// image, head) that loops over the batch, so the bias gradient of a window
+// kind is summed over images in a fixed order by the one block that owns it
+// (the TPU kernel revisits its dbias block across the batch grid axis); no
+// atomics.  Per image it recomputes P from the stored q (pre-scaled), k and
+// the bias table, then dV = P^T dO, dP = dO V^T, dS = P (dP - rowsum(dP P)),
+// dQ = scale dS K, dK = dS^T Q.  Q, K, V, dO (f32, 74 KB) and one N x N f32
+// matrix that holds P and then dS (81 KB) live in dynamic shared memory.
+//
 // What bounds them on an H100: the GEMMs are tensor-core work (bf16 in, f32
 // accumulate via WMMA 16x16x16 tiles; fp32 parity runs use a SIMT FMA tile),
 // the attention core is shared-memory FMA work over 144 x 144 scores per
@@ -35,7 +52,7 @@
 
 namespace grit {
 
-enum { EPI_BIAS = 0, EPI_GELU = 1, EPI_RESID = 2, EPI_RESID_MAP = 3 };
+enum { EPI_BIAS = 0, EPI_GELU = 1, EPI_RESID = 2, EPI_RESID_MAP = 3, EPI_MAP = 4 };
 
 struct Epi {
   const void* bias;    // storage type; [N]
@@ -44,8 +61,14 @@ struct Epi {
   int mode;
   float scale;         // EPI_BIAS: multiplies columns < scale_cols
   int scale_cols;
-  WinMap map;          // EPI_RESID_MAP: row -> map token, pad flag
+  WinMap map;          // EPI_RESID_MAP, EPI_MAP, a_gather: row -> map token, pad flag
+  int a_gather;        // A's row r is read from map token win_row_to_token(r)
 };
+
+__device__ __forceinline__ size_t a_row(const Epi& e, int row) {
+  bool pad;
+  return e.a_gather ? win_row_to_token(e.map, row, &pad) : (size_t)row;
+}
 
 template <typename T>
 __device__ __forceinline__ void epi_store(const Epi& e, int row, int col, int N, float acc) {
@@ -60,7 +83,7 @@ __device__ __forceinline__ void epi_store(const Epi& e, int row, int col, int N,
   } else {
     bool pad;
     orow = win_row_to_token(e.map, row, &pad);
-    if (!pad) v += to_f<T>(static_cast<const T*>(e.resid)[orow * N + col]);
+    if (e.mode == EPI_RESID_MAP && !pad) v += to_f<T>(static_cast<const T*>(e.resid)[orow * N + col]);
   }
   static_cast<T*>(e.out)[orow * N + col] = from_f<T>(v);
 }
@@ -128,11 +151,20 @@ __global__ void __launch_bounds__(256) gemm_bf16_kernel(
 #pragma unroll
     for (int j = 0; j < 2; ++j) wm::fill_fragment(acc[i][j], 0.0f);
 
+  size_t arow[GB_M * 4 / 256];  // this thread's A rows, fixed over the K loop
+#pragma unroll
+  for (int it = 0; it < GB_M * 4 / 256; ++it) {
+    const int r = (tid + it * 256) >> 2;
+    arow[it] = m0 + r < M ? a_row(e, m0 + r) : 0;
+  }
+
   for (int k0 = 0; k0 < K; k0 += GB_K) {
-    for (int c = tid; c < GB_M * 4; c += 256) {
+#pragma unroll
+    for (int it = 0; it < GB_M * 4 / 256; ++it) {
+      const int c = tid + it * 256;
       const int r = c >> 2, kc = (c & 3) * 8;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M) v = *reinterpret_cast<const uint4*>(A + (size_t)(m0 + r) * K + k0 + kc);
+      if (m0 + r < M) v = *reinterpret_cast<const uint4*>(A + arow[it] * K + k0 + kc);
       *reinterpret_cast<uint4*>(As + r * GB_LD + kc) = v;
     }
     for (int c = tid; c < GB_N * 4; c += 256) {
@@ -185,10 +217,19 @@ __global__ void __launch_bounds__(256) gemm_f32_kernel(
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
+  size_t arow[GF_M * GF_K / 256];  // this thread's A rows, fixed over the K loop
+#pragma unroll
+  for (int it = 0; it < GF_M * GF_K / 256; ++it) {
+    const int r = (tid + it * 256) / GF_K;
+    arow[it] = m0 + r < M ? a_row(e, m0 + r) : 0;
+  }
+
   for (int k0 = 0; k0 < K; k0 += GF_K) {
-    for (int c = tid; c < GF_M * GF_K; c += 256) {
+#pragma unroll
+    for (int it = 0; it < GF_M * GF_K / 256; ++it) {
+      const int c = tid + it * 256;
       const int r = c / GF_K, kk = c - r * GF_K;
-      As[kk][r] = (m0 + r < M) ? A[(size_t)(m0 + r) * K + k0 + kk] : 0.0f;
+      As[kk][r] = (m0 + r < M) ? A[arow[it] * K + k0 + kk] : 0.0f;
       Ws[kk][r] = (n0 + r < N) ? W[(size_t)(n0 + r) * K + k0 + kk] : 0.0f;
     }
     __syncthreads();
@@ -224,6 +265,36 @@ __global__ void __launch_bounds__(256) gemm_f32_kernel(
 // one query row per warp at a time; d = 32 = one lane per head channel.
 // ---------------------------------------------------------------------------
 constexpr int WA_D = 32, WA_WARPS = 8, WA_MAXT = 8;  // N <= 32 * WA_MAXT
+
+// scores of query row i against keys j = lane + 32 t, bias and shift mask
+// included; returns the row max over the warp
+template <int MAXT>
+__device__ __forceinline__ float score_row(
+    const float* __restrict__ q, const float* __restrict__ Ks, int ldk,
+    const float* __restrict__ table, const int* __restrict__ reg, int i, int n, int win,
+    int heads, int h, int shift, int lane, float* s) {
+  const int tw = 2 * win - 1;
+  const int iy = i / win, ix = i - (i / win) * win;
+  const int ri = shift > 0 ? reg[i] : 0;
+  float mx = -INFINITY;
+#pragma unroll
+  for (int t = 0; t < MAXT; ++t) {
+    const int j = lane + 32 * t;
+    s[t] = -INFINITY;
+    if (j < n) {
+      const float* kr = Ks + j * ldk;
+      float acc = 0.0f;
+#pragma unroll
+      for (int dd = 0; dd < WA_D; ++dd) acc = fmaf(q[dd], kr[dd], acc);
+      const int jy = j / win, jx = j - (j / win) * win;
+      acc += table[((iy - jy + win - 1) * tw + (ix - jx + win - 1)) * heads + h];
+      if (shift > 0 && reg[j] != ri) acc += -100.0f;
+      s[t] = acc;
+      mx = fmaxf(mx, acc);
+    }
+  }
+  return warp_max(mx);
+}
 
 template <typename T>
 __global__ void __launch_bounds__(256) win_attn_kernel(
@@ -261,33 +332,14 @@ __global__ void __launch_bounds__(256) win_attn_kernel(
   }
   __syncthreads();
 
-  const int tw = 2 * win - 1;
   float* q = Qw + warp * WA_D;
   float* p = Pw + warp * n;
   for (int i = warp; i < n; i += WA_WARPS) {
     q[lane] = to_f<T>(qkv[(row0 + i) * ld + h * WA_D + lane]);
     __syncwarp();
-    const int iy = i / win, ix = i - (i / win) * win;
-    const int ri = m.shift > 0 ? reg[i] : 0;
     float s[WA_MAXT];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int t = 0; t < WA_MAXT; ++t) {
-      const int j = lane + 32 * t;
-      s[t] = -INFINITY;
-      if (j < n) {
-        const float* kr = Ks + j * (WA_D + 1);
-        float acc = 0.0f;
-#pragma unroll
-        for (int dd = 0; dd < WA_D; ++dd) acc = fmaf(q[dd], kr[dd], acc);
-        const int jy = j / win, jx = j - (j / win) * win;
-        acc += table[((iy - jy + win - 1) * tw + (ix - jx + win - 1)) * heads + h];
-        if (m.shift > 0 && reg[j] != ri) acc += -100.0f;
-        s[t] = acc;
-        mx = fmaxf(mx, acc);
-      }
-    }
-    mx = warp_max(mx);
+    const float mx = score_row<WA_MAXT>(q, Ks, WA_D + 1, table, reg, i, n, win, heads, h,
+                                        m.shift, lane, s);
     float sum = 0.0f;
 #pragma unroll
     for (int t = 0; t < WA_MAXT; ++t) {
@@ -308,6 +360,165 @@ __global__ void __launch_bounds__(256) win_attn_kernel(
     out[(row0 + i) * C + h * WA_D + lane] = from_f<T>(o);
     __syncwarp();
   }
+}
+
+// ---------------------------------------------------------------------------
+// K5: window attention backward.  qkv: [B*nW*N, 3C] as the forward stored it
+// (q pre-scaled); dout: [B*nW*N, C], the gradient of the attention core's
+// output; dqkv: [B*nW*N, 3C], gradients of the qkv projection's output (dq
+// carries the q scale); dbias: f32 [nW, heads, N, N], dS summed over images.
+// One block per (window of the image, head), WB_WARPS warps; needs N % 4 == 0.
+// ---------------------------------------------------------------------------
+// 18 warps: 144 rows are 8 rounds of 18, 36 column groups of 4 are 2 rounds
+constexpr int WB_LD = WA_D + 1, WB_WARPS = 18;
+
+template <typename T>
+__global__ void __launch_bounds__(32 * WB_WARPS) win_attn_bwd_kernel(
+    const T* __restrict__ qkv, const T* __restrict__ dout, const float* __restrict__ table,
+    T* __restrict__ dqkv, float* __restrict__ dbias, int batch, int C, int heads, float scale,
+    WinMap m) {
+  extern __shared__ float sm[];
+  const int win = m.win, n = win * win;
+  float* Qs = sm;                 // n x WB_LD each
+  float* Ks = Qs + n * WB_LD;
+  float* Vs = Ks + n * WB_LD;
+  float* Gs = Vs + n * WB_LD;     // dO
+  float* Mx = Gs + n * WB_LD;     // n x n: P, then dS
+  int* reg = reinterpret_cast<int*>(Mx + n * n);
+  const int w = blockIdx.x, h = blockIdx.y, per_img = gridDim.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t ld = 3 * (size_t)C;
+  float* db = dbias + ((size_t)w * heads + h) * n * n;
+
+  if (m.shift > 0) {
+    const int nwx = m.Wp / win;
+    const int wy = w / nwx, wx = w - wy * nwx;
+    for (int j = tid; j < n; j += blockDim.x) {
+      const int ry = wy * win + j / win, rx = wx * win + j % win;
+      const int gy = ry < m.Hp - win ? 0 : (ry < m.Hp - m.shift ? 1 : 2);
+      const int gx = rx < m.Wp - win ? 0 : (rx < m.Wp - m.shift ? 1 : 2);
+      reg[j] = gy * 3 + gx;
+    }
+  }
+
+  for (int b = 0; b < batch; ++b) {
+    const size_t row0 = ((size_t)b * per_img + w) * n;
+    __syncthreads();  // the previous image's passes are done with shared memory
+    for (int idx = tid; idx < n * WA_D; idx += blockDim.x) {
+      const int j = idx / WA_D, dd = idx - (idx / WA_D) * WA_D;
+      const T* rp = qkv + (row0 + j) * ld + h * WA_D + dd;
+      Qs[j * WB_LD + dd] = to_f<T>(rp[0]);
+      Ks[j * WB_LD + dd] = to_f<T>(rp[C]);
+      Vs[j * WB_LD + dd] = to_f<T>(rp[2 * C]);
+      Gs[j * WB_LD + dd] = to_f<T>(dout[(row0 + j) * C + h * WA_D + dd]);
+    }
+    __syncthreads();
+
+    // pass 1: P = softmax(S), one query row per warp
+    for (int i = warp; i < n; i += WB_WARPS) {
+      float s[WA_MAXT];
+      const float mx = score_row<WA_MAXT>(Qs + i * WB_LD, Ks, WB_LD, table, reg, i, n, win,
+                                          heads, h, m.shift, lane, s);
+      float sum = 0.0f;
+#pragma unroll
+      for (int t = 0; t < WA_MAXT; ++t) {
+        if (lane + 32 * t < n) {
+          s[t] = expf(s[t] - mx);
+          sum += s[t];
+        }
+      }
+      sum = warp_sum(sum);
+#pragma unroll
+      for (int t = 0; t < WA_MAXT; ++t) {
+        const int j = lane + 32 * t;
+        if (j < n) Mx[i * n + j] = s[t] / sum;
+      }
+    }
+    __syncthreads();
+
+    // pass 2: dV[j] = sum_i P[i, j] dO[i], P in the storage type as the forward used it;
+    // a warp takes 4 neighbouring columns j so that one dO load feeds 4 products
+    for (int j = 4 * warp; j < n; j += 4 * WB_WARPS) {
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int i = 0; i < n; ++i) {
+        const float4 pr = *reinterpret_cast<const float4*>(Mx + i * n + j);
+        const float gv = Gs[i * WB_LD + lane];
+        acc[0] = fmaf(to_f<T>(from_f<T>(pr.x)), gv, acc[0]);
+        acc[1] = fmaf(to_f<T>(from_f<T>(pr.y)), gv, acc[1]);
+        acc[2] = fmaf(to_f<T>(from_f<T>(pr.z)), gv, acc[2]);
+        acc[3] = fmaf(to_f<T>(from_f<T>(pr.w)), gv, acc[3]);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        dqkv[(row0 + j + k) * ld + 2 * C + h * WA_D + lane] = from_f<T>(acc[k]);
+    }
+    __syncthreads();
+
+    // pass 3: dP = dO V^T, dS = P (dP - rowsum(dP P)) over P in place, dQ = scale dS K
+    for (int i = warp; i < n; i += WB_WARPS) {
+      const float* g = Gs + i * WB_LD;
+      float dp[WA_MAXT];
+      float part = 0.0f;
+#pragma unroll
+      for (int t = 0; t < WA_MAXT; ++t) {
+        const int j = lane + 32 * t;
+        dp[t] = 0.0f;
+        if (j < n) {
+          const float* vr = Vs + j * WB_LD;
+          float acc = 0.0f;
+#pragma unroll
+          for (int dd = 0; dd < WA_D; ++dd) acc = fmaf(g[dd], vr[dd], acc);
+          dp[t] = acc;
+          part = fmaf(acc, Mx[i * n + j], part);
+        }
+      }
+      part = warp_sum(part);
+#pragma unroll
+      for (int t = 0; t < WA_MAXT; ++t) {
+        const int j = lane + 32 * t;
+        if (j < n) Mx[i * n + j] *= dp[t] - part;
+      }
+      __syncwarp();
+      float acc = 0.0f;
+      for (int j = 0; j < n; ++j) acc = fmaf(Mx[i * n + j], Ks[j * WB_LD + lane], acc);
+      dqkv[(row0 + i) * ld + h * WA_D + lane] = from_f<T>(acc * scale);
+    }
+    __syncthreads();
+
+    // pass 4: dK[j] = sum_i dS[i, j] Q[i] (Q carries the scale); dBias += dS
+    for (int j = 4 * warp; j < n; j += 4 * WB_WARPS) {
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int i = 0; i < n; ++i) {
+        const float4 ds = *reinterpret_cast<const float4*>(Mx + i * n + j);
+        const float qv = Qs[i * WB_LD + lane];
+        acc[0] = fmaf(ds.x, qv, acc[0]);
+        acc[1] = fmaf(ds.y, qv, acc[1]);
+        acc[2] = fmaf(ds.z, qv, acc[2]);
+        acc[3] = fmaf(ds.w, qv, acc[3]);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        dqkv[(row0 + j + k) * ld + C + h * WA_D + lane] = from_f<T>(acc[k]);
+    }
+    for (int idx = tid; idx < n * n; idx += blockDim.x)
+      db[idx] = (b == 0 ? 0.0f : db[idx]) + Mx[idx];
+  }
+}
+
+template <typename T>
+int launch_win_attn_bwd(const void* qkv, const void* dout, const void* table, void* dqkv,
+                        void* dbias, int batch, int C, int heads, float scale, WinMap m,
+                        cudaStream_t st) {
+  const int n = m.win * m.win;
+  const size_t smem = (size_t)(4 * n * WB_LD + n * n + n) * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      win_attn_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((m.Hp / m.win) * (m.Wp / m.win), heads);
+  win_attn_bwd_kernel<T><<<grid, 32 * WB_WARPS, smem, st>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(dout), static_cast<const float*>(table),
+      static_cast<T*>(dqkv), static_cast<float*>(dbias), batch, C, heads, scale, m);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -356,12 +567,14 @@ int grit_ln_rows(const void* x, const void* g, const void* b, void* out, int row
 
 // out = epilogue(A [M, K] @ W[N, K]^T); bias [N] in the storage type, as
 // flax's Dense casts it.  bf16 needs K % 32 == 0, fp32 K % 16 == 0; both
-// N % 64 == 0 (checked by the Python wrapper).
+// N % 64 == 0 (checked by the Python wrapper).  With a_gather, A is the map and
+// row r of the product reads map token win_row_to_token(r).
 int grit_gemm(const void* A, const void* W, const void* bias, void* out, const void* resid,
               int M, int N, int K, int mode, float scale, int scale_cols, int Hp, int Wp,
-              int win, int shift, int real_h, int real_w, int dtype, void* stream) {
+              int win, int shift, int real_h, int real_w, int a_gather, int dtype,
+              void* stream) {
   Epi e{bias, out, resid, mode, scale, scale_cols,
-        WinMap{Hp, Wp, win, shift, real_h, real_w}};
+        WinMap{Hp, Wp, win, shift, real_h, real_w}, a_gather};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     dim3 grid((M + GB_M - 1) / GB_M, (N + GB_N - 1) / GB_N);
@@ -382,6 +595,18 @@ int grit_window_attn(const void* qkv, const void* table, void* out, int num_wind
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) return launch_win_attn<bf16>(qkv, table, out, num_windows, C, heads, m, st);
   return launch_win_attn<float>(qkv, table, out, num_windows, C, heads, m, st);
+}
+
+// K5 (see win_attn_bwd_kernel): qkv, dqkv [batch * nW * win^2, 3C]; dout [.., C];
+// table f32 [(2win-1)^2, heads]; dbias f32 [nW, heads, win^2, win^2].
+int grit_window_attn_bwd(const void* qkv, const void* dout, const void* table, void* dqkv,
+                         void* dbias, int batch, int C, int heads, float scale, int Hp, int Wp,
+                         int win, int shift, int dtype, void* stream) {
+  WinMap m{Hp, Wp, win, shift, Hp, Wp};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_win_attn_bwd<bf16>(qkv, dout, table, dqkv, dbias, batch, C, heads, scale, m, st);
+  return launch_win_attn_bwd<float>(qkv, dout, table, dqkv, dbias, batch, C, heads, scale, m, st);
 }
 
 }  // extern "C"

@@ -5,7 +5,7 @@
 
 Loads a reference ``.pth`` with ``load_state_dict(strict=True)`` and runs the
 port in bf16 on a GPU (fp32 with ``--device cpu``); config overrides use
-grit_tpu.config's dotted syntax.
+grit_tpu_torch.config's dotted syntax.
 """
 
 from __future__ import annotations
@@ -18,9 +18,9 @@ import torch
 def caption_image(image_path, checkpoint, config=None, beam_size=None, device="cuda"):
     from PIL import Image
 
-    from grit_tpu.config import default_caption_config
-    from grit_tpu.data.field import TextField
-    from grit_tpu.data.transforms import get_transform
+    from grit_tpu_torch.config import default_caption_config
+    from grit_tpu_torch.data.field import TextField
+    from grit_tpu_torch.data.transforms import get_transform
     from grit_tpu_torch.convert import load_reference_checkpoint
     from grit_tpu_torch.engine.evaluator import make_caption_generator
     from grit_tpu_torch.models.captioner import build_captioner, to_compute_dtype
@@ -57,7 +57,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args, overrides = ap.parse_known_args(argv)
 
-    from grit_tpu.config import default_caption_config
+    from grit_tpu_torch.config import default_caption_config
 
     config = default_caption_config().apply_overrides(overrides)
     if args.vocab:

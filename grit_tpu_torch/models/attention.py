@@ -4,8 +4,8 @@
   as many rows as k/v, and every f consecutive q rows (the beams of one
   image) attend to the same k/v row, so decode-time visual K/V stay
   per-image instead of beam-tiled.
-- ``MultiHeadAttention``: attention + post-LN residual
-  ``LN(q + attn(q, k, v))`` (attention.py:166-184), with an optional
+- ``MultiHeadAttention``: attention + dropout + post-LN residual
+  ``LN(q + dropout(attn(q, k, v)))`` (attention.py:166-184), with an optional
   fixed-shape KV cache [B, T_max, D] written at ``cache_index``.
 - ``FeedForward``: Linear-ReLU-Linear with post-LN residual.
 
@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from grit_tpu_torch.models.layers import Dropout, Linear
 from grit_tpu_torch.models.norm import LayerNorm
 
 LN_EPS = 1e-5
@@ -31,13 +32,14 @@ KVCache = tuple[torch.Tensor, torch.Tensor]
 
 
 class Attention(nn.Module):
-    def __init__(self, d_model: int, n_heads: int):
+    def __init__(self, d_model: int, n_heads: int, dropout: float = 0.1):
         super().__init__()
         self.d_model, self.n_heads = d_model, n_heads
-        self.fc_q = nn.Linear(d_model, d_model)
-        self.fc_k = nn.Linear(d_model, d_model)
-        self.fc_v = nn.Linear(d_model, d_model)
-        self.fc_o = nn.Linear(d_model, d_model)
+        self.attn_drop = Dropout(dropout)
+        self.fc_q = Linear(d_model, d_model)
+        self.fc_k = Linear(d_model, d_model)
+        self.fc_v = Linear(d_model, d_model)
+        self.fc_o = Linear(d_model, d_model)
 
     def forward(self, q, k, v, mask: Optional[torch.Tensor] = None, *,
                 kv_projected: bool = False, kv_fold: int = 1) -> torch.Tensor:
@@ -52,7 +54,7 @@ class Attention(nn.Module):
         scores = qh @ kh.transpose(-1, -2) / math.sqrt(d_k)
         if mask is not None:
             scores = scores.masked_fill(mask, float("-inf"))
-        out = torch.softmax(scores, dim=-1) @ vh
+        out = self.attn_drop(torch.softmax(scores, dim=-1)) @ vh
         return self.fc_o(out.transpose(1, 2).reshape(bq, nq, self.d_model))
 
     def project_kv(self, k, v) -> KVCache:
@@ -60,9 +62,10 @@ class Attention(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, d_model: int, n_heads: int):
+    def __init__(self, d_model: int, n_heads: int, dropout: float = 0.1):
         super().__init__()
-        self.attention = Attention(d_model, n_heads)
+        self.attention = Attention(d_model, n_heads, dropout)
+        self.drop = Dropout(dropout)
         self.layer_norm = LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, queries, keys, values, mask=None, *, cache: Optional[KVCache] = None,
@@ -75,7 +78,7 @@ class MultiHeadAttention(nn.Module):
         if cache is None:
             out = self.attention(queries, keys, values, mask,
                                  kv_projected=kv_projected, kv_fold=kv_fold)
-            return self.layer_norm(queries + out)
+            return self.layer_norm(queries + self.drop(out))
         k_cache, v_cache = cache
         k_new, v_new = self.attention.project_kv(keys, values)
         k_cache[:, cache_index] = k_new[:, 0]
@@ -83,17 +86,18 @@ class MultiHeadAttention(nn.Module):
         slot = torch.arange(k_cache.shape[1], device=k_cache.device) > cache_index
         full_mask = slot[None, None, None] if mask is None else mask | slot
         out = self.attention(queries, k_cache, v_cache, full_mask, kv_projected=True)
-        return self.layer_norm(queries + out), (k_cache, v_cache)
+        return self.layer_norm(queries + self.drop(out)), (k_cache, v_cache)
 
 
 class FeedForward(nn.Module):
     """Position-wise FFN with post-LN residual (pos_embed.py:34-48)."""
 
-    def __init__(self, d_model: int = 512, d_ff: int = 2048):
+    def __init__(self, d_model: int = 512, d_ff: int = 2048, dropout: float = 0.1):
         super().__init__()
-        self.fc1 = nn.Linear(d_model, d_ff)
-        self.fc2 = nn.Linear(d_ff, d_model)
+        self.drop = Dropout(dropout)
+        self.fc1 = Linear(d_model, d_ff)
+        self.fc2 = Linear(d_ff, d_model)
         self.layer_norm = LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x):
-        return self.layer_norm(x + self.fc2(F.relu(self.fc1(x))))
+        return self.layer_norm(x + self.drop(self.fc2(self.drop(F.relu(self.fc1(x))))))

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from grit_tpu_torch.models.attention import FeedForward, MultiHeadAttention
+from grit_tpu_torch.models.layers import Linear
 from grit_tpu_torch.ops.posemb import sinusoid_encoding_table
 
 DecodeCache = dict  # {'layers': [(k, v), ...], 'pad_hist': [B, T] bool}
@@ -30,15 +31,15 @@ DecodeCache = dict  # {'layers': [(k, v), ...], 'pad_hist': [B, T] bool}
 
 class ParallelAttentionLayer(nn.Module):
     def __init__(self, d_model: int = 512, n_heads: int = 8, d_ff: int = 2048,
-                 replicate_alpha_bug: bool = True):
+                 replicate_alpha_bug: bool = True, dropout: float = 0.1):
         super().__init__()
         self.replicate_alpha_bug = replicate_alpha_bug
-        self.self_att = MultiHeadAttention(d_model, n_heads)
-        self.vis_att1 = MultiHeadAttention(d_model, n_heads)
-        self.vis_att2 = MultiHeadAttention(d_model, n_heads)
-        self.fc_alpha1 = nn.Linear(2 * d_model, d_model)
-        self.fc_alpha2 = nn.Linear(2 * d_model, d_model)
-        self.pwff = FeedForward(d_model, d_ff)
+        self.self_att = MultiHeadAttention(d_model, n_heads, dropout)
+        self.vis_att1 = MultiHeadAttention(d_model, n_heads, dropout)
+        self.vis_att2 = MultiHeadAttention(d_model, n_heads, dropout)
+        self.fc_alpha1 = Linear(2 * d_model, d_model)
+        self.fc_alpha2 = Linear(2 * d_model, d_model)
+        self.pwff = FeedForward(d_model, d_ff, dropout)
 
     def _fuse(self, self_att, enc1, enc2, mask_pad):
         fc2 = self.fc_alpha1 if self.replicate_alpha_bug else self.fc_alpha2
@@ -71,17 +72,19 @@ class ParallelAttentionLayer(nn.Module):
 class CaptionGenerator(nn.Module):
     def __init__(self, vocab_size: int, max_len: int, n_layers: int, pad_idx: int,
                  d_model: int = 512, n_heads: int = 8, d_ff: int = 2048,
-                 replicate_alpha_bug: bool = True):
+                 replicate_alpha_bug: bool = True, dropout: float = 0.1):
         super().__init__()
         self.pad_idx, self.d_model = pad_idx, d_model
+        #: set by ``captioner.to_compute_dtype``; None = the dtype of the weights
+        self.compute_dtype = None
         self.word_emb = nn.Embedding(vocab_size, d_model)
         self.pos_emb = nn.Embedding(max_len + 1, d_model)
         with torch.no_grad():
             self.pos_emb.weight.copy_(sinusoid_encoding_table(max_len + 1, d_model, 0))
         self.layers = nn.ModuleList(
-            ParallelAttentionLayer(d_model, n_heads, d_ff, replicate_alpha_bug)
+            ParallelAttentionLayer(d_model, n_heads, d_ff, replicate_alpha_bug, dropout)
             for _ in range(n_layers))
-        self.fc = nn.Linear(d_model, vocab_size, bias=False)
+        self.fc = Linear(d_model, vocab_size, bias=False)
 
     @staticmethod
     def _vis(vis_inputs: dict):
@@ -91,7 +94,7 @@ class CaptionGenerator(nn.Module):
     def forward(self, input_ids: torch.Tensor, vis_inputs: dict) -> torch.Tensor:
         """Teacher forcing: int [B, L] -> log-probs [B, L, V] (cap_generator.py:126-145)."""
         b, L = input_ids.shape
-        dt = self.compute_dtype
+        dt = self._dtype()
         is_pad = input_ids == self.pad_idx
         mask_pad = (~is_pad)[..., None].to(dt)
         causal = torch.ones((L, L), dtype=torch.bool, device=input_ids.device).triu(1)
@@ -103,17 +106,17 @@ class CaptionGenerator(nn.Module):
             x = layer(x, y1, y2, mask_pad, mask_x, m1, m2)
         return torch.log_softmax(self.fc(x).float(), dim=-1)
 
-    @property
-    def compute_dtype(self) -> torch.dtype:
-        """The embeddings stay f32 parameters; the layers compute in the
-        dtype of their Linear weights."""
-        return self.fc.weight.dtype
+    def _dtype(self) -> torch.dtype:
+        """The embeddings stay f32 parameters; the layers compute in
+        ``compute_dtype`` or, where none was set, in the dtype of their
+        Linear weights."""
+        return self.compute_dtype or self.fc.weight.dtype
 
     def init_cache(self, batch: int, t_max: int) -> DecodeCache:
         w = self.word_emb.weight
 
         def zeros():
-            return torch.zeros((batch, t_max, self.d_model), dtype=self.compute_dtype,
+            return torch.zeros((batch, t_max, self.d_model), dtype=self._dtype(),
                                device=w.device)
 
         return {"layers": [(zeros(), zeros()) for _ in self.layers],
@@ -129,7 +132,7 @@ class CaptionGenerator(nn.Module):
         is updated in place.  ``vis_fold=f``: token/cache are beam-expanded
         [B*f, ...] while vis_inputs/vis_kv stay per image [B, ...]."""
         is_pad = token == self.pad_idx
-        dt = self.compute_dtype
+        dt = self._dtype()
         mask_pad = (~is_pad)[..., None].to(dt)
         pad_hist = cache["pad_hist"]
         pad_hist[:, t] = is_pad[:, 0]

@@ -1,8 +1,9 @@
 """GRIT captioner: detector -> grid network -> caption generator.
 
 Math parity: reference models/caption/transformer.py (class Transformer).
-Decoding runs through ``grit_tpu_torch.decoding.beam_search`` with the
-single-token ``decode_step`` and fixed-shape KV caches.
+``forward(images, seq)`` is the teacher-forced training path; decoding runs
+through ``grit_tpu_torch.decoding.beam_search`` with the single-token
+``decode_step`` and fixed-shape KV caches.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from grit_tpu_torch.models.det_module import (DetectionModule, MSDeformAttnModul
                                               SelfAttention, msda_offset_bias)
 from grit_tpu_torch.models.detector import Detector
 from grit_tpu_torch.models.grid_net import GridFeatureNetwork
-from grit_tpu_torch.models.swin import build_swin
+from grit_tpu_torch.models.swin import SwinTransformer, build_swin
 from grit_tpu_torch.ops.posemb import sinusoid_encoding_table
 from grit_tpu_torch.utils.nested import ImageBatch
 
@@ -34,6 +35,18 @@ class GRITCaptioner(nn.Module):
         gri, _ = self.grid_net(vis["gri_feat"], vis["gri_mask"])
         vis["gri_feat"] = gri[:, -1]
         return vis
+
+    def forward(self, images: ImageBatch, seq: torch.Tensor) -> torch.Tensor:
+        """Teacher forcing: images and int captions [B, L] -> log-probs [B, L, V]."""
+        return self.cap_generator(seq, self.compute_vis(images))
+
+    def set_generator(self, generator) -> "GRITCaptioner":
+        """Draw every dropout and drop-path mask from ``generator`` (None:
+        torch's global generator)."""
+        for mod in self.modules():
+            if hasattr(mod, "generator"):
+                mod.generator = generator
+        return self
 
     def precompute_vis_kv(self, vis_inputs: dict):
         return self.cap_generator.precompute_vis_kv(vis_inputs)
@@ -73,46 +86,64 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 @torch.no_grad()
-def to_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast the weights and biases of every Linear and convolution (and the
-    detector self-attention's packed in-projection) to ``dtype``.  Norm
-    scales and biases, the relative-position bias tables and the embeddings
-    stay f32.  These are flax's ``dtype=`` semantics: Dense and Conv cast
-    kernel and bias to the compute dtype at every call (the same values each
-    time); LayerNorm, GroupNorm and the tables are read in f32."""
+def to_compute_dtype(model: nn.Module, dtype: torch.dtype, *,
+                     master_f32: bool = False) -> nn.Module:
+    """Compute in ``dtype`` with flax's ``dtype=`` semantics: Dense and Conv
+    use kernel and bias in the compute dtype; LayerNorm, GroupNorm, the
+    relative-position bias tables and the embeddings are read in f32.
+
+    For inference (``master_f32=False``) the weights and biases of every
+    Linear and convolution (and the detector self-attention's packed
+    in-projection) are rounded to ``dtype`` once, here.  For training
+    (``master_f32=True``) every parameter stays f32 and the layers cast at
+    each call, inside the graph (``models/layers.py``), so autograd returns
+    f32 gradients to f32 parameters, as flax does."""
+    if not master_f32:
+        for mod in model.modules():
+            if isinstance(mod, (nn.Linear, nn.Conv2d, SelfAttention)):
+                for p in mod.parameters(recurse=False):
+                    p.data = p.data.to(dtype)
+    # the two modules that turn f32 inputs (images, embeddings) into activations
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d, SelfAttention)):
-            for p in mod.parameters(recurse=False):
-                p.data = p.data.to(dtype)
+        if isinstance(mod, (SwinTransformer, CaptionGenerator)):
+            mod.compute_dtype = dtype
     return model
 
 
 def build_captioner(config, *, device=None, dtype: torch.dtype = torch.float32,
-                    seed: int | None = 0) -> GRITCaptioner:
-    """Assemble the captioner from a caption config (grit_tpu.config) on
-    ``device``, computing in ``dtype`` (see ``to_compute_dtype``).  ``seed``
-    draws random weights from a ``torch.Generator``; load a checkpoint over
-    them with load_state_dict."""
+                    seed: int | None = 0, train: bool = False) -> GRITCaptioner:
+    """Assemble the captioner from a caption config (grit_tpu_torch.config)
+    on ``device`` (default: the GPU; raises without one), computing in
+    ``dtype`` (see ``to_compute_dtype``).  ``seed`` draws random weights from
+    a ``torch.Generator``; load a checkpoint over them with load_state_dict.
+    ``train=True`` returns the model in ``train()`` with f32 master
+    parameters; otherwise it is in ``eval()`` with its weights rounded to
+    ``dtype``."""
     m = config.model
     det = m.detector
     if m.cap_generator.decoder_name != "parallel" or not (m.use_gri_feat and m.use_reg_feat):
         raise NotImplementedError(
             "only the 'parallel' decoder over grid and region features is ported")
-    device = torch.device(device or "cpu")
+    device = torch.device(device or "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_captioner: no CUDA device is available "
+                           "(pass device='cpu' to build on the CPU)")
     with device:
-        backbone = build_swin(m.get("backbone", "swin_base_win7_384_22k"))
+        backbone = build_swin(m.get("backbone", "swin_base_win7_384_22k"),
+                              frozen_stages=int(m.get("frozen_stages", -1)),
+                              use_checkpoint=bool(m.get("use_checkpoint", False)))
         det_module = DetectionModule(
             d_model=det.d_model, n_heads=det.num_heads, num_layers=det.num_layers,
             dim_feedforward=det.dim_feedforward, num_levels=det.num_levels,
             num_points=det.num_points, num_classes=det.num_classes,
-            num_queries=det.num_queries)
+            num_queries=det.num_queries, dropout=det.dropout)
         model = GRITCaptioner(
             Detector(backbone, det_module, hidden_dim=m.d_model),
             GridFeatureNetwork(m.grid_net.n_layers, d_in=m.grid_feat_dim,
-                               d_model=m.d_model, n_heads=m.n_heads),
+                               d_model=m.d_model, n_heads=m.n_heads, dropout=m.dropout),
             CaptionGenerator(m.vocab_size, m.max_len, m.cap_generator.n_layers, m.pad_idx,
-                             d_model=m.d_model, n_heads=m.n_heads,
+                             d_model=m.d_model, n_heads=m.n_heads, dropout=m.dropout,
                              replicate_alpha_bug=bool(m.get("replicate_alpha_bug", True))))
     if seed is not None:
         init_weights(model, torch.Generator(device=device).manual_seed(seed))
-    return to_compute_dtype(model, dtype).eval()
+    return to_compute_dtype(model, dtype, master_f32=train).train(train)

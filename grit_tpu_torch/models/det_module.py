@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from grit_tpu_torch.models.layers import Dropout, Linear
 from grit_tpu_torch.models.norm import LayerNorm
 from grit_tpu_torch.ops import msda as msda_ops
 
@@ -50,7 +51,7 @@ class MLP(nn.Module):
     def __init__(self, hidden_dim: int, output_dim: int, num_layers: int):
         super().__init__()
         self.layers = nn.ModuleList(
-            nn.Linear(hidden_dim, output_dim if i == num_layers - 1 else hidden_dim)
+            Linear(hidden_dim, output_dim if i == num_layers - 1 else hidden_dim)
             for i in range(num_layers))
 
     def forward(self, x):
@@ -68,10 +69,10 @@ class MSDeformAttnModule(nn.Module):
                  n_points: int = 4):
         super().__init__()
         self.n_levels, self.n_heads, self.n_points = n_levels, n_heads, n_points
-        self.value_proj = nn.Linear(d_model, d_model)
-        self.sampling_offsets = nn.Linear(d_model, n_heads * n_levels * n_points * 2)
-        self.attention_weights = nn.Linear(d_model, n_heads * n_levels * n_points)
-        self.output_proj = nn.Linear(d_model, d_model)
+        self.value_proj = Linear(d_model, d_model)
+        self.sampling_offsets = Linear(d_model, n_heads * n_levels * n_points * 2)
+        self.attention_weights = Linear(d_model, n_heads * n_levels * n_points)
+        self.output_proj = Linear(d_model, d_model)
 
     def forward(self, query, reference_points, src, spatial_shapes, real_hw):
         """query [B, Lq, C]; reference_points [B, Lq, L, 4] boxes (valid-ratio
@@ -91,34 +92,36 @@ class MSDeformAttnModule(nn.Module):
 class SelfAttention(nn.Module):
     """torch nn.MultiheadAttention parity: packed in-proj QKV + out-proj."""
 
-    def __init__(self, d_model: int, n_heads: int):
+    def __init__(self, d_model: int, n_heads: int, dropout: float = 0.1):
         super().__init__()
         self.n_heads = n_heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.out_proj = Linear(d_model, d_model)
+        self.attn_drop = Dropout(dropout)
 
     def forward(self, q, k, v):
         b, n, c = q.shape
         h, d = self.n_heads, c // self.n_heads
-        w, bias = self.in_proj_weight, self.in_proj_bias
+        w, bias = self.in_proj_weight.to(q.dtype), self.in_proj_bias.to(q.dtype)
         qp = F.linear(q, w[:c], bias[:c]).view(b, -1, h, d).transpose(1, 2)
         kp = F.linear(k, w[c:2 * c], bias[c:2 * c]).view(b, -1, h, d).transpose(1, 2)
         vp = F.linear(v, w[2 * c:], bias[2 * c:]).view(b, -1, h, d).transpose(1, 2)
-        p = torch.softmax(qp @ kp.transpose(-1, -2) / math.sqrt(d), dim=-1)
+        p = self.attn_drop(torch.softmax(qp @ kp.transpose(-1, -2) / math.sqrt(d), dim=-1))
         return self.out_proj((p @ vp).transpose(1, 2).reshape(b, n, c))
 
 
 class DeformableDecoderLayer(nn.Module):
     def __init__(self, d_model: int = 256, d_ffn: int = 1024, n_levels: int = 4,
-                 n_heads: int = 8, n_points: int = 4):
+                 n_heads: int = 8, n_points: int = 4, dropout: float = 0.1):
         super().__init__()
-        self.self_attn = SelfAttention(d_model, n_heads)
+        self.dropout = Dropout(dropout)
+        self.self_attn = SelfAttention(d_model, n_heads, dropout)
         self.norm2 = LayerNorm(d_model, eps=LN_EPS)
         self.cross_attn = MSDeformAttnModule(d_model, n_levels, n_heads, n_points)
         self.norm1 = LayerNorm(d_model, eps=LN_EPS)
-        self.linear1 = nn.Linear(d_model, d_ffn)
-        self.linear2 = nn.Linear(d_ffn, d_model)
+        self.linear1 = Linear(d_model, d_ffn)
+        self.linear2 = Linear(d_ffn, d_model)
         self.norm3 = LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, tgt, query_pos, reference_points, src, spatial_shapes,
@@ -127,10 +130,11 @@ class DeformableDecoderLayer(nn.Module):
         scale = torch.cat([valid_ratios, valid_ratios], -1)
         ref = reference_points[:, :, None] * scale[:, None]
         q = tgt + query_pos
-        tgt = self.norm2(tgt + self.self_attn(q, q, tgt))
+        drop = self.dropout
+        tgt = self.norm2(tgt + drop(self.self_attn(q, q, tgt)))
         ca = self.cross_attn(tgt + query_pos, ref, src, spatial_shapes, real_hw)
-        tgt = self.norm1(tgt + ca)
-        return self.norm3(tgt + self.linear2(F.relu(self.linear1(tgt))))
+        tgt = self.norm1(tgt + drop(ca))
+        return self.norm3(tgt + drop(self.linear2(drop(F.relu(self.linear1(tgt))))))
 
 
 def get_valid_ratio(mask: torch.Tensor) -> torch.Tensor:
@@ -144,28 +148,30 @@ def get_valid_ratio(mask: torch.Tensor) -> torch.Tensor:
 class DetectionModule(nn.Module):
     def __init__(self, d_model: int = 512, n_heads: int = 8, num_layers: int = 6,
                  dim_feedforward: int = 1024, num_levels: int = 4, num_points: int = 4,
-                 num_classes: int = 1849, num_queries: int = 150):
+                 num_classes: int = 1849, num_queries: int = 150, dropout: float = 0.1):
         super().__init__()
         self.d_model, self.num_queries = d_model, num_queries
         self.query_embed = nn.Embedding(num_queries, 2 * d_model)
         self.level_embed = nn.Parameter(torch.zeros(num_levels, d_model))
-        self.reference_points = nn.Linear(d_model, 2)
+        self.reference_points = Linear(d_model, 2)
         self.decoder_layers = nn.ModuleList(
-            DeformableDecoderLayer(d_model, dim_feedforward, num_levels, n_heads, num_points)
+            DeformableDecoderLayer(d_model, dim_feedforward, num_levels, n_heads, num_points,
+                                   dropout)
             for _ in range(num_layers))
         self.class_embed = nn.ModuleList(
-            nn.Linear(d_model, num_classes) for _ in range(num_layers + 1))
+            Linear(d_model, num_classes) for _ in range(num_layers + 1))
         self.bbox_embed = nn.ModuleList(MLP(d_model, 4, 3) for _ in range(num_layers + 1))
 
     @staticmethod
     def bbox_refine(bbox_embed: MLP, output, reference_points):
-        """Iterative refinement (det_module.py:40-53); inference only, so the
-        reference's detach is implicit."""
+        """Iterative refinement with the reference's detach (det_module.py:40-53):
+        no gradient reaches the boxes, so a layer's sampling locations learn
+        through their offsets only."""
         tmp = bbox_embed(output)
         if reference_points.shape[-1] == 4:
-            return torch.sigmoid(tmp + inverse_sigmoid(reference_points))
+            return torch.sigmoid(tmp + inverse_sigmoid(reference_points)).detach()
         xy = tmp[..., :2] + inverse_sigmoid(reference_points)
-        return torch.sigmoid(torch.cat([xy, tmp[..., 2:]], -1))
+        return torch.sigmoid(torch.cat([xy, tmp[..., 2:]], -1)).detach()
 
     def forward(self, srcs, masks):
         """srcs: per level [B, H, W, C]; masks: per level [B, H, W] bool (True =

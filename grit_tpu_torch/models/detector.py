@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from grit_tpu_torch.models.det_module import DetectionModule
+from grit_tpu_torch.models.layers import Conv2d
 from grit_tpu_torch.models.norm import GroupNorm
 from grit_tpu_torch.models.swin import SwinTransformer
 from grit_tpu_torch.utils.nested import ImageBatch, device_normalize, downsample_mask
@@ -26,7 +27,7 @@ class Detector(nn.Module):
         self.backbone = backbone
         self.det_module = det_module
         self.input_proj = nn.ModuleList(
-            nn.Sequential(nn.Conv2d(c, hidden_dim, 1), GroupNorm(32, hidden_dim))
+            nn.Sequential(Conv2d(c, hidden_dim, 1), GroupNorm(32, hidden_dim))
             for c in backbone.num_channels)
 
     def forward(self, images: ImageBatch) -> dict:

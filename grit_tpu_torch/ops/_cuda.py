@@ -1,11 +1,12 @@
 """Build and load the hand-written Hopper kernels (``grit_tpu_torch/csrc``).
 
 The CUDA sources compile with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded through ``ctypes``.  The build runs
-at first use, from the package's own sources, into ``grit_tpu_torch/_build/``
-(git-ignored), keyed by a hash of the sources and flags, so a fresh checkout
-builds itself and an edited source rebuilds.  Nothing here runs at import
-time: the CPU tests import every module of the port.
+library with a plain C interface, loaded through ``ctypes`` (``--threads 0``
+lets nvcc compile the sources side by side).  The build runs at first use,
+from the package's own sources, into ``grit_tpu_torch/_build/`` (git-ignored),
+keyed by a hash of the sources and flags, so a fresh checkout builds itself
+and an edited source rebuilds.  Nothing here runs at import time: the CPU
+tests import every module of the port.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "--threads", "0", "-shared", "-Xcompiler", "-fPIC"]
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -32,10 +33,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "grit_ln_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "grit_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
-                  _I, _I, _I, _P],
+                  _I, _I, _I, _I, _P],
     "grit_window_attn": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "grit_window_attn_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     "grit_msda": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "grit_msda_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _P],
 }
+
 
 _lib = None
 

@@ -1,12 +1,20 @@
-"""Multi-scale deformable attention (MSDA), kernel K3.
+"""Multi-scale deformable attention (MSDA): kernel K3 and its backward K6.
 
 ``msda`` replaces the TPU's ``grit_tpu/ops/msda_pallas.py``
 ``_gather_matmul_kernel_v5`` (via ``ms_deform_attn_pallas_v5`` and
-``msda.py::ms_deform_attn_relaid``).  On a CUDA tensor it launches the
-hand-written gather in ``csrc/msda.cu`` (design notes there); on a CPU tensor
-it runs ``msda_plain``, the level-by-level formulation of the reference's
-python oracle (models/ops/functions/ms_deform_attn_func.py:41-61, i.e.
-``F.grid_sample(align_corners=False, padding_mode='zeros')`` per level).
+``msda.py::ms_deform_attn_relaid``) and the S-chunked
+``_gather_matmul_kernel_v5s`` (K7a), which computes the same function for
+pyramids too large for the TPU's on-chip slab: the gather here reads the
+value from device memory and has no such limit, so there is nothing to chunk.
+``msda_bwd`` replaces ``_gather_bwd_kernel_v4`` (via ``_gather_bwd_v5`` /
+``_gather_bwd_v4``) and the S-chunked ``_gather_bwd_kernel_v5s`` (K7b), and
+also the chain from corner weights to locations and attention weights that
+the TPU path leaves to autodiff.  On a CUDA tensor each launches the
+hand-written kernel in ``csrc/msda.cu`` (design notes there) or raises; on a
+CPU tensor it runs ``msda_plain``, the level-by-level formulation of the
+reference's python oracle (models/ops/functions/ms_deform_attn_func.py:41-61,
+i.e. ``F.grid_sample(align_corners=False, padding_mode='zeros')`` per level),
+or its autograd.  ``msda`` is differentiable in value, locations and weights.
 
 Shapes (reference models/ops/modules/ms_deform_attn.py:80-89), value in its
 natural projection layout:
@@ -29,7 +37,7 @@ import torch
 from grit_tpu_torch.ops import _cuda
 
 #: Kernel launches (one per call that reached the CUDA kernel).
-LAUNCHES = {"msda": 0}
+LAUNCHES = {"msda": 0, "msda_bwd": 0}
 
 _SHAPES_CACHE: dict = {}
 
@@ -83,23 +91,17 @@ def _shapes_tensor(spatial_shapes, device) -> torch.Tensor:
     return _SHAPES_CACHE[key]
 
 
-def msda(value, spatial_shapes, sampling_locations, attention_weights,
-         real_hw) -> torch.Tensor:
-    """K3: MSDA forward (see module docstring).  CPU tensors run the plain
-    version; CUDA tensors launch the kernel or raise."""
-    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
-    if value.device.type == "cpu":
-        return msda_plain(value, spatial_shapes, sampling_locations,
-                          attention_weights, real_hw)
+def _check(name, value, spatial_shapes, sampling_locations, attention_weights, real_hw):
+    """Validate a CUDA call's arguments -> (loc f32, attn f32, real_hw i32, shapes)."""
     n, s, c = value.shape
     _, lq, m, L, p, _ = sampling_locations.shape
     dt = value.dtype
     if dt not in _cuda.DTYPE_CODE:
-        raise ValueError(f"msda: unsupported dtype {dt}")
+        raise ValueError(f"{name}: unsupported dtype {dt}")
     if len(spatial_shapes) != L or s != sum(h * w for h, w in spatial_shapes):
-        raise ValueError(f"msda: value has {s} rows for levels {spatial_shapes}")
+        raise ValueError(f"{name}: value has {s} rows for levels {spatial_shapes}")
     if c % m:
-        raise ValueError(f"msda: {c} channels do not split into {m} heads")
+        raise ValueError(f"{name}: {c} channels do not split into {m} heads")
     _cuda.require(value, "value", dt)
     loc = sampling_locations.float().contiguous()
     attn = attention_weights.float().contiguous()
@@ -107,13 +109,96 @@ def msda(value, spatial_shapes, sampling_locations, attention_weights,
     _cuda.require(loc, "sampling_locations", torch.float32, (n, lq, m, L, p, 2))
     rh = real_hw.to(device=value.device, dtype=torch.int32).contiguous()
     _cuda.require(rh, "real_hw", torch.int32, (n, L, 2))
-    shapes = _shapes_tensor(spatial_shapes, value.device)
+    return loc, attn, rh, _shapes_tensor(spatial_shapes, value.device)
+
+
+def _msda_forward(value, spatial_shapes, sampling_locations, attention_weights, real_hw):
+    if value.device.type == "cpu":
+        return msda_plain(value, spatial_shapes, sampling_locations,
+                          attention_weights, real_hw)
+    n, s, c = value.shape
+    _, lq, m, L, p, _ = sampling_locations.shape
+    loc, attn, rh, shapes = _check("msda", value, spatial_shapes, sampling_locations,
+                                   attention_weights, real_hw)
     lib = _cuda.library()
-    out = torch.empty((n, lq, c), dtype=dt, device=value.device)
+    out = torch.empty((n, lq, c), dtype=value.dtype, device=value.device)
     _cuda.check(lib.grit_msda(value.data_ptr(), shapes.data_ptr(), loc.data_ptr(),
                               attn.data_ptr(), rh.data_ptr(),
                               out.data_ptr(), n, s, lq, m, c // m, L, p,
-                              _cuda.DTYPE_CODE[dt], _cuda.stream()),
+                              _cuda.DTYPE_CODE[value.dtype], _cuda.stream()),
                 "msda")
     LAUNCHES["msda"] += 1
     return out
+
+
+def msda_bwd_plain(dout, value, spatial_shapes, sampling_locations, attention_weights,
+                   real_hw):
+    """Plain version of K6, by autograd of ``msda_plain``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_()
+                  for t in (value, sampling_locations, attention_weights)]
+        out = msda_plain(leaves[0], spatial_shapes, leaves[1], leaves[2], real_hw)
+        return torch.autograd.grad(out, leaves, dout.to(out.dtype))
+
+
+def msda_bwd(dout, value, spatial_shapes, sampling_locations, attention_weights, real_hw):
+    """K6: MSDA backward -> (dvalue [N, S, C] in value's dtype, dlocations
+    [N, Lq, M, L, P, 2], dweights [N, Lq, M, L, P], each in its input's
+    dtype).  The value gradient is scattered with f32 atomics (rounded once
+    for bf16), so it is reproducible to f32 summation order; a tap outside
+    the level or the image's real extent gets no gradient.  CPU tensors run
+    the plain version; CUDA tensors launch the kernel or raise."""
+    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    if value.device.type == "cpu":
+        return msda_bwd_plain(dout, value, spatial_shapes, sampling_locations,
+                              attention_weights, real_hw)
+    n, s, c = value.shape
+    _, lq, m, L, p, _ = sampling_locations.shape
+    d = c // m
+    loc, attn, rh, shapes = _check("msda_bwd", value, spatial_shapes, sampling_locations,
+                                   attention_weights, real_hw)
+    if c > 1024 or c % 32 or (d % 32 and (d > 32 or d & (d - 1))):
+        raise ValueError(f"msda_bwd: {m} heads of {d} channels: needs at most 1024 channels, "
+                         "a multiple of 32, and a head width that is a power of two below "
+                         "32 or a multiple of 32")
+    dout = dout.to(value.dtype).contiguous()
+    _cuda.require(dout, "dout", value.dtype, (n, lq, c))
+    lib = _cuda.library()
+    dvalue = torch.zeros((n, s, c), dtype=torch.float32, device=value.device)
+    dloc = torch.empty_like(loc)
+    dattn = torch.empty_like(attn)
+    _cuda.check(lib.grit_msda_bwd(value.data_ptr(), shapes.data_ptr(), loc.data_ptr(),
+                                  attn.data_ptr(), rh.data_ptr(), dout.data_ptr(),
+                                  dvalue.data_ptr(), dloc.data_ptr(), dattn.data_ptr(),
+                                  n, s, lq, m, d, L, p, _cuda.DTYPE_CODE[value.dtype],
+                                  _cuda.stream()),
+                "msda_bwd")
+    LAUNCHES["msda_bwd"] += 1
+    return (dvalue.to(value.dtype), dloc.to(sampling_locations.dtype),
+            dattn.to(attention_weights.dtype))
+
+
+class _MsdaFn(torch.autograd.Function):
+    """K3 forward, K6 backward."""
+
+    @staticmethod
+    def forward(ctx, value, sampling_locations, attention_weights, real_hw, spatial_shapes):
+        ctx.save_for_backward(value, sampling_locations, attention_weights, real_hw)
+        ctx.spatial_shapes = spatial_shapes
+        return _msda_forward(value, spatial_shapes, sampling_locations, attention_weights,
+                             real_hw)
+
+    @staticmethod
+    def backward(ctx, dout):
+        value, loc, attn, real_hw = ctx.saved_tensors
+        dvalue, dloc, dattn = msda_bwd(dout, value, ctx.spatial_shapes, loc, attn, real_hw)
+        return dvalue, dloc, dattn, None, None
+
+
+def msda(value, spatial_shapes, sampling_locations, attention_weights,
+         real_hw) -> torch.Tensor:
+    """K3: MSDA forward (see module docstring), differentiable through K6.
+    CPU tensors run the plain version; CUDA tensors launch the kernel or raise."""
+    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    return _MsdaFn.apply(value, sampling_locations, attention_weights, real_hw,
+                         spatial_shapes)

@@ -1,16 +1,27 @@
-"""Swin block kernels K1 (attention half-block) and K2 (MLP half-block).
+"""Swin block kernels: K1 (attention half-block), K2 (MLP half-block), K4
+(the training block's attention branch) and K5 (window-attention backward).
 
 ``block_step`` replaces the TPU's ``grit_tpu/ops/window_attention.py``
-``_band_kernel`` (via ``fused_block_step`` / ``fused_block_mlp_step``), and
-``mlp`` its ``_mlp_kernel`` (via ``fused_mlp``).  On a CUDA tensor each
-launches the hand-written kernels in ``csrc/swin_block.cu`` (design notes
-there); on a CPU tensor each runs its plain version, ``block_step_plain`` /
-``mlp_plain``, which define the dtype semantics the kernels reproduce:
-f32 LN statistics with var = E[x^2] - mu^2, f32 matmul accumulation, q scaled
-before rounding to the storage type, softmax probabilities rounded to the
-storage type before the value product, exact-erf GELU, residuals added in f32.
+``_band_kernel`` (via ``fused_block_step`` / ``fused_block_mlp_step``),
+``mlp`` its ``_mlp_kernel`` (via ``fused_mlp``), ``block_attention`` its
+``_block_kernel`` (via ``fused_block_attention``, with ``save_attn`` the
+differentiating forward) and ``window_attention_bwd`` its ``_bwd_kernel``
+(via ``_backward``).  On a CUDA tensor each launches the hand-written kernels
+in ``csrc/swin_block.cu`` (design notes there) or raises; on a CPU tensor each
+runs its plain version (``*_plain``), which defines the dtype semantics the
+kernels reproduce: f32 LN statistics with var = E[x^2] - mu^2, f32 matmul
+accumulation, q scaled before rounding to the storage type, softmax
+probabilities rounded to the storage type before the value product,
+exact-erf GELU, residuals added in f32.
 
-Unlike the TPU path, the map is never rolled: the block takes and returns the
+``block_attention_train`` and ``mlp`` are differentiable
+(``torch.autograd.Function``): the attention branch's backward runs K5 for
+the attention core and plain matrix products for the projections, as the
+TPU's ``_block_attention_bwd`` does; the MLP's backward recomputes the branch
+from its row input with plain matrix products and differentiates that, as
+``_mlp_bwd`` does.  Gradients come back in each argument's dtype.
+
+Unlike the TPU path, the map is never rolled: the blocks take and return the
 padded map [B, Hp, Wp, C] in unshifted coordinates, and the kernels fold the
 shift into their addresses.
 """
@@ -28,9 +39,11 @@ from grit_tpu_torch.ops.window import (relative_position_index,
 LN_EPS = 1e-5
 
 #: Kernel launches per wrapper (one per call that reached the CUDA kernels).
-LAUNCHES = {"block_step": 0, "mlp": 0}
+LAUNCHES = {"block_step": 0, "mlp": 0, "block_attention": 0, "window_attention_bwd": 0}
 
-_EPI_BIAS, _EPI_GELU, _EPI_RESID, _EPI_RESID_MAP = 0, 1, 2, 3
+_EPI_BIAS, _EPI_GELU, _EPI_RESID, _EPI_RESID_MAP, _EPI_MAP = 0, 1, 2, 3, 4
+#: K5 keeps Q, K, V, dO and an N x N matrix in shared memory (227 KB a block)
+_MAX_BWD_WINDOW = 13
 
 
 def _ln_fast(xf: torch.Tensor, w, b, eps: float) -> torch.Tensor:
@@ -47,6 +60,40 @@ def _pad_mask(hp: int, wp: int, real_hw, shift: int, device) -> torch.Tensor:
     return ((y[:, None] >= real_hw[0]) | (x[None, :] >= real_hw[1]))[..., None]
 
 
+def _qkv_plain(xw, qkv_w, qkv_b, num_heads: int) -> torch.Tensor:
+    """Window-ordered rows [R, C] -> qkv [R, 3C] in the rows' dtype, the q
+    columns scaled by d^-1/2 before rounding (f32 accumulation)."""
+    c = xw.shape[-1]
+    qkv = F.linear(xw.float(), qkv_w.float(), qkv_b.float())
+    scale = torch.ones(3 * c, device=xw.device)
+    scale[:c] = (c // num_heads) ** -0.5
+    return (qkv * scale).to(xw.dtype)
+
+
+def window_attention_plain(qkv, table, *, batch: int, hp: int, wp: int, num_heads: int,
+                           window: int, shift: int = 0) -> torch.Tensor:
+    """Plain version of the window-attention core: qkv [B*nW*N, 3C] in
+    window order (q pre-scaled) -> attention output [B*nW*N, C] in qkv's
+    dtype.  The bias comes from its [(2w-1)^2, heads] table, the
+    shifted-window mask from the padded grid."""
+    c = qkv.shape[-1] // 3
+    n = window * window
+    d = c // num_heads
+    dt = qkv.dtype
+
+    def heads(t):
+        return t.float().reshape(-1, n, num_heads, d).transpose(1, 2)
+
+    s = heads(qkv[:, :c]) @ heads(qkv[:, c:2 * c]).transpose(-1, -2)   # [BW, h, N, N]
+    idx = relative_position_index(window, qkv.device)
+    s = s + table.float()[idx.reshape(-1)].reshape(n, n, num_heads).permute(2, 0, 1)
+    if shift:
+        mask = shifted_window_mask(hp, wp, window, shift, qkv.device)  # [nW, N, N]
+        s = (s.reshape(batch, -1, num_heads, n, n) + mask[None, :, None]).reshape(s.shape)
+    p = torch.softmax(s, dim=-1).to(dt).float()
+    return (p @ heads(qkv[:, 2 * c:])).transpose(1, 2).reshape(-1, c).to(dt)
+
+
 def block_step_plain(x, norm_w, norm_b, qkv_w, qkv_b, proj_w, proj_b, table, *,
                      num_heads: int, window: int, real_hw, shift: int = 0,
                      eps: float = LN_EPS) -> torch.Tensor:
@@ -60,31 +107,16 @@ def block_step_plain(x, norm_w, norm_b, qkv_w, qkv_b, proj_w, proj_b, table, *,
     table in f32, as ``models.captioner.to_compute_dtype`` stores them.
     """
     b, hp, wp, c = x.shape
-    d = c // num_heads
     n = window * window
     dt = x.dtype
     xs = torch.roll(x, (-shift, -shift), (1, 2)) if shift else x
     pad = _pad_mask(hp, wp, real_hw, shift, x.device)
     xf = xs.float().masked_fill(pad, 0.0)
     xn = _ln_fast(xf, norm_w, norm_b, eps).masked_fill(pad, 0.0).to(dt)
-    xw = window_partition(xn, window).float()                       # [BW, N, C]
-    qkv = F.linear(xw, qkv_w.float(), qkv_b.float())
-    q = (qkv[..., :c] * d ** -0.5).to(dt).float()
-    k = qkv[..., c:2 * c].to(dt).float()
-    v = qkv[..., 2 * c:].to(dt).float()
-
-    def heads(t):
-        return t.reshape(t.shape[0], n, num_heads, d).transpose(1, 2)
-
-    s = heads(q) @ heads(k).transpose(-1, -2)                        # [BW, h, N, N]
-    idx = relative_position_index(window, x.device)
-    s = s + table.float()[idx.reshape(-1)].reshape(n, n, num_heads).permute(2, 0, 1)
-    if shift:
-        mask = shifted_window_mask(hp, wp, window, shift, x.device)  # [nW, N, N]
-        s = (s.reshape(b, -1, num_heads, n, n) + mask[None, :, None]).reshape(s.shape)
-    p = torch.softmax(s, dim=-1).to(dt).float()
-    o = (p @ heads(v)).transpose(1, 2).reshape(-1, n, c).to(dt).float()
-    y = F.linear(o, proj_w.float(), proj_b.float())
+    qkv = _qkv_plain(window_partition(xn, window).reshape(-1, c), qkv_w, qkv_b, num_heads)
+    o = window_attention_plain(qkv, table, batch=b, hp=hp, wp=wp, num_heads=num_heads,
+                               window=window, shift=shift)
+    y = F.linear(o.float(), proj_w.float(), proj_b.float()).reshape(-1, n, c)
     y = window_reverse(y, window, hp, wp) + xf
     y = y.to(dt)
     return torch.roll(y, (shift, shift), (1, 2)) if shift else y
@@ -129,7 +161,7 @@ def block_step(x, norm_w, norm_b, qkv_w, qkv_b, proj_w, proj_b, table, *,
     qkv = torch.empty((rows, 3 * c), dtype=dt, device=x.device)
     _cuda.check(lib.grit_gemm(xn.data_ptr(), qkv_w.data_ptr(), qkv_b.data_ptr(),
                               qkv.data_ptr(), None, rows, 3 * c, c, _EPI_BIAS,
-                              (c // num_heads) ** -0.5, c, *geo, code, st),
+                              (c // num_heads) ** -0.5, c, *geo, 0, code, st),
                 "block_step qkv")
     ao = xn  # same shape; xn is dead once qkv exists
     _cuda.check(lib.grit_window_attn(qkv.data_ptr(), table.data_ptr(), ao.data_ptr(),
@@ -139,30 +171,237 @@ def block_step(x, norm_w, norm_b, qkv_w, qkv_b, proj_w, proj_b, table, *,
     out = torch.empty_like(x)
     _cuda.check(lib.grit_gemm(ao.data_ptr(), proj_w.data_ptr(), proj_b.data_ptr(),
                               out.data_ptr(), x.data_ptr(), rows, c, c, _EPI_RESID_MAP,
-                              1.0, 0, *geo, code, st),
+                              1.0, 0, *geo, 0, code, st),
                 "block_step proj")
     LAUNCHES["block_step"] += 1
     return out
 
 
-def mlp_plain(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, *,
-              eps: float = LN_EPS) -> torch.Tensor:
-    """Plain version of K2: rows [R, C] -> x + fc2(GELU(fc1(LN(x))))."""
+def _to_windows(x: torch.Tensor, window: int, shift: int) -> torch.Tensor:
+    """Map [B, Hp, Wp, C] in unshifted coordinates -> window-ordered rows
+    [B*nW*N, C] of the map rolled by -shift."""
+    xs = torch.roll(x, (-shift, -shift), (1, 2)) if shift else x
+    return window_partition(xs, window).reshape(-1, x.shape[-1])
+
+
+def _from_windows(rows: torch.Tensor, window: int, shift: int, hp: int, wp: int) -> torch.Tensor:
+    """Inverse of ``_to_windows``."""
+    n = window * window
+    y = window_reverse(rows.reshape(-1, n, rows.shape[-1]), window, hp, wp)
+    return torch.roll(y, (shift, shift), (1, 2)) if shift else y
+
+
+def block_attention_plain(x, qkv_w, qkv_b, proj_w, proj_b, table, *, num_heads: int,
+                          window: int, shift: int = 0):
+    """Plain version of K4: proj(W-MSA(x)) on the LayerNorm'd, zero-padded
+    map x [B, Hp, Wp, C] in unshifted coordinates; every token takes part, as
+    in the reference (padding tokens are zero rows, not masked).  Returns
+    (branch [B, Hp, Wp, C], pre-projection attention output [B*nW*N, C] in
+    window order, qkv [B*nW*N, 3C])."""
+    b, hp, wp, c = x.shape
+    qkv = _qkv_plain(_to_windows(x, window, shift), qkv_w, qkv_b, num_heads)
+    ao = window_attention_plain(qkv, table, batch=b, hp=hp, wp=wp, num_heads=num_heads,
+                                window=window, shift=shift)
+    y = F.linear(ao.float(), proj_w.float(), proj_b.float()).to(x.dtype)
+    return _from_windows(y, window, shift, hp, wp), ao, qkv
+
+
+def _block_attention(x, qkv_w, qkv_b, proj_w, proj_b, table, *, num_heads: int, window: int,
+                     shift: int):
+    """K4 with everything its backward wants: (branch, attention output, qkv)."""
+    if x.device.type == "cpu":
+        return block_attention_plain(x, qkv_w, qkv_b, proj_w, proj_b, table,
+                                     num_heads=num_heads, window=window, shift=shift)
+    b, hp, wp, c = x.shape
+    dt = x.dtype
+    if dt not in _cuda.DTYPE_CODE:
+        raise ValueError(f"block_attention: unsupported dtype {dt}")
+    if c != 32 * num_heads:
+        raise ValueError(f"block_attention: head dim must be 32, got {c}/{num_heads}")
+    if hp % window or wp % window or window * window > 256:
+        raise ValueError(f"block_attention: map {hp}x{wp} does not tile windows of {window}")
+    if c % 64:  # the GEMM tiles: N % 64, K % 32
+        raise ValueError(f"block_attention: channels {c} not a multiple of 64")
+    for t, name, t_dt, shape in (
+            (x, "x", dt, None), (qkv_w, "qkv_w", dt, (3 * c, c)), (qkv_b, "qkv_b", dt, (3 * c,)),
+            (proj_w, "proj_w", dt, (c, c)), (proj_b, "proj_b", dt, (c,)),
+            (table, "table", torch.float32, ((2 * window - 1) ** 2, num_heads))):
+        _cuda.require(t, name, t_dt, shape)
+    lib = _cuda.library()
+    code = _cuda.DTYPE_CODE[dt]
+    st = _cuda.stream()
+    rows = b * hp * wp
+    geo = (hp, wp, window, shift, hp, wp)   # no token is padding to this kernel
+
+    qkv = torch.empty((rows, 3 * c), dtype=dt, device=x.device)
+    _cuda.check(lib.grit_gemm(x.data_ptr(), qkv_w.data_ptr(), qkv_b.data_ptr(),
+                              qkv.data_ptr(), None, rows, 3 * c, c, _EPI_BIAS,
+                              (c // num_heads) ** -0.5, c, *geo, 1, code, st),
+                "block_attention qkv")
+    ao = torch.empty((rows, c), dtype=dt, device=x.device)
+    _cuda.check(lib.grit_window_attn(qkv.data_ptr(), table.data_ptr(), ao.data_ptr(),
+                                     rows // (window * window), c, num_heads,
+                                     hp, wp, window, shift, code, st),
+                "block_attention attention")
+    out = torch.empty_like(x)
+    _cuda.check(lib.grit_gemm(ao.data_ptr(), proj_w.data_ptr(), proj_b.data_ptr(),
+                              out.data_ptr(), None, rows, c, c, _EPI_MAP,
+                              1.0, 0, *geo, 0, code, st),
+                "block_attention proj")
+    LAUNCHES["block_attention"] += 1
+    return out, ao, qkv
+
+
+def block_attention(x, qkv_w, qkv_b, proj_w, proj_b, table, *, num_heads: int, window: int,
+                    shift: int = 0, save_attn: bool = False):
+    """K4: the training block's attention branch (see ``block_attention_plain``):
+    qkv projection, window partition, attention, output projection and window
+    reverse on the LayerNorm'd padded map, no residual.  ``save_attn`` also
+    returns the pre-projection attention output.  Not differentiable by
+    itself: ``block_attention_train`` is.  CPU tensors run the plain version;
+    CUDA tensors launch the kernels or raise."""
+    out, ao, _ = _block_attention(x, qkv_w, qkv_b, proj_w, proj_b, table,
+                                  num_heads=num_heads, window=window, shift=shift)
+    return (out, ao) if save_attn else out
+
+
+def window_attention_bwd_plain(qkv, d_ao, table, *, batch: int, hp: int, wp: int,
+                               num_heads: int, window: int, shift: int = 0):
+    """Plain version of K5, by autograd of ``window_attention_plain``: from qkv
+    [B*nW*N, 3C] (q pre-scaled) and the gradient of the attention output,
+    (dqkv [B*nW*N, 3C] in qkv's dtype, the gradients of the qkv projection's
+    output, so dq carries the q scale; dtable f32 [(2w-1)^2, heads])."""
+    c = qkv.shape[-1] // 3
+    with torch.enable_grad():
+        qkv_l = qkv.detach().requires_grad_()
+        table_l = table.detach().requires_grad_()
+        ao = window_attention_plain(qkv_l, table_l, batch=batch, hp=hp, wp=wp,
+                                    num_heads=num_heads, window=window, shift=shift)
+        dqkv, dtable = torch.autograd.grad(ao, (qkv_l, table_l), d_ao)
+    scale = torch.ones(3 * c, device=qkv.device)
+    scale[:c] = (c // num_heads) ** -0.5
+    return (dqkv.float() * scale).to(qkv.dtype), dtable
+
+
+def window_attention_bwd(qkv, d_ao, table, *, batch: int, hp: int, wp: int, num_heads: int,
+                         window: int, shift: int = 0):
+    """K5: window-attention backward with the probabilities recomputed (see
+    ``window_attention_bwd_plain``).  The kernel sums the bias gradient over
+    the batch per window of the image, [nW, heads, N, N] f32; the sum over
+    windows and the scatter into the table's rows are plain torch, as the
+    table gather is outside the TPU kernel too.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel or raise."""
+    if qkv.device.type == "cpu":
+        return window_attention_bwd_plain(qkv, d_ao, table, batch=batch, hp=hp, wp=wp,
+                                          num_heads=num_heads, window=window, shift=shift)
+    rows, c3 = qkv.shape
+    c = c3 // 3
+    n = window * window
+    nw = (hp // window) * (wp // window)
+    dt = qkv.dtype
+    if dt not in _cuda.DTYPE_CODE:
+        raise ValueError(f"window_attention_bwd: unsupported dtype {dt}")
+    if c != 32 * num_heads:
+        raise ValueError(f"window_attention_bwd: head dim must be 32, got {c}/{num_heads}")
+    if window > _MAX_BWD_WINDOW or window % 2:
+        raise ValueError(f"window_attention_bwd: window {window} is odd or exceeds "
+                         f"{_MAX_BWD_WINDOW} (the block's shared memory, read 4 columns wide)")
+    if hp % window or wp % window or rows != batch * nw * n:
+        raise ValueError(f"window_attention_bwd: {rows} rows for {batch} maps of {hp}x{wp}")
+    _cuda.require(qkv, "qkv", dt, (rows, 3 * c))
+    _cuda.require(d_ao, "d_ao", dt, (rows, c))
+    _cuda.require(table, "table", torch.float32, ((2 * window - 1) ** 2, num_heads))
+    lib = _cuda.library()
+    dqkv = torch.empty_like(qkv)
+    dbias = torch.empty((nw, num_heads, n, n), dtype=torch.float32, device=qkv.device)
+    _cuda.check(lib.grit_window_attn_bwd(
+        qkv.data_ptr(), d_ao.data_ptr(), table.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(),
+        batch, c, num_heads, (c // num_heads) ** -0.5, hp, wp, window, shift,
+        _cuda.DTYPE_CODE[dt], _cuda.stream()), "window_attention_bwd")
+    LAUNCHES["window_attention_bwd"] += 1
+    idx = relative_position_index(window, qkv.device).reshape(-1)
+    dtable = torch.zeros_like(table).index_add_(
+        0, idx, dbias.sum(0).reshape(num_heads, n * n).t())
+    return dqkv, dtable
+
+
+class _BlockAttentionFn(torch.autograd.Function):
+    """K4 forward; backward = plain matrix products for the two projections
+    around K5 (the TPU's ``_block_attention_bwd``), except that the forward's
+    qkv is kept instead of recomputed."""
+
+    @staticmethod
+    def forward(ctx, x, qkv_w, qkv_b, proj_w, proj_b, table, num_heads, window, shift):
+        out, ao, qkv = _block_attention(x, qkv_w, qkv_b, proj_w, proj_b, table,
+                                        num_heads=num_heads, window=window, shift=shift)
+        ctx.save_for_backward(x, qkv_w, proj_w, table, ao, qkv)
+        ctx.geo = (num_heads, window, shift)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, qkv_w, proj_w, table, ao, qkv = ctx.saved_tensors
+        num_heads, window, shift = ctx.geo
+        b, hp, wp, c = x.shape
+        dt = x.dtype
+        dout_w = _to_windows(dout.to(dt), window, shift).contiguous()
+        d_proj_w = dout_w.t() @ ao
+        d_proj_b = dout_w.float().sum(0).to(dt)
+        d_ao = dout_w @ proj_w
+        dqkv, dtable = window_attention_bwd(qkv, d_ao, table, batch=b, hp=hp, wp=wp,
+                                            num_heads=num_heads, window=window, shift=shift)
+        d_qkv_w = dqkv.t() @ _to_windows(x, window, shift)
+        d_qkv_b = dqkv.float().sum(0).to(dt)
+        dx = _from_windows(dqkv @ qkv_w, window, shift, hp, wp)
+        return dx, d_qkv_w, d_qkv_b, d_proj_w, d_proj_b, dtable, None, None, None
+
+
+def block_attention_train(x, qkv_w, qkv_b, proj_w, proj_b, table, *, num_heads: int,
+                          window: int, shift: int = 0) -> torch.Tensor:
+    """Differentiable K4 (backward through K5): the attention branch of a
+    training block on the LayerNorm'd padded map, gradients to all six
+    tensors."""
+    return _BlockAttentionFn.apply(x, qkv_w, qkv_b, proj_w, proj_b, table, num_heads,
+                                   window, shift)
+
+
+def block_attention_train_plain(x, qkv_w, qkv_b, proj_w, proj_b, table, *, num_heads: int,
+                                window: int, shift: int = 0) -> torch.Tensor:
+    """``block_attention_train`` through the plain version and autograd."""
+    return block_attention_plain(x, qkv_w, qkv_b, proj_w, proj_b, table, num_heads=num_heads,
+                                 window=window, shift=shift)[0]
+
+
+def mlp_plain(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, *, eps: float = LN_EPS,
+              residual: bool = True) -> torch.Tensor:
+    """Plain version of K2: rows [R, C] -> [x +] fc2(GELU(fc1(LN(x))))."""
     dt = x.dtype
     xf = x.float()
     xn = _ln_fast(xf, norm_w, norm_b, eps).to(dt).float()
     h = F.linear(xn, fc1_w.float(), fc1_b.float())
     h = (h * 0.5 * (1.0 + torch.erf(h * 0.7071067811865476))).to(dt).float()
-    return (xf + F.linear(h, fc2_w.float(), fc2_b.float())).to(dt)
+    y = F.linear(h, fc2_w.float(), fc2_b.float())
+    return ((xf + y) if residual else y).to(dt)
 
 
-def mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, *,
-        eps: float = LN_EPS) -> torch.Tensor:
-    """K2: the Swin MLP half-block with its residual on rows [R, C] (see
-    ``mlp_plain``).  CPU tensors run the plain version; CUDA tensors launch
-    the kernels or raise."""
+def _mlp_recompute(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, eps: float,
+                   residual: bool) -> torch.Tensor:
+    """What K2's backward differentiates: ``mlp_plain`` with the two matrix
+    products taken in the rows' dtype (f32 accumulation, the pre-activation
+    rounded once more in bf16; identical in f32)."""
+    dt = x.dtype
+    xf = x.float()
+    xn = _ln_fast(xf, norm_w, norm_b, eps).to(dt)
+    h = F.linear(xn, fc1_w, fc1_b).float()
+    h = (h * 0.5 * (1.0 + torch.erf(h * 0.7071067811865476))).to(dt)
+    y = F.linear(h, fc2_w, fc2_b)
+    return (xf + y.float()).to(dt) if residual else y
+
+
+def _mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, eps: float, residual: bool):
     if x.device.type == "cpu":
-        return mlp_plain(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, eps=eps)
+        return mlp_plain(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, eps=eps,
+                         residual=residual)
     rows, c = x.shape
     hid = fc1_w.shape[0]
     dt = x.dtype
@@ -186,12 +425,40 @@ def mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, *,
     h = torch.empty((rows, hid), dtype=dt, device=x.device)
     _cuda.check(lib.grit_gemm(xn.data_ptr(), fc1_w.data_ptr(), fc1_b.data_ptr(),
                               h.data_ptr(), None, rows, hid, c, _EPI_GELU, 1.0, 0,
-                              *geo, code, st),
+                              *geo, 0, code, st),
                 "mlp fc1")
     out = torch.empty_like(x)
     _cuda.check(lib.grit_gemm(h.data_ptr(), fc2_w.data_ptr(), fc2_b.data_ptr(),
-                              out.data_ptr(), x.data_ptr(), rows, c, hid, _EPI_RESID,
-                              1.0, 0, *geo, code, st),
+                              out.data_ptr(), x.data_ptr() if residual else None, rows, c, hid,
+                              _EPI_RESID if residual else _EPI_BIAS, 1.0, 0, *geo, 0, code, st),
                 "mlp fc2")
     LAUNCHES["mlp"] += 1
     return out
+
+
+class _MlpFn(torch.autograd.Function):
+    """K2 forward; backward recomputes the branch from the row input and
+    differentiates it (the TPU's ``_mlp_bwd``): nothing is kept but the inputs."""
+
+    @staticmethod
+    def forward(ctx, x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, eps, residual):
+        ctx.save_for_backward(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b)
+        ctx.cfg = (eps, residual)
+        return _mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, eps, residual)
+
+    @staticmethod
+    def backward(ctx, dy):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            y = _mlp_recompute(*leaves, *ctx.cfg)
+            grads = torch.autograd.grad(y, leaves, dy.to(y.dtype))
+        return (*grads, None, None)
+
+
+def mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, *, eps: float = LN_EPS,
+        residual: bool = True) -> torch.Tensor:
+    """K2: the Swin MLP half-block on rows [R, C] (see ``mlp_plain``), with
+    its residual or, for a caller that applies drop-path first, the branch
+    alone.  Differentiable.  CPU tensors run the plain version; CUDA tensors
+    launch the kernels or raise."""
+    return _MlpFn.apply(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, eps, residual)

@@ -129,7 +129,8 @@ def test_captions_match_jax(slice_twins, eos_kind):
 
 def test_port_imports_no_jax():
     """Every port module, its CLI and chip_smoke import without JAX (a CUDA
-    jaxlib loaded next to the port would preallocate the card)."""
+    jaxlib loaded next to the port would preallocate the card) and without
+    any module of the JAX package, in a fresh interpreter."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import grit_tpu_torch\n"
@@ -137,12 +138,160 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import grit_tpu_torch.inference_caption, chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax'))\n"
-        "assert not bad, bad\n")
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'grit_tpu'))\n"
+        "assert not bad, bad\n"
+        "assert 'grit_tpu_torch.engine.xe' in sys.modules\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_port_sources_name_no_jax_package_module():
+    """An import inside a function body is invisible to the check above, so
+    the sources are scanned too: no file of the port, nor chip_smoke.py,
+    imports ``jax`` or the JAX package."""
+    import re
+    from pathlib import Path
+
+    pattern = re.compile(r"^\s*(import\s+(grit_tpu|jax|flax|optax)(\s|\.|,|$)"
+                         r"|from\s+(grit_tpu|jax|flax|optax)(\.\S+)?\s+import)", re.M)
+    files = sorted(f for f in Path(REPO, "grit_tpu_torch").rglob("*.py")
+                   if "_build" not in f.parts) + [Path(REPO, "chip_smoke.py")]   # build outputs
+    assert len(files) > 30
+    bad = [str(f.relative_to(REPO)) for f in files if pattern.search(f.read_text())]
+    assert not bad, bad
+    assert pattern.search("    from grit_tpu.config import x") and pattern.search("import jax")
+    assert not pattern.search("from grit_tpu_torch.config import x\nimport grit_tpu_torch")
+
+
+def test_port_config_equals_jax_config():
+    """The port's own config tree has the JAX package's keys and defaults,
+    caption and detection, key for key."""
+    from grit_tpu import config as jconfig
+    from grit_tpu_torch import config as tconfig
+
+    for name in ("default_caption_config", "default_detection_config"):
+        a, b = getattr(tconfig, name)().to_dict(), getattr(jconfig, name)().to_dict()
+
+        def walk(x, y, path=""):
+            assert type(x) is type(y), path
+            if isinstance(x, dict):
+                assert list(x) == list(y), path
+                for k in x:
+                    walk(x[k], y[k], f"{path}.{k}")
+            else:
+                assert x == y, path
+
+        walk(a, b)
+    cfg = tconfig.default_caption_config().apply_overrides(["model.d_model=64"])
+    assert cfg.model.d_model == 64 and cfg.optimizer.batch_size == 16
+
+
+CAPTIONS = ["A man's t-shirt isn't red, it's blue!", "Two dogs (3.5 kg each) -- running...",
+            "THE cat; the hat: they're on a well-known mat?\n", "a"]
+
+
+def _data_transforms(jdata, tdata, tmp_path):
+    """Every resize family, with host and with device normalisation, on an
+    RGB and a grey image: equal arrays, bit for bit; RandAugment draws the
+    same ops from the same ``random`` seed."""
+    import random
+    from types import SimpleNamespace
+
+    from PIL import Image
+
+    rng = np.random.default_rng(5)
+    images = [Image.fromarray(rng.integers(0, 256, (50, 70, 3), dtype=np.uint8)),
+              Image.fromarray(rng.integers(0, 256, (90, 40), dtype=np.uint8))]
+    for resize_name, size in (("maxwh", (64, 96)), ("minmax", (64, 128)), ("normal", (32, 48))):
+        for device_norm in (False, True):
+            for randaug in (False, True):
+                cfg = SimpleNamespace(size=size, resize_name=resize_name, randaug=randaug,
+                                      device_norm=device_norm)
+                ours, theirs = tdata.transforms.get_transform(cfg), jdata.transforms.get_transform(cfg)
+                for img in images:
+                    for split in ("train", "valid"):
+                        random.seed(3)
+                        a = ours[split](img)
+                        random.seed(3)
+                        b = theirs[split](img)
+                        assert a.dtype == b.dtype == (np.uint8 if device_norm else np.float32)
+                        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(tdata.transforms.MEAN, jdata.transforms.MEAN)
+    np.testing.assert_array_equal(tdata.transforms.STD, jdata.transforms.STD)
+
+
+def _data_tokenizer(jdata, tdata, tmp_path):
+    for cap in CAPTIONS:
+        for lower in (True, False):
+            for remove_punct in (True, False):
+                assert (tdata.tokenizer.caption_tokenize(cap, lower, remove_punct)
+                        == jdata.tokenizer.caption_tokenize(cap, lower, remove_punct))
+        assert tdata.tokenizer.ptb_tokenize_str(cap) == jdata.tokenizer.ptb_tokenize_str(cap)
+    assert (tdata.tokenizer.PTBTokenizer.tokenize({7: CAPTIONS, 9: CAPTIONS[:1]})
+            == jdata.tokenizer.PTBTokenizer.tokenize({7: CAPTIONS, 9: CAPTIONS[:1]}))
+    assert (tdata.tokenizer.PTBTokenizer.tokenize(CAPTIONS)
+            == jdata.tokenizer.PTBTokenizer.tokenize(CAPTIONS))
+
+
+def _counter(tdata):
+    from collections import Counter
+
+    return Counter(t for cap in CAPTIONS * 2 + CAPTIONS[:2]
+                   for t in tdata.tokenizer.caption_tokenize(cap))
+
+
+def _data_vocab(jdata, tdata, tmp_path):
+    """Built from the same counter (ties, a frequency floor, a size cap), and
+    saved by one package and loaded by the other."""
+    counter = _counter(tdata)
+    for kw in ({}, {"min_freq": 3}, {"max_size": 5}):
+        ours, theirs = tdata.vocab.Vocab(counter=counter, **kw), jdata.vocab.Vocab(counter=counter, **kw)
+        assert ours.itos == theirs.itos and ours.freqs == theirs.freqs and len(ours) == len(theirs)
+        for tok in list(counter) + ["<pad>", "never-seen"]:
+            assert ours.stoi(tok) == theirs.stoi(tok) and (tok in ours) == (tok in theirs)
+    ours.save(str(tmp_path / "ours.json"))
+    theirs.save(str(tmp_path / "theirs.json"))
+    assert (tmp_path / "ours.json").read_text() == (tmp_path / "theirs.json").read_text()
+    assert jdata.vocab.Vocab(vocab_path=str(tmp_path / "ours.json")).itos == ours.itos
+    assert tdata.vocab.Vocab(vocab_path=str(tmp_path / "theirs.json")).itos == theirs.itos
+    assert tdata.vocab.SPECIALS == jdata.vocab.SPECIALS
+
+
+def _data_field(jdata, tdata, tmp_path):
+    """preprocess -> pad -> ids, to the batch's longest caption and to a fixed
+    length, and back to words."""
+    counter = _counter(tdata)
+    for fix_length in (None, 6):
+        ours = tdata.field.TextField(vocab=tdata.vocab.Vocab(counter=counter, min_freq=3),
+                                     fix_length=fix_length)
+        theirs = jdata.field.TextField(vocab=jdata.vocab.Vocab(counter=counter, min_freq=3),
+                                       fix_length=fix_length)
+        toks = [ours.preprocess(c) for c in CAPTIONS]
+        assert toks == [theirs.preprocess(c) for c in CAPTIONS]
+        assert ours.pad(toks) == theirs.pad(toks)
+        ids = ours.process(toks)
+        assert ids.dtype == theirs.process(toks).dtype
+        np.testing.assert_array_equal(ids, theirs.process(toks))
+        assert (ids == 0).any() and (ids == 1).any()      # an <unk> and a <pad> are exercised
+        for join in (True, False):
+            assert ours.decode(ids, join) == theirs.decode(ids, join)
+        assert ours.decode(ids[0]) == theirs.decode(ids[0])
+        assert ours.decode(ids[None]) == theirs.decode(ids[None])
+
+
+@pytest.mark.parametrize("check", [_data_transforms, _data_tokenizer, _data_vocab, _data_field],
+                         ids=["transforms", "tokenizer", "vocab", "field"])
+def test_port_data_modules_match_jax_package(check, tmp_path):
+    """The port's own copies of the JAX package's jax-free data modules give
+    the same output on the same image, captions and word counts, exactly."""
+    import importlib
+
+    jdata, tdata = (type("ns", (), {m: importlib.import_module(f"{pkg}.data.{m}")
+                                    for m in ("transforms", "tokenizer", "vocab", "field")})
+                    for pkg in ("grit_tpu", "grit_tpu_torch"))
+    check(jdata, tdata, tmp_path)
 
 
 def test_inference_cli_refuses_missing_cuda():
@@ -161,8 +310,8 @@ def test_inference_cli_captions_an_image(tmp_path, capsys):
 
     from PIL import Image
 
-    from grit_tpu.config import default_caption_config
-    from grit_tpu.data.vocab import Vocab
+    from grit_tpu_torch.config import default_caption_config
+    from grit_tpu_torch.data.vocab import Vocab
     from grit_tpu_torch.inference_caption import main
     from grit_tpu_torch.models.captioner import build_captioner
 
@@ -174,7 +323,7 @@ def test_inference_cli_captions_an_image(tmp_path, capsys):
                  "model.beam_len=4", "dataset.transform_cfg.size=[64, 96]"]
     config = default_caption_config().apply_overrides(overrides)
     ckpt = tmp_path / "ckpt.pth"
-    torch.save({"state_dict": build_captioner(config, seed=0).state_dict()}, ckpt)
+    torch.save({"state_dict": build_captioner(config, device="cpu", seed=0).state_dict()}, ckpt)
     img = tmp_path / "img.png"
     rng = np.random.default_rng(11)
     Image.fromarray(rng.integers(0, 256, (50, 70, 3), dtype=np.uint8)).save(img)
