@@ -18,18 +18,24 @@ Phases, each of which must pass:
      and K6 (MSDA backward: dvalue, dloc, dattn) at the caption pyramid.  K3
      and K6 also at the 832x1344 detection pyramid (S = 23205), where the
      TPU needed S-chunked variants;
+     K11 (the caption generator's decode-layer tail) at the decode shapes of
+     a b8 and a b128 caption batch, beside the module path for the same tail;
+     K12 (the multi-tensor Adam update) for three steps on the captioner's
+     own trainable leaves, beside torch.optim.Adam(fused=True);
   3. library yardsticks, timed and used nowhere in the port: F.linear at the
      four GEMM shapes of a Swin block and scaled_dot_product_attention with
      an additive mask at the attention core's shape, per stage;
   4. the inference path: batch caption inference at the full width of the
      shipped GRIT model on random weights (seed 0), bf16, beam 5, 20 steps,
      through grit_tpu_torch.engine.evaluator.make_caption_generator, with
-     each kernel's launch count checked against one forward's calls;
+     each kernel's launch count checked against one forward's calls (K11:
+     layers x steps) and the batch's device launches counted;
   5. the same model in fp32, kernel path against plain path: features within
      tolerance, captions token for token (a difference only at a near-tie:
      at the first differing step, the gap between adjacent candidates among
      the top beam+1 must be <= 1e-3); then the bf16 kernel path's features
-     against the fp32 plain path's;
+     against the fp32 plain path's; the plain path's decode layers take the
+     module path, the kernel path's K11;
   6. the training path: XE caption training steps at full width, b16,
      384x640 uint8 images (half of them padded), 20-token captions with pad
      tails, frozen_stages=2, the config's dropouts and drop-path on, bf16
@@ -46,7 +52,12 @@ Phases, each of which must pass:
      plain fp32 path's distance from it; then each Swin block that trains
      (K4, K5, K2) and each deformable cross-attention (K3, K6) alone, kernels
      against plain on the same inputs and output gradient, where the bound
-     is tight.
+     is tight;
+  8. the caption trainer's path at full width (between 6 and 7): two XE steps
+     at b16, two SCST iterations at b8 (beam-5 generation, CIDEr rewards on
+     the host, the update through K12), evaluate_metrics over two batches in
+     eval() (through K11), and a checkpoint saved, restored into a fresh model
+     and optimizer and held to the same next loss.
 
 Prints the card's name and power limit as nvidia-smi reports them, a JSON
 line of per-kernel results, and last {"ok": true, "device": {...}}; the
@@ -57,6 +68,7 @@ that last line, when there is no CUDA device or any phase fails.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import os
@@ -76,13 +88,21 @@ try:
 
     from grit_tpu_torch.config import default_caption_config
     from grit_tpu_torch.decoding.beam_search import beam_search
+    from grit_tpu_torch.data.field import TextField
+    from grit_tpu_torch.data.metrics import Cider, PTBTokenizer
+    from grit_tpu_torch.data.vocab import SPECIALS, Vocab
+    from grit_tpu_torch.engine import checkpoint as ckpt_lib
     from grit_tpu_torch.engine import optim as optim_lib
+    from grit_tpu_torch.engine import scst as scst_lib
     from grit_tpu_torch.engine import xe as xe_lib
-    from grit_tpu_torch.engine.evaluator import make_caption_generator
+    from grit_tpu_torch.engine.evaluator import evaluate_metrics, make_caption_generator
+    from grit_tpu_torch.models import cap_generator as cap_generator_lib
     from grit_tpu_torch.models.captioner import build_captioner, to_compute_dtype
     from grit_tpu_torch.models.layers import Dropout
     from grit_tpu_torch.models.swin import SwinBlock
     from grit_tpu_torch.ops import _cuda
+    from grit_tpu_torch.ops import decode_layer as tail_ops
+    from grit_tpu_torch.ops import fused_adam as adam_ops
     from grit_tpu_torch.ops import msda as msda_ops
     from grit_tpu_torch.ops import window_attention as wa
     from grit_tpu_torch.utils.nested import ImageBatch
@@ -183,7 +203,8 @@ def cuda_ms(fn, reps: int = 10) -> float:
 
 
 def compare(kernel: str, case: str, out, ref, dtype, ms: float, plain_ms: float,
-            calls: int, work: tuple[float, float] | None = None, run: str = "caption") -> None:
+            calls: int, work: tuple[float, float] | None = None, run: str = "caption",
+            tol: float | None = None) -> None:
     """Hold one kernel output against the plain version's.  ``calls``: how
     often one ``run`` of a main path ("caption": a b8 caption forward,
     "train": a b16 XE training step) makes this call (0: a check only);
@@ -192,7 +213,7 @@ def compare(kernel: str, case: str, out, ref, dtype, ms: float, plain_ms: float,
         fail(f"{kernel} {case}: non-finite output")
     err = (out.float() - ref.float()).abs().max().item()
     rel = err / max(ref.float().abs().max().item(), 1e-30)
-    tol = TOL[dtype]
+    tol = TOL[dtype] if tol is None else tol
     print(f"  {kernel} {case:<30} max_abs {err:.3e} max_rel {rel:.3e} (tol {tol:.0e})  "
           f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms", flush=True)
     if rel > tol:
@@ -439,6 +460,202 @@ def phase_yardsticks(batch: int) -> None:
           flush=True)
 
 
+# the caption generator's decode layer at full width, and the decode shapes
+# of the caption paths: 60 grid tokens and 150 regions at 384x640
+D_MODEL, N_HEADS, D_FF, T_GRID, T_REG = 512, 8, 2048, 60, 150
+ADAM_TOL = 1e-6   # same f32 operations in the same order; sqrt and division to an ulp
+
+
+def count_launches(fn) -> int:
+    """Device kernels launched by one call of ``fn`` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and getattr(e, "self_device_time_total", 0) > 0)
+
+
+def phase_decode_kernel() -> None:
+    """K11 against its plain version at the decode shapes of a b8 and a b128
+    caption batch (40 and 640 rows, beam 5), with and without key masks, half
+    the rows pad, on a decode layer's own weights; beside it the module path
+    for the same tail (no single PyTorch call computes it), timed and its
+    launches counted."""
+    print("[kernels] K11 (decode-layer tail) vs plain, beam-5 rows over 60 + 150 keys",
+          flush=True)
+    g = torch.Generator(device=DEV).manual_seed(3)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=DEV) * scale
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = "fp32" if dtype == torch.float32 else "bf16"
+        layer = cap_generator_lib.ParallelAttentionLayer(D_MODEL, N_HEADS, D_FF).to(DEV).eval()
+        with torch.no_grad():
+            for name, prm in layer.named_parameters():
+                if "layer_norm" in name:
+                    prm.copy_((name.endswith("weight")) + rnd(*prm.shape, scale=0.1))
+                elif prm.dim() == 2:
+                    prm.copy_(rnd(*prm.shape, scale=prm.shape[1] ** -0.5))
+                else:
+                    prm.copy_(rnd(*prm.shape, scale=0.02))
+        to_compute_dtype(layer, dtype)
+        weights = layer.tail_weights(dtype)
+        wbytes = sum(w.numel() for w in weights) * esize(dtype)
+        for batch in (8, 128):
+            rows = batch * BEAM
+            x = rnd(rows, 1, D_MODEL).to(dtype)
+            kv = [rnd(batch, t, D_MODEL).to(dtype) for t in (T_GRID, T_GRID, T_REG, T_REG)]
+            pad = (torch.arange(rows, device=DEV) % 2 == 0).to(dtype)[:, None, None]
+            for masked in (True, False):
+                masks = [None, None]
+                if masked:   # odd images hide the last quarter of their keys
+                    masks = [(torch.arange(t, device=DEV)[None] >= t * 3 // 4)
+                             & (torch.arange(batch, device=DEV)[:, None] % 2 == 1)
+                             for t in (T_GRID, T_REG)]
+                    masks = [m[:, None, None, :].contiguous() for m in masks]
+                kw = dict(fold=BEAM, n_heads=N_HEADS, eps=1e-5)
+
+                def kernel():
+                    return tail_ops.fused_decode_layer_tail(
+                        x, kv[0], kv[1], masks[0], kv[2], kv[3], masks[1], pad, weights, **kw)
+
+                def plain():
+                    madd = [tail_ops.additive_mask(m, batch, t, DEV)
+                            for m, t in zip(masks, (T_GRID, T_REG))]
+                    return tail_ops.decode_layer_tail_plain(
+                        x[:, 0], kv[0], kv[1], madd[0], kv[2], kv[3], madd[1],
+                        pad.float().reshape(rows, 1), weights, **kw)
+
+                def module_path():
+                    enc1 = layer.vis_att1(x, kv[0], kv[1], masks[0], kv_projected=True,
+                                          kv_fold=BEAM) * pad
+                    enc2 = layer.vis_att2(x, kv[2], kv[3], masks[1], kv_projected=True,
+                                          kv_fold=BEAM) * pad
+                    return layer._fuse(x, enc1, enc2, pad)
+
+                with torch.no_grad():
+                    out, ref = kernel()[:, 0], plain()
+                    mod = module_path()[:, 0]
+                    ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+                    mod_ms = cuda_ms(module_path)
+                    mod_launches = count_launches(module_path)
+                    own_launches = count_launches(kernel)
+                # the path the caption batch takes: b8, bf16, masks from the padded images
+                calls = 3 * STEPS if (batch == 8 and masked) else 0
+                work = ((2 * rows * D_MODEL + 2 * batch * (T_GRID + T_REG) * D_MODEL)
+                        * esize(dtype) + wbytes,
+                        2.0 * rows * (8 * D_MODEL * D_MODEL + 2 * D_MODEL * D_FF)
+                        + 4.0 * rows * D_MODEL * (T_GRID + T_REG))
+                case = f"{dn} b{batch} masks={masked}"
+                compare("K11", case, out, ref, dtype, ms, plain_ms, calls, work)
+                mod_rel = max_rel(mod.float(), ref.float())
+                print(f"  K11 {case:<30} module path: {mod_ms:.3f} ms in {mod_launches} launches "
+                      f"(kernel wrapper: {own_launches}); module path vs plain {mod_rel:.3e}",
+                      flush=True)
+                DETAIL[-1].update(module_ms=mod_ms, module_launches=mod_launches,
+                                  wrapper_launches=own_launches, module_vs_plain=mod_rel)
+                if mod_rel > TOL[dtype]:
+                    fail(f"K11 {case}: module path differs from the plain version by {mod_rel:.3e}")
+                if calls and dtype == torch.bfloat16:
+                    YARDSTICKS.update({"decode_tail_module_ms": mod_ms,
+                                       "decode_tail_module_launches": mod_launches,
+                                       "decode_tail_wrapper_launches": own_launches})
+
+
+def phase_adam_kernel() -> None:
+    """K12 against its plain version for 3 consecutive steps on the
+    captioner's own trainable leaves under frozen_stages=2 (both groups, plus
+    a 1-element and an odd-sized leaf), with and without weight decay; then
+    the times of one update over all leaves: kernel, plain, and
+    torch.optim.Adam(fused=True) as the library yardstick."""
+    config = default_caption_config()
+    config.model.frozen_stages = FROZEN_STAGES
+    model = build_captioner(config, device=DEV, seed=0, train=True)
+    freeze = optim_lib.frozen_mask(model, optim_lib.swin_frozen_stages_predicate(FROZEN_STAGES))
+    opt = optim_lib.build_optimizer(model, model_lr=1e-4, backbone_lr=1e-5, freeze=freeze)
+    shapes = [[tuple(p.shape) for p in grp["params"]] for grp in opt.param_groups]
+    shapes[0] += [(1,), (3, 10201 + 2)]
+    del model, opt
+    n_el = [sum(int(np.prod(s)) for s in grp) for grp in shapes]
+    print(f"[kernels] K12 (Adam update) vs plain: {len(shapes[0])} + {len(shapes[1])} leaves, "
+          f"{n_el[0]} + {n_el[1]} = {sum(n_el)} trainable elements", flush=True)
+    g = torch.Generator(device=DEV).manual_seed(4)
+    hyper = dict(b1=0.9, b2=0.99, eps=1e-8)
+    lrs = (1e-4, 1e-5)
+
+    def leaves(scale):
+        return [[torch.randn(s, generator=g, device=DEV) * scale for s in grp] for grp in shapes]
+
+    for wd in (0.0, 0.01):
+        p0 = leaves(0.05)
+        arms = {arm: ([[p.clone() for p in grp] for grp in p0],
+                      [[torch.zeros_like(p) for p in grp] for grp in p0],
+                      [[torch.zeros_like(p) for p in grp] for grp in p0])
+                for arm in ("kernel", "plain")}
+        tables = [None, None]
+        for step in (1, 2, 3):
+            grads = leaves(1e-2)
+            for gi in range(2):
+                kw = dict(step=step, lr=lrs[gi], weight_decay=wd, **hyper)
+                ps, mus, nus = (a[gi] for a in arms["kernel"])
+                tables[gi] = adam_ops.adam_update(ps, grads[gi], mus, nus, table=tables[gi], **kw)
+                ps, mus, nus = (a[gi] for a in arms["plain"])
+                adam_ops.adam_update_plain(ps, grads[gi], mus, nus, **kw)
+        torch.cuda.synchronize()
+        for j, part in enumerate(("parameters", "mu", "nu")):
+            for gi, gname in enumerate(("model", "backbone")):
+                worst, worst_abs = 0.0, 0.0
+                for a, b in zip(arms["kernel"][j][gi], arms["plain"][j][gi]):
+                    if not torch.isfinite(a).all():
+                        fail(f"K12 wd={wd} {part}: non-finite leaf")
+                    err = (a - b).abs().max().item()
+                    worst_abs = max(worst_abs, err)
+                    worst = max(worst, err / max(b.abs().max().item(), 1e-30))
+                print(f"  K12 wd={wd} {gname:<9}{part:<11} after 3 steps: worst leaf max_rel "
+                      f"{worst:.3e} (tol {ADAM_TOL:.0e})", flush=True)
+                DETAIL.append({"kernel": "K12", "case": f"wd={wd} {gname} {part}",
+                               "max_abs_err": worst_abs, "max_rel_err": worst, "tol": ADAM_TOL})
+                rec = RESULTS.setdefault("K12", {"max_abs_err": 0.0})
+                rec["max_abs_err"] = max(rec["max_abs_err"], worst_abs)
+                if worst > ADAM_TOL:
+                    fail(f"K12 wd={wd} {gname} {part}: max rel err {worst:.3e} > {ADAM_TOL:.0e}")
+        if wd:
+            continue
+        # one update over both groups, as one training step makes it
+        grads = leaves(1e-2)
+        ps, mus, nus = arms["kernel"]
+
+        def kernel():
+            for gi in range(2):
+                tables[gi] = adam_ops.adam_update(ps[gi], grads[gi], mus[gi], nus[gi], step=4,
+                                                  lr=lrs[gi], table=tables[gi], **hyper)
+
+        def plain():
+            for gi in range(2):
+                adam_ops.adam_update_plain(ps[gi], grads[gi], mus[gi], nus[gi], step=4,
+                                           lr=lrs[gi], **hyper)
+
+        lib_params = [[torch.nn.Parameter(p.clone()) for p in grp] for grp in p0]
+        for grp, gr in zip(lib_params, grads):
+            for p, gg in zip(grp, gr):
+                p.grad = gg
+        lib_opt = torch.optim.Adam([{"params": grp, "lr": lr} for grp, lr in zip(lib_params, lrs)],
+                                   betas=(0.9, 0.99), eps=1e-8, fused=True)
+        ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain, reps=3), cuda_ms(lib_opt.step)
+        bound = 28.0 * sum(n_el) / PEAK_BYTES * 1e3
+        print(f"  K12 one update of {sum(n_el)} elements in 2 launches: kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, torch.optim.Adam(fused=True) {lib_ms:.3f} ms, bound "
+              f"{bound:.3f} ms (28 bytes an element)", flush=True)
+        RESULTS["K12"].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                              elements=sum(n_el), leaves=[len(s) for s in shapes])
+
+
 def synthetic_batch(batch: int) -> ImageBatch:
     """uint8 images from a seed; every other image smaller than the bucket."""
     rng = np.random.default_rng(BATCH_SEED)
@@ -452,7 +669,7 @@ def synthetic_batch(batch: int) -> ImageBatch:
 
 
 def reset_launches() -> None:
-    for d in (wa.LAUNCHES, msda_ops.LAUNCHES):
+    for d in (wa.LAUNCHES, msda_ops.LAUNCHES, tail_ops.LAUNCHES, adam_ops.LAUNCHES):
         for k in d:
             d[k] = 0
 
@@ -474,15 +691,20 @@ def phase_slice(batch: int, card: str) -> None:
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     counts = {"K1": wa.LAUNCHES["block_step"], "K2": wa.LAUNCHES["mlp"],
-              "K3": msda_ops.LAUNCHES["msda"]}
+              "K3": msda_ops.LAUNCHES["msda"], "K11": tail_ops.LAUNCHES["decode_tail"]}
     blocks = sum(s[-1] for s in STAGES)
-    want = {"K1": blocks, "K2": blocks, "K3": DET_LAYERS}
+    # EOS is off, so each of the generator's layers takes K11 at every step
+    want = {"K1": blocks, "K2": blocks, "K3": DET_LAYERS,
+            "K11": config.model.cap_generator.n_layers * STEPS}
     print(f"[slice] launches in one b{batch} caption batch: {counts} (want {want})")
     if counts != want:
         fail(f"kernel launch counts {counts} != {want}")
     for k, n in counts.items():
         RESULTS[k]["launches"] = n
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    total_launches = count_launches(lambda: gen(samples, batch))
+    print(f"[slice] device kernels launched by one b{batch} caption batch: {total_launches} "
+          f"(6560 before the decode tail went through K11)")
     # the first timed batches still run slower (host-side warm-up), so the
     # rate is the median of TIMED_REPS more
     times = []
@@ -500,7 +722,7 @@ def phase_slice(batch: int, card: str) -> None:
           f"{max(times) * 1e3:.1f}; the counted batch {first * 1e3:.1f}), "
           f"{batch / med:.2f} images/s, peak {peak:.2f} GiB  [{card}]", flush=True)
     RESULTS["slice"] = {"batch": batch, "first_s": first, "seconds": times,
-                        "images_per_s": batch / med,
+                        "device_launches": total_launches, "images_per_s": batch / med,
                         "peak_gib": peak}
 
 
@@ -558,14 +780,19 @@ def phase_profile(batch: int, card: str) -> None:
 @contextlib.contextmanager
 def plain_arm():
     """Swap the kernel wrappers for their plain versions, differentiated by
-    autograd (comparison only)."""
+    autograd, and the decode layers' fused tail for their module path
+    (comparison only)."""
     saved = wa.block_step, wa.mlp, msda_ops.msda, wa.block_attention_train
+    saved_tail = cap_generator_lib.use_fused_tail
     wa.block_step, wa.mlp, msda_ops.msda = wa.block_step_plain, wa.mlp_plain, msda_ops.msda_plain
     wa.block_attention_train = wa.block_attention_train_plain
+    # K11's plain arm is the decode layer's module path
+    cap_generator_lib.use_fused_tail = lambda layer, x: False
     try:
         yield
     finally:
         wa.block_step, wa.mlp, msda_ops.msda, wa.block_attention_train = saved
+        cap_generator_lib.use_fused_tail = saved_tail
 
 
 def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -693,13 +920,13 @@ def training_batch(batch: int, config) -> dict:
     return {"samples": synthetic_batch(batch), "captions": torch.from_numpy(caps).to(DEV)}
 
 
-def training_setup(config, dtype, batch: int, dropouts: bool = True):
+def training_setup(config, dtype, batch: int, dropouts: bool = True, seed: int = 0):
     """The XE trainer a user would build: model in train() with f32 master
     parameters computing in ``dtype``, two-group Adam with the frozen Swin
     stages left out, the cosine schedule, a seeded generator for the masks."""
     config = config.copy()
     config.model.frozen_stages = FROZEN_STAGES
-    model = build_captioner(config, device=DEV, dtype=dtype, seed=0, train=True)
+    model = build_captioner(config, device=DEV, dtype=dtype, seed=seed, train=True)
     if not dropouts:
         for mod in model.modules():
             if isinstance(mod, Dropout):
@@ -711,7 +938,7 @@ def training_setup(config, dtype, batch: int, dropouts: bool = True):
         model, model_lr=SCHED["init_lr"], backbone_lr=config.optimizer.xe_backbone_lr,
         beta_1=config.optimizer.beta_1, beta_2=config.optimizer.beta_2, freeze=freeze)
     state = xe_lib.TrainState(model, opt, global_steps=1,
-                              generator=torch.Generator(device=DEV).manual_seed(0))
+                              generator=torch.Generator(device=DEV).manual_seed(seed))
     step = xe_lib.make_xe_train_step(pad_idx=config.model.pad_idx, sched_cfg=SCHED)
     return state, step, training_batch(batch, config)
 
@@ -719,7 +946,8 @@ def training_setup(config, dtype, batch: int, dropouts: bool = True):
 def train_launches() -> dict:
     return {"K1": wa.LAUNCHES["block_step"], "K2": wa.LAUNCHES["mlp"],
             "K3": msda_ops.LAUNCHES["msda"], "K4": wa.LAUNCHES["block_attention"],
-            "K5": wa.LAUNCHES["window_attention_bwd"], "K6": msda_ops.LAUNCHES["msda_bwd"]}
+            "K5": wa.LAUNCHES["window_attention_bwd"], "K6": msda_ops.LAUNCHES["msda_bwd"],
+            "K12": adam_ops.LAUNCHES["adam"]}
 
 
 def phase_train(card: str) -> None:
@@ -736,7 +964,7 @@ def phase_train(card: str) -> None:
     frozen = sum(s[-1] for s in STAGES[:FROZEN_STAGES - 1])
     trained = sum(s[-1] for s in STAGES[FROZEN_STAGES - 1:])
     want = {"K1": frozen, "K2": frozen + trained, "K3": DET_LAYERS, "K4": trained,
-            "K5": trained, "K6": DET_LAYERS}
+            "K5": trained, "K6": DET_LAYERS, "K12": 2}   # one Adam launch per parameter group
     print(f"[train] launches in one b{batch} XE step: {counts} (want {want})")
     if counts != want:
         fail(f"training kernel launch counts {counts} != {want}")
@@ -768,6 +996,181 @@ def phase_train(card: str) -> None:
                         "images_per_s": batch / med, "peak_gib": peak, "launches": counts}
 
 
+SC_BATCH = TRAIN_BATCH // 2     # optimizer.batch_size // optimizer.sc_batch_divisor
+EVAL_BATCH = SC_BATCH * 2       # the dict loaders' evaluation batch
+
+
+def phase_trainer(card: str) -> None:
+    """The caption trainer's path at full width, bf16 over f32 master
+    parameters, frozen_stages=2, dropouts on, random weights (seed 0),
+    synthetic 384x640 images: two XE steps at b16; two SCST iterations at b8
+    (beam-5 generation of 20 steps, CIDEr rewards on the host against
+    synthetic references, the update); evaluate_metrics over two in-memory
+    batches in eval(); a checkpoint saved and restored into a freshly built
+    model and optimizer, after which one more SCST update from each must give
+    the same loss."""
+    import tempfile
+
+    config = default_caption_config()
+    m = config.model
+    vocab_size, layers = m.vocab_size, m.cap_generator.n_layers
+    state, xe_step, tbatch = training_setup(config, torch.bfloat16, TRAIN_BATCH)
+    model = state.model
+    # a synthetic vocabulary; the search's EOS is off, so decoding stops at no word either
+    text_field = TextField(vocab=Vocab(counter=collections.Counter(
+        {f"w{i}": 5 for i in range(vocab_size - len(SPECIALS))})), eos_token="<off>")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+
+    def launches() -> dict:
+        return {**train_launches(), "K11": tail_ops.LAUNCHES["decode_tail"]}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # -- XE ---------------------------------------------------------------
+    xe_ms = []
+    for i in range(2):
+        (_, metrics), ms = timed(lambda: xe_step(state, tbatch))
+        xe_ms.append(ms)
+        loss = float(metrics["loss"])
+        print(f"[trainer] XE step {i} b{TRAIN_BATCH}: loss {loss:.4f}, {ms:.1f} ms")
+        if not np.isfinite(loss):
+            fail(f"trainer: XE loss {loss}")
+    if adam_ops.LAUNCHES["adam"] != 4:
+        fail(f"trainer: K12 launched {adam_ops.LAUNCHES['adam']} times in 2 XE steps, want 4")
+
+    # -- SCST -------------------------------------------------------------
+    # EOS is set outside the vocabulary so that every beam runs all 20 steps
+    beam = dict(beam_size=BEAM, max_len=STEPS, bos_idx=m.bos_idx, eos_idx=vocab_size)
+    generate = scst_lib.make_generate_step(model, **beam)
+    update = scst_lib.make_scst_update_step(
+        bos_idx=m.bos_idx, eos_idx=vocab_size, model_lr=config.optimizer.sc_lr,
+        backbone_lr=config.optimizer.sc_backbone_lr)
+    samples = synthetic_batch(SC_BATCH)
+    rng = np.random.default_rng(2000 + BATCH_SEED)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    held = {id(p) for grp in state.optimizer.param_groups for p in grp["params"]}
+    gen_ms, upd_ms = [], []
+    for i in range(2):
+        tail_before = tail_ops.LAUNCHES["decode_tail"]
+        (sequences, _), ms = timed(lambda: generate(samples, SC_BATCH, state.generator))
+        gen_ms.append(ms)
+        if tail_ops.LAUNCHES["decode_tail"] != tail_before:
+            fail("trainer: generation under live dropout went through K11")
+        seqs = sequences.cpu().numpy()
+        if seqs.shape != (SC_BATCH, BEAM, STEPS):
+            fail(f"trainer: generated sequences of shape {seqs.shape}")
+        caps_gen = text_field.decode(seqs.reshape(-1, STEPS))
+        # five references an image from the port's vocabulary: the words of the
+        # image's first sampled caption, each with a random third of them
+        # replaced, so that the beams' rewards differ
+        refs = []
+        for b in range(SC_BATCH):
+            words = caps_gen[b * BEAM].split() or ["w0"]
+            refs.append([" ".join(w if rng.random() > 1 / 3 else f"w{rng.integers(0, 1000)}"
+                                  for w in words) for _ in range(5)])
+        cider = Cider(PTBTokenizer.tokenize(refs))
+        gts = PTBTokenizer.tokenize([r for r in refs for _ in range(BEAM)])
+        reward = cider.compute_score(gts, PTBTokenizer.tokenize(caps_gen))[1]
+        reward = reward.astype(np.float32).reshape(SC_BATCH, BEAM)
+        adam_before = adam_ops.LAUNCHES["adam"]
+        (_, metrics), ms = timed(lambda: update(state, samples, sequences, reward,
+                                                float(SC_BATCH)))
+        upd_ms.append(ms)
+        vals = {k: float(v) for k, v in metrics.items()}
+        print(f"[trainer] SCST iteration {i} b{SC_BATCH} beam {BEAM} x {STEPS}: generate "
+              f"{gen_ms[-1]:.1f} ms, update {ms:.1f} ms, loss {vals['loss']:.6f}, reward "
+              f"{vals['reward']:.4f}, baseline {vals['reward_baseline']:.4f}, rewards "
+              f"{reward.shape} in [{reward.min():.3f}, {reward.max():.3f}]", flush=True)
+        if reward.shape != (SC_BATCH, BEAM) or not all(np.isfinite(list(vals.values()))):
+            fail(f"trainer: SCST metrics {vals}, reward shape {reward.shape}")
+        if not (reward - reward.mean(1, keepdims=True)).any():
+            fail("trainer: every beam got its image's mean reward: the update has no signal")
+        if adam_ops.LAUNCHES["adam"] - adam_before != 2:
+            fail("trainer: the SCST update did not launch K12 once per parameter group")
+    moved, stuck, frozen_moved = 0, [], 0
+    for n, p in model.named_parameters():
+        changed = not torch.equal(p.detach(), before[n])
+        if not torch.isfinite(p).all():
+            fail(f"trainer: parameter {n} is non-finite after SCST")
+        if id(p) not in held:
+            frozen_moved += changed
+        elif p.grad is not None and p.grad.abs().max() > 0:
+            moved += changed
+            if not changed:
+                stuck.append(n)
+    print(f"[trainer] SCST moved {moved} trainable parameters with a gradient ({len(held)} "
+          f"in the optimizer), left {len(stuck)} of them unchanged, moved {frozen_moved} frozen "
+          f"ones")
+    if not moved or stuck or frozen_moved:
+        fail(f"trainer: SCST left parameters with a gradient unchanged ({stuck[:5]}) or moved "
+             f"frozen ones")
+    del before
+
+    # -- evaluation ---------------------------------------------------------
+    model.eval()
+    eval_gen = make_caption_generator(model, **beam)
+    loader = []
+    for j in range(2):
+        batch = synthetic_batch(EVAL_BATCH)
+        loader.append({"samples": ImageBatch(batch.images.cpu(), batch.mask.cpu()),
+                       "image_id": list(range(j * EVAL_BATCH, (j + 1) * EVAL_BATCH)),
+                       "captions": [refs[k % SC_BATCH] for k in range(EVAL_BATCH)]})
+    tail_before = tail_ops.LAUNCHES["decode_tail"]
+    scores, results, avg_s = evaluate_metrics(eval_gen, loader, text_field, device=DEV,
+                                              verbose=False)
+    tails = tail_ops.LAUNCHES["decode_tail"] - tail_before
+    print(f"[trainer] evaluate_metrics over 2 batches of {EVAL_BATCH} in eval(): "
+          f"{avg_s * 1e3:.1f} ms/batch, K11 launches {tails} (want {2 * layers * STEPS}), "
+          f"scores {json.dumps(scores)}", flush=True)
+    if tails != 2 * layers * STEPS:
+        fail(f"trainer: evaluation launched K11 {tails} times, want {2 * layers * STEPS}")
+    flat = [scores[k] for k in ("CIDEr", "ROUGE", "METEOR")] + list(scores["BLEU"])
+    if len(results) != 2 * EVAL_BATCH or not all(np.isfinite(flat)):
+        fail(f"trainer: evaluation scores {scores}, {len(results)} results")
+
+    # -- checkpoint ---------------------------------------------------------
+    with tempfile.TemporaryDirectory() as workdir:
+        ckpt_lib.save_checkpoint(workdir, "last", state=state, epoch=0,
+                                 best_ciders=(scores["CIDEr"], 0.0), config=config)
+        size_mb = os.path.getsize(os.path.join(workdir, "checkpoints", "last",
+                                               ckpt_lib.STATE_FILE)) / 2 ** 20
+        state2, _, _ = training_setup(config, torch.bfloat16, TRAIN_BATCH, seed=1)
+        restored = ckpt_lib.restore_checkpoint(workdir, "last")
+        ckpt_lib.load_train_state(state2, restored)
+    losses = []
+    for st in (state, state2):
+        _, metrics = update(st, samples, sequences, reward, float(SC_BATCH))
+        losses.append(float(metrics["loss"]))
+    rel = abs(losses[0] - losses[1]) / max(abs(losses[0]), 1e-30)
+    print(f"[trainer] checkpoint ({size_mb:.0f} MiB) restored into a fresh model and "
+          f"optimizer: next SCST loss {losses[0]:.9f} vs {losses[1]:.9f}, rel diff {rel:.3e} "
+          f"(tol 1e-06), epoch {restored['epoch']}, ticks {state2.global_steps}")
+    if not np.isfinite(losses).all() or rel > 1e-6 or state2.global_steps != state.global_steps:
+        fail(f"trainer: checkpoint round trip: losses {losses}")
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[trainer] kernel launches over the phase: {counts}; peak {peak:.2f} GiB; XE "
+          f"{min(xe_ms):.1f} ms/step, SCST generate {min(gen_ms):.1f} ms, update "
+          f"{min(upd_ms):.1f} ms (best of 2 each, the first includes warm-up)  [{card}]",
+          flush=True)
+    if not all(counts.values()):
+        fail(f"trainer: a kernel of the path was never launched: {counts}")
+    for k, n in counts.items():
+        RESULTS[k]["launches_trainer"] = n
+    RESULTS["trainer"] = {"xe_ms": xe_ms, "generate_ms": gen_ms, "update_ms": upd_ms,
+                          "eval_s_per_batch": avg_s, "eval_batch": EVAL_BATCH,
+                          "sc_batch": SC_BATCH, "scores": scores, "peak_gib": peak,
+                          "launches": counts, "checkpoint_mib": size_mb,
+                          "checkpoint_loss_rel_diff": rel}
+
+
 # module groups whose gradient leaves share what can flip upstream of them
 PARITY_GROUPS = (("cap_generator", "cap_generator."), ("grid_net", "grid_net."),
                  ("deformable decoder", "detector.det_module."),
@@ -784,13 +1187,15 @@ def float64_arm():
     parameters in float64, every ``.float()`` upcast in the plain versions and
     the model, which means "accumulate in at least f32", reads as
     ``.double()``."""
-    saved = torch.Tensor.float
+    saved, saved_adam = torch.Tensor.float, adam_ops.adam_update
     torch.Tensor.float = lambda self, *a, **k: self.double()
+    # K12 takes f32 leaves only: this arm's float64 parameters step through its plain version
+    adam_ops.adam_update = lambda *a, table=None, **k: adam_ops.adam_update_plain(*a, **k)
     try:
         with plain_arm():
             yield
     finally:
-        torch.Tensor.float = saved
+        torch.Tensor.float, adam_ops.adam_update = saved, saved_adam
 
 
 def parity_arm(arm: str, batch: int):
@@ -821,7 +1226,8 @@ def parity_arm(arm: str, batch: int):
         _, metrics = step(state, tbatch)
     for h in hooks:
         h.remove()
-    launched = sum(train_launches().values())
+    # the optimizer is no part of an arm: every arm's update goes through K12
+    launched = sum(n for k, n in train_launches().items() if k != "K12")
     if (arm == "kernel") != (launched > 0):
         fail(f"training parity: the {arm} arm launched {launched} kernels")
     lrs = {id(p): g["lr"] for g in state.optimizer.param_groups for p in g["params"]}
@@ -1016,23 +1422,28 @@ def main() -> None:
 
     phase_kernels(args.batch)
     phase_train_kernels(TRAIN_BATCH)
+    phase_decode_kernel()
+    phase_adam_kernel()
     phase_yardsticks(args.batch)
     phase_slice(args.batch, card)
     phase_parity(args.batch)
     phase_train(card)
+    phase_trainer(card)
     if args.profile:
         phase_profile(args.batch, card)
     phase_train_parity(TRAIN_BATCH)
     parity_seeds(TRAIN_BATCH, args.parity_seeds)
 
-    swin, msda = "grit_tpu_torch/csrc/swin_block.cu", "grit_tpu_torch/csrc/msda.cu"
+    csrc = "grit_tpu_torch/csrc/"
+    swin, msda = csrc + "swin_block.cu", csrc + "msda.cu"
     # name: (source, TPU kernel it replaces, the run its launches, ms and bound are of)
     sources = {"K1": (swin, "grit_tpu/ops/window_attention.py:1029", "caption"),
                "K2": (swin, "grit_tpu/ops/window_attention.py:1819", "caption"),
                "K3": (msda, "grit_tpu/ops/msda_pallas.py:1018", "caption"),
                "K4": (swin, "grit_tpu/ops/window_attention.py:385", "train"),
                "K5": (swin, "grit_tpu/ops/window_attention.py:197", "train"),
-               "K6": (msda, "grit_tpu/ops/msda_pallas.py:633", "train")}
+               "K6": (msda, "grit_tpu/ops/msda_pallas.py:633", "train"),
+               "K11": (csrc + "decode_layer.cu", "grit_tpu/ops/decode_layer.py:117", "caption")}
     kernels = []
     for k, (src, rep, run) in sources.items():
         r = RESULTS[k]
@@ -1044,15 +1455,27 @@ def main() -> None:
             "bound_ms": max(acc["bytes_ms"], acc["ops_ms"]),
             "bound_by": "bytes" if acc["bytes_ms"] >= acc["ops_ms"] else "operations",
             # no single PyTorch call computes any of these whole; the parts'
-            # yardsticks are in chip_smoke.json
+            # yardsticks (and the module path of K11's tail) are in chip_smoke.json
             "library_ms": None,
             "per": f"b{args.batch} bf16 caption forward" if run == "caption"
                    else f"b{TRAIN_BATCH} bf16 XE training step",
             # the same four for one b16 bf16 XE training step, whichever run
-            # the keys above are of
-            "launches_caption": r.get("launches", 0), "launches_train": r["launches_train"],
+            # the keys above are of, and the launches of the trainer phase
+            "launches_caption": r.get("launches", 0),
+            "launches_train": r.get("launches_train", 0),
+            "launches_trainer": r["launches_trainer"],
             "train_ms": train["ms"], "train_plain_ms": train["plain_ms"],
             "train_bound_ms": max(train["bytes_ms"], train["ops_ms"])})
+    r = RESULTS["K12"]
+    kernels.append({
+        "name": "K12", "route": "cuda", "source": csrc + "adam.cu",
+        "replaces": "grit_tpu/ops/fused_adam.py:143", "launches": r["launches_train"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": r["library_ms"],
+        "per": f"b{TRAIN_BATCH} bf16 XE training step (one update of {r['elements']} elements)",
+        "launches_caption": 0, "launches_train": r["launches_train"],
+        "launches_trainer": r["launches_trainer"], "train_ms": r["ms"],
+        "train_plain_ms": r["plain_ms"], "train_bound_ms": r["bound_ms"]})
     # K7a / K7b: the S-chunked TPU variants map onto K3 / K6, checked at 832x1344
     mapped = [{"name": name, "maps_onto": onto, "replaces": rep, "checked": [
                    c for c in DETAIL if c["kernel"] == onto and "832x1344" in c["case"]]}
@@ -1066,6 +1489,7 @@ def main() -> None:
                    "kernels": kernels,
                    "mapped": mapped, "yardsticks": YARDSTICKS, "cases": DETAIL,
                    "slice": RESULTS.get("slice"), "train": RESULTS.get("train"),
+                   "trainer": RESULTS.get("trainer"),
                    "train_parity": RESULTS.get("train_parity"),
                    "parity_seeds": RESULTS.get("parity_seeds")}, f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -8,7 +8,10 @@ that the model recomputes or never uses are dropped
 arrays (the JAX package's parameters) to the port's state_dict.
 ``state_dict_to_params`` goes the other way, for a state_dict or a dict of
 gradients by parameter name, so that gradients and updated parameters
-compare leaf by leaf with the JAX package's trees.
+compare leaf by leaf with the JAX package's trees.  ``decode_tail_weights``
+gives a decoder layer's 24 decode-tail weights, and ``adam_state_to_trees`` /
+``adam_state_from_trees`` carry the optimizer's moments, in the JAX package's
+layouts as numpy.
 """
 
 from __future__ import annotations
@@ -125,3 +128,43 @@ def load_reference_checkpoint(path: str) -> dict[str, torch.Tensor]:
         ckpt = ckpt.get("state_dict", ckpt.get("model", ckpt))
     return {k: v for k, v in ckpt.items()
             if torch.is_tensor(v) and not any(re.search(p, k) for p in _SKIP_PATTERNS)}
+
+
+def decode_tail_weights(layer) -> tuple[np.ndarray, ...]:
+    """A port ``ParallelAttentionLayer``'s decode-tail weights as the numpy
+    24-tuple of ``grit_tpu.ops.decode_layer`` (its ``_ref`` order, matrices
+    ``[in, out]``)."""
+    return tuple(np.ascontiguousarray(w.detach().float().cpu().numpy())
+                 for w in layer.tail_weights(torch.float32))
+
+
+def adam_state_to_trees(model, optimizer) -> tuple[dict, dict, int]:
+    """The port optimizer's Adam state -> (mu tree, nu tree, step) in the
+    flax params layout of ``state_dict_to_params``; parameters without state
+    (frozen, or never stepped) get zeros, as optax initialises them."""
+    mu, nu, steps = {}, {}, set()
+    for name, p in model.named_parameters():
+        st = optimizer.state.get(p, {})
+        mu[name] = st["exp_avg"] if st else torch.zeros_like(p)
+        nu[name] = st["exp_avg_sq"] if st else torch.zeros_like(p)
+        if st:
+            steps.add(int(st["step"]))
+    if len(steps) > 1:
+        raise ValueError(f"parameters disagree on the step count: {sorted(steps)}")
+    return state_dict_to_params(mu), state_dict_to_params(nu), steps.pop() if steps else 0
+
+
+@torch.no_grad()
+def adam_state_from_trees(model, optimizer, mu: dict, nu: dict, step: int) -> None:
+    """Load flax-layout moment trees (numpy leaves, e.g. optax's
+    ``ScaleByAdamState.mu`` / ``.nu`` and ``count``) into the port optimizer,
+    for every parameter it holds."""
+    mus, nus = params_to_state_dict(mu), params_to_state_dict(nu)
+    held = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    for name, p in model.named_parameters():
+        if id(p) in held:
+            optimizer.state[p] = {
+                "step": int(step),
+                # copies: the trees may be views of another optimizer's state
+                "exp_avg": torch.tensor(mus[name], dtype=p.dtype, device=p.device),
+                "exp_avg_sq": torch.tensor(nus[name], dtype=p.dtype, device=p.device)}

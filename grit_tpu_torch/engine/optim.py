@@ -18,9 +18,12 @@ grit_tpu/engine/optim.py):
   (``requires_grad=False`` there).
 
 The JAX package keeps Adam's moments LR-free and scales the update inside the
-step; here ``torch.optim.Adam`` holds two parameter groups and the step sets
-the model group's LR from the schedule before ``optimizer.step()``.  Frozen
-parameters are in no group.
+step; here ``Adam``, the port's own ``torch.optim.Optimizer``, holds two
+parameter groups and the step sets the model group's LR from the schedule
+before ``optimizer.step()``.  Its ``step()`` goes through
+``ops.fused_adam.adam_update`` (kernel K12 on CUDA parameters, the plain
+version on CPU parameters), one call per group.  Frozen parameters are in no
+group.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from typing import Callable, Optional
 
 import torch
 from torch import nn
+
+from grit_tpu_torch.ops import fused_adam
 
 
 def split_param_labels(model: nn.Module) -> dict[str, str]:
@@ -79,19 +84,64 @@ def cosine_lr_schedule(global_steps: int, *, num_epochs: int, num_its_per_epoch:
     return max(min_lr, (init_lr - min_lr) * (1 + math.cos(math.pi * gs / total)) / 2 + min_lr)
 
 
+class Adam(torch.optim.Optimizer):
+    """Adam with optax's arithmetic (``scale_by_adam``, then
+    ``add_decayed_weights``, then the learning rate), updating moments and
+    parameters in place through ``ops.fused_adam.adam_update``.
+
+    ``weight_decay`` is decoupled: it is added to the Adam-scaled update and
+    multiplied by the learning rate, never fed into the moments (not
+    ``torch.optim.Adam``'s L2 form).  A parameter whose gradient is None is
+    skipped and its step count stays, as in torch's optimizers.  State per
+    parameter: ``step`` (int), ``exp_avg``, ``exp_avg_sq``."""
+
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+        self._tables: dict = {}   # (group index, launch index) -> the launch's LeafTable
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for gi, group in enumerate(self.param_groups):
+            by_step: dict[int, list] = {}   # one launch for the leaves that share a count
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state.update(step=0, exp_avg=torch.zeros_like(p),
+                                 exp_avg_sq=torch.zeros_like(p))
+                state["step"] = int(state["step"]) + 1
+                by_step.setdefault(state["step"], []).append(p)
+            for k, (step, leaves) in enumerate(by_step.items()):
+                self._tables[(gi, k)] = fused_adam.adam_update(
+                    leaves, [p.grad for p in leaves],
+                    [self.state[p]["exp_avg"] for p in leaves],
+                    [self.state[p]["exp_avg_sq"] for p in leaves],
+                    step=step, lr=group["lr"], b1=group["betas"][0], b2=group["betas"][1],
+                    eps=group["eps"], weight_decay=group["weight_decay"],
+                    table=self._tables.get((gi, k)))
+        return loss
+
+
 def build_optimizer(model: nn.Module, *, model_lr: float, backbone_lr: float,
                     beta_1: float = 0.9, beta_2: float = 0.99, weight_decay: float = 0.0,
-                    freeze: Optional[dict[str, bool]] = None) -> torch.optim.Adam:
+                    freeze: Optional[dict[str, bool]] = None) -> Adam:
     """Adam over two groups, ``param_groups[0]`` the model group (its LR is
     set each step from the schedule) and ``param_groups[1]`` the backbone
     group (fixed LR).  Parameters labelled frozen, or named by ``freeze``, are
-    left out."""
+    left out.  ``weight_decay`` is decoupled (see ``Adam``), as
+    grit_tpu.engine.optim.build_optimizer applies it."""
     labels = split_param_labels(model)
     groups = {"model": [], "backbone": []}
     for name, p in model.named_parameters():
         if labels[name] != "frozen" and not (freeze and freeze[name]):
             groups[labels[name]].append(p)
-    return torch.optim.Adam(
+    return Adam(
         [{"params": groups["model"], "lr": model_lr, "name": "model"},
          {"params": groups["backbone"], "lr": backbone_lr, "name": "backbone"}],
         betas=(beta_1, beta_2), eps=1e-8, weight_decay=weight_decay)

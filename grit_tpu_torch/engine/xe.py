@@ -47,8 +47,11 @@ def nll_loss(log_probs: torch.Tensor, captions: torch.Tensor, pad_idx: int):
     return -(ll * mask).sum() / mask.sum().clamp(min=1.0), mask.sum()
 
 
-def make_xe_train_step(*, pad_idx: int, sched_cfg: dict) -> Callable:
+def make_xe_train_step(*, pad_idx: int, sched_cfg: dict,
+                       backbone_lr: Optional[float] = None) -> Callable:
     """-> step(state, batch) -> (state, metrics): one XE update in place.
+    ``backbone_lr`` resets the backbone group's fixed LR at every step (an XE
+    phase may follow an SC phase, which sets its own); None leaves it as built.
 
     batch: {'samples': ImageBatch on the model's device, 'captions': int
     [B, L]}.  metrics: {'loss': 0-d tensor (not synchronised), 'lr': float}.
@@ -60,6 +63,8 @@ def make_xe_train_step(*, pad_idx: int, sched_cfg: dict) -> Callable:
         model.set_generator(state.generator)
         lr = cosine_lr_schedule(state.global_steps, **sched_cfg)
         state.optimizer.param_groups[0]["lr"] = lr
+        if backbone_lr is not None:
+            state.optimizer.param_groups[1]["lr"] = backbone_lr
         state.optimizer.zero_grad(set_to_none=True)
         out = model(batch["samples"], batch["captions"])
         loss, _ = nll_loss(out, batch["captions"], pad_idx)

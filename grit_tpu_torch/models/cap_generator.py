@@ -12,7 +12,11 @@ checkpoints carry their own.
 - ``forward``: teacher forcing with a causal + pad mask;
 - ``decode_step``: one token against fixed-shape KV caches, with the
   visual K/V projected once (``precompute_vis_kv``) and kept per image
-  (``vis_fold`` = beam size).
+  (``vis_fold`` = beam size).  After its self-attention a layer's decode step
+  is one call of ``ops.decode_layer.fused_decode_layer_tail`` (kernel K11)
+  whenever no dropout is live and the tensors are on the GPU
+  (``use_fused_tail``); with live dropout it runs module by module, as
+  grit_tpu's deterministic-only fused tail.
 """
 
 from __future__ import annotations
@@ -22,11 +26,18 @@ import math
 import torch
 from torch import nn
 
-from grit_tpu_torch.models.attention import FeedForward, MultiHeadAttention
-from grit_tpu_torch.models.layers import Linear
+from grit_tpu_torch.models.attention import LN_EPS, FeedForward, MultiHeadAttention
+from grit_tpu_torch.models.layers import Dropout, Linear
+from grit_tpu_torch.ops import decode_layer
 from grit_tpu_torch.ops.posemb import sinusoid_encoding_table
 
 DecodeCache = dict  # {'layers': [(k, v), ...], 'pad_hist': [B, T] bool}
+
+
+def use_fused_tail(layer: "ParallelAttentionLayer", x: torch.Tensor) -> bool:
+    """Whether ``layer.decode`` takes K11 for its tail: on CUDA tensors, unless
+    a dropout of the layer is live (``train()`` mode with a rate above 0)."""
+    return x.is_cuda and not layer.dropout_live()
 
 
 class ParallelAttentionLayer(nn.Module):
@@ -58,10 +69,44 @@ class ParallelAttentionLayer(nn.Module):
         return {"att1": self.vis_att1.attention.project_kv(y1, y1),
                 "att2": self.vis_att2.attention.project_kv(y2, y2)}
 
+    def dropout_live(self) -> bool:
+        return self.training and any(m.p > 0.0 for m in self.modules()
+                                     if isinstance(m, Dropout))
+
+    def tail_weights(self, dtype: torch.dtype) -> tuple:
+        """The 24 weights of the decode tail in ``ops.decode_layer``'s order,
+        read from the submodules the module path uses: matrices as ``[in,
+        out]`` views of the Linear weights in ``dtype`` (a cast only where the
+        parameters are f32 masters), LayerNorm parameters f32; the second gate
+        from ``fc_alpha1`` under ``replicate_alpha_bug``."""
+        d = self.fc_alpha1.out_features
+
+        def wb(lin):
+            return lin.weight.to(dtype).t(), lin.bias.to(dtype)
+
+        def cross(mha):
+            return (*wb(mha.attention.fc_q), *wb(mha.attention.fc_o),
+                    mha.layer_norm.weight, mha.layer_norm.bias)
+
+        def gate(lin):
+            w = lin.weight.to(dtype)
+            return w[:, :d].t(), w[:, d:].t(), lin.bias.to(dtype)
+
+        gate2 = self.fc_alpha1 if self.replicate_alpha_bug else self.fc_alpha2
+        return (*cross(self.vis_att1), *cross(self.vis_att2), *gate(self.fc_alpha1),
+                *gate(gate2), *wb(self.pwff.fc1), *wb(self.pwff.fc2),
+                self.pwff.layer_norm.weight, self.pwff.layer_norm.bias)
+
     def decode(self, x, mask_pad, mask_x, mask_y1, mask_y2, cache, t, vis_kv, vis_fold=1):
         self_att, cache = self.self_att(x, x, x, mask_x, cache=cache, cache_index=t)
         self_att = self_att * mask_pad
         (k1, v1), (k2, v2) = vis_kv["att1"], vis_kv["att2"]
+        if use_fused_tail(self, self_att):
+            out = decode_layer.fused_decode_layer_tail(
+                self_att, k1, v1, mask_y1, k2, v2, mask_y2, mask_pad,
+                self.tail_weights(self_att.dtype), fold=vis_fold,
+                n_heads=self.vis_att1.attention.n_heads, eps=LN_EPS)
+            return out, cache
         enc1 = self.vis_att1(self_att, k1, v1, mask_y1, kv_projected=True,
                              kv_fold=vis_fold) * mask_pad
         enc2 = self.vis_att2(self_att, k2, v2, mask_y2, kv_projected=True,

@@ -29,9 +29,10 @@ class GRITCaptioner(nn.Module):
         self.grid_net = grid_net
         self.cap_generator = cap_generator
 
-    def compute_vis(self, images: ImageBatch) -> dict:
-        """Detector + grid network -> gri_feat/gri_mask/reg_feat/reg_mask."""
-        vis = self.detector(images)
+    def compute_vis(self, images) -> dict:
+        """Detector (unless given a dict of cached detector features) + grid
+        network -> gri_feat/gri_mask/reg_feat/reg_mask."""
+        vis = self.detector(images) if isinstance(images, ImageBatch) else dict(images)
         gri, _ = self.grid_net(vis["gri_feat"], vis["gri_mask"])
         vis["gri_feat"] = gri[:, -1]
         return vis
@@ -39,6 +40,11 @@ class GRITCaptioner(nn.Module):
     def forward(self, images: ImageBatch, seq: torch.Tensor) -> torch.Tensor:
         """Teacher forcing: images and int captions [B, L] -> log-probs [B, L, V]."""
         return self.cap_generator(seq, self.compute_vis(images))
+
+    def score_tokens(self, vis_inputs: dict, seq: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced log-probs [B, L, V] over already-processed visual
+        features (the output of ``compute_vis``)."""
+        return self.cap_generator(seq, vis_inputs)
 
     def set_generator(self, generator) -> "GRITCaptioner":
         """Draw every dropout and drop-path mask from ``generator`` (None:

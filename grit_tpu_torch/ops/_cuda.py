@@ -39,6 +39,8 @@ _SIGNATURES = {
     "grit_msda": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "grit_msda_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _I, _P],
+    "grit_adam": [_P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    "grit_decode_tail": [_P] * 12 + [_I] * 9 + [_F, _I, _P],
 }
 
 

@@ -67,3 +67,47 @@ def batch_images(images: Sequence[np.ndarray], bucket_hw: tuple[int, int] | None
 def downsample_mask(mask: torch.Tensor, stride: int) -> torch.Tensor:
     """[B, H, W] pad mask -> [B, H/s, W/s] (nearest, top-left of each cell)."""
     return mask[:, ::stride, ::stride]
+
+
+def to_device(tree, device):
+    """A loader batch's leaves on ``device``: ``ImageBatch``es and tensors
+    moved, numpy arrays converted and moved (integers as int64), containers
+    walked, anything else (caption strings, ids) left as it is."""
+    if isinstance(tree, ImageBatch):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray):
+        tree = torch.from_numpy(tree)
+        if not tree.is_floating_point() and tree.dtype not in (torch.bool, torch.uint8):
+            tree = tree.long()
+    if torch.is_tensor(tree):
+        return tree.to(device, non_blocking=True)
+    return tree
+
+
+def pad_leading(tree, size: int, int_fill: int = 1, int_first: int | None = None):
+    """Pad every array of a batch along its leading axis up to ``size`` rows
+    (grit_tpu.parallel.mesh.pad_to_multiple's conventions): images, features
+    and masks with zeros (a zero image with an all-valid mask is numerically
+    safe, and its outputs carry no weight downstream); integer leaves other
+    than uint8 images with ``int_fill`` (the ``<pad>`` id), their first column
+    with ``int_first`` where given (the ``<bos>`` id: an all-pad caption row
+    would mask every self-attention key of its queries)."""
+    if isinstance(tree, ImageBatch):
+        return ImageBatch(*(pad_leading(t, size) for t in tree))
+    if isinstance(tree, dict):
+        return {k: pad_leading(v, size, int_fill, int_first) for k, v in tree.items()}
+    is_np = isinstance(tree, np.ndarray)
+    if not (is_np or torch.is_tensor(tree)) or tree.ndim == 0 or tree.shape[0] >= size:
+        return tree
+    arr = tree if is_np else tree.cpu().numpy()
+    rem = size - arr.shape[0]
+    if np.issubdtype(arr.dtype, np.integer) and arr.dtype != np.uint8:
+        block = np.full((rem,) + arr.shape[1:], int_fill, dtype=arr.dtype)
+        if int_first is not None and arr.ndim >= 2 and arr.shape[1] > 0:
+            block[:, 0] = int_first
+    else:
+        block = np.zeros((rem,) + arr.shape[1:], dtype=arr.dtype)
+    out = np.concatenate([arr, block], axis=0)
+    return out if is_np else torch.from_numpy(out)
