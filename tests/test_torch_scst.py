@@ -26,7 +26,7 @@ from grit_tpu_torch import convert
 from grit_tpu_torch.engine import scst as tscst
 from grit_tpu_torch.models import cap_generator as tcap
 from grit_tpu_torch.ops import decode_layer as tdl
-from test_torch_models import (BOS, EOS, PAD, VOCAB, jax_captioner, jax_params, torch_captioner,
+from test_torch_models import (BOS, EOS, VOCAB, jax_captioner, jax_params, torch_captioner,
                                torch_one_thread, uint8_images)  # noqa: F401
 from test_torch_train import (BACKBONE_LR, FROZEN_STAGES, jax_train_captioner, torch_state,
                               torch_train_captioner)
