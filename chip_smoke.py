@@ -53,11 +53,13 @@ Phases, each of which must pass:
      (K4, K5, K2) and each deformable cross-attention (K3, K6) alone, kernels
      against plain on the same inputs and output gradient, where the bound
      is tight;
-  8. the caption trainer's path at full width (between 6 and 7): two XE steps
-     at b16, two SCST iterations at b8 (beam-5 generation, CIDEr rewards on
-     the host, the update through K12), evaluate_metrics over two batches in
-     eval() (through K11), and a checkpoint saved, restored into a fresh model
-     and optimizer and held to the same next loss.
+  8. the caption trainer's path at full width (between 6 and 7), through the
+     trainer's own loops over in-memory loaders: train_xe_epoch over two b16
+     batches, train_sc_epoch over two b8 batches (beam-5 generation, CIDEr
+     rewards on the host, the update through K12), evaluate_metrics over two
+     b16 batches in eval() (through K11), and a checkpoint saved, restored
+     into a fresh model and optimizer and held to the same next loss.  Its
+     shapes (K1-K3 at b16, K1-K6 at b8, K11 at 80 rows) are among phase 2's.
 
 Prints the card's name and power limit as nvidia-smi reports them, a JSON
 line of per-kernel results, and last {"ok": true, "device": {...}}; the
@@ -92,6 +94,7 @@ try:
     from grit_tpu_torch.data.metrics import Cider, PTBTokenizer
     from grit_tpu_torch.data.vocab import SPECIALS, Vocab
     from grit_tpu_torch.engine import checkpoint as ckpt_lib
+    from grit_tpu_torch.engine import loops as loops_lib
     from grit_tpu_torch.engine import optim as optim_lib
     from grit_tpu_torch.engine import scst as scst_lib
     from grit_tpu_torch.engine import xe as xe_lib
@@ -126,6 +129,8 @@ MSDA_LEVELS = ((48, 80), (24, 40), (12, 20), (6, 10))
 DET_LEVELS = ((104, 168), (52, 84), (26, 42), (13, 21))
 DET_LAYERS = 6
 TRAIN_BATCH, CAPTION_LEN, FROZEN_STAGES, TRAIN_STEPS = 16, 20, 2, 6
+SC_BATCH = TRAIN_BATCH // 2     # optimizer.batch_size // optimizer.sc_batch_divisor
+EVAL_BATCH = SC_BATCH * 2       # the dict loaders' evaluation batch
 # published dense peaks of one H100 SXM (NVIDIA's data sheet): bf16 tensor
 # cores, f32 outside them, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -270,10 +275,14 @@ def msda_work(n: int, s: int, lq: int, mh: int, d: int, taps: int, dtype,
     return nbytes, ops
 
 
-def phase_kernels(batch: int) -> None:
+def phase_kernels(batch: int, counted: bool = True) -> None:
+    """K1-K3 at the shapes a caption forward of ``batch`` images gives them.
+    ``counted``: these are the calls of the b8 caption batch whose times add up
+    to the per-run numbers; otherwise a comparison only."""
     print(f"[kernels] kernel vs plain at the {HW[0]}x{HW[1]} main-path shapes, b{batch}",
           flush=True)
     g = torch.Generator(device=DEV).manual_seed(0)
+    tag = "" if counted else f" b{batch}"
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=DEV) * scale
@@ -295,27 +304,27 @@ def phase_kernels(batch: int) -> None:
                 out = wa.block_step(x, **p, **kw)
                 ref = wa.block_step_plain(x, **p, **kw)
                 # outputs at window-padding tokens are unspecified: compare the real map
-                compare("K1", f"{dn} {name} shift={shift}", out[:, :real[0], :real[1]],
+                compare("K1", f"{dn} {name}{tag} shift={shift}", out[:, :real[0], :real[1]],
                         ref[:, :real[0], :real[1]], dtype,
                         cuda_ms(lambda: wa.block_step(x, **p, **kw)),
-                        cuda_ms(lambda: wa.block_step_plain(x, **p, **kw)), depth // 2,
-                        block_work(batch * hp * wp, c, heads, dtype, 2))
+                        cuda_ms(lambda: wa.block_step_plain(x, **p, **kw)),
+                        depth // 2 * counted, block_work(batch * hp * wp, c, heads, dtype, 2))
             rows = x.reshape(-1, c)
             m = [1 + rnd(c, scale=0.1), rnd(c, scale=0.1),
                  rnd(4 * c, c, scale=c ** -0.5).to(dtype), rnd(4 * c, scale=0.02).to(dtype),
                  rnd(c, 4 * c, scale=(4 * c) ** -0.5).to(dtype), rnd(c, scale=0.02).to(dtype)]
-            compare("K2", f"{dn} {name}", wa.mlp(rows, *m), wa.mlp_plain(rows, *m), dtype,
+            compare("K2", f"{dn} {name}{tag}", wa.mlp(rows, *m), wa.mlp_plain(rows, *m), dtype,
                     cuda_ms(lambda: wa.mlp(rows, *m)), cuda_ms(lambda: wa.mlp_plain(rows, *m)),
-                    depth, mlp_work(rows.shape[0], c, dtype))
-            compare("K2", f"{dn} {name} residual=False", wa.mlp(rows, *m, residual=False),
+                    depth * counted, mlp_work(rows.shape[0], c, dtype))
+            compare("K2", f"{dn} {name}{tag} residual=False", wa.mlp(rows, *m, residual=False),
                     wa.mlp_plain(rows, *m, residual=False), dtype,
                     cuda_ms(lambda: wa.mlp(rows, *m, residual=False)),
                     cuda_ms(lambda: wa.mlp_plain(rows, *m, residual=False)), 0)
 
         args = msda_inputs(g, batch, MSDA_LEVELS, dtype)
-        compare("K3", f"{dn} 384x640 pyramid", msda_ops.msda(*args),
+        compare("K3", f"{dn} 384x640 pyramid{tag}", msda_ops.msda(*args),
                 msda_ops.msda_plain(*args), dtype, cuda_ms(lambda: msda_ops.msda(*args)),
-                cuda_ms(lambda: msda_ops.msda_plain(*args)), DET_LAYERS,
+                cuda_ms(lambda: msda_ops.msda_plain(*args)), DET_LAYERS * counted,
                 msda_work(batch, args[0].shape[1], 150, 8, 64, 16, dtype, False))
 
 
@@ -333,12 +342,14 @@ def msda_inputs(g, batch: int, levels, dtype):
     return value, levels, loc, attn.reshape(batch, lq, mh, L, P), real_hw
 
 
-def phase_train_kernels(batch: int) -> None:
-    """Every kernel at the shapes one b16 training step gives it: K1 and K2
-    (with its residual) on the padded map of the frozen stage 1; K4, K5 and K2
-    with ``residual=False`` (on the unpadded rows) at the three stages that
-    train; K3 and K6 at the caption pyramid, and at the 832x1344 detection
-    pyramid."""
+def phase_train_kernels(batch: int, counted: bool = True) -> None:
+    """Every kernel at the shapes one training step of ``batch`` images gives
+    it: K1 and K2 (with its residual) on the padded map of the frozen stage 1;
+    K4, K5 and K2 with ``residual=False`` (on the unpadded rows) at the three
+    stages that train; K3 and K6 at the caption pyramid, and at the 832x1344
+    detection pyramid.  ``counted``: these are the calls of the b16 XE step
+    whose times add up to the per-run numbers, and the detection pyramid is
+    checked too; otherwise (the b8 of the SCST update) a comparison only."""
     print(f"[kernels] kernels vs plain (autograd for the backwards) at the {HW[0]}x{HW[1]} "
           f"shapes of one training step, b{batch}", flush=True)
     g = torch.Generator(device=DEV).manual_seed(1)
@@ -370,7 +381,7 @@ def phase_train_kernels(batch: int) -> None:
             compare("K2", f"{dn} {name} b{batch} residual={frozen}", wa.mlp(mrows, *m, **mkw),
                     wa.mlp_plain(mrows, *m, **mkw), dtype,
                     cuda_ms(lambda: wa.mlp(mrows, *m, **mkw)),
-                    cuda_ms(lambda: wa.mlp_plain(mrows, *m, **mkw)), depth,
+                    cuda_ms(lambda: wa.mlp_plain(mrows, *m, **mkw)), depth * counted,
                     mlp_work(mrows.shape[0], c, dtype), "train")
             d_ao = rnd(rows, c).to(dtype)
             for shift in (0, WINDOW // 2):
@@ -383,14 +394,14 @@ def phase_train_kernels(batch: int) -> None:
                     compare("K1", case, out[:, :real[0], :real[1]], ref[:, :real[0], :real[1]],
                             dtype, cuda_ms(lambda: wa.block_step(x, **ln, **p, **kw, real_hw=real)),
                             cuda_ms(lambda: wa.block_step_plain(x, **ln, **p, **kw, real_hw=real)),
-                            depth // 2, block_work(rows, c, heads, dtype, 2), "train")
+                            depth // 2 * counted, block_work(rows, c, heads, dtype, 2), "train")
                     continue
                 out, ao = wa.block_attention(x, **p, **kw, save_attn=True)
                 ref, ref_ao, qkv = wa.block_attention_plain(x, **p, **kw)
                 ms = cuda_ms(lambda: wa.block_attention(x, **p, **kw, save_attn=True))
                 plain_ms = cuda_ms(lambda: wa.block_attention_plain(x, **p, **kw))
-                compare("K4", case + " branch", out, ref, dtype, ms, plain_ms, depth // 2,
-                        block_work(rows, c, heads, dtype, 3), "train")
+                compare("K4", case + " branch", out, ref, dtype, ms, plain_ms,
+                        depth // 2 * counted, block_work(rows, c, heads, dtype, 3), "train")
                 compare("K4", case + " attn_out", ao, ref_ao, dtype, ms, plain_ms, 0)
 
                 geo = dict(batch=batch, hp=hp, wp=wp, **kw)
@@ -405,12 +416,15 @@ def phase_train_kernels(batch: int) -> None:
                 for j, part in enumerate(("dq", "dk", "dv")):
                     compare("K5", f"{case} {part}", dqkv[:, j * c:(j + 1) * c],
                             ref_dqkv[:, j * c:(j + 1) * c], dtype, ms, plain_ms,
-                            depth // 2 if j == 0 else 0, work if j == 0 else None, "train")
+                            depth // 2 * counted if j == 0 else 0, work if j == 0 else None,
+                            "train")
                 compare("K5", case + " dtable", dtable, ref_dtable, dtype, ms, plain_ms, 0)
                 del ref_dqkv, ref_dtable, dqkv, ref, ref_ao, qkv
 
-        for levels, tag, nb, calls in ((MSDA_LEVELS, f"384x640 pyramid b{batch}", batch, DET_LAYERS),
-                                       (DET_LEVELS, "832x1344 pyramid", 2, 0)):
+        pyramids = [(MSDA_LEVELS, f"384x640 pyramid b{batch}", batch, DET_LAYERS * counted)]
+        if counted:
+            pyramids.append((DET_LEVELS, "832x1344 pyramid", 2, 0))
+        for levels, tag, nb, calls in pyramids:
             args = msda_inputs(g, nb, levels, dtype)
             compare("K3", f"{dn} {tag}", msda_ops.msda(*args), msda_ops.msda_plain(*args),
                     dtype, cuda_ms(lambda: msda_ops.msda(*args)),
@@ -482,10 +496,12 @@ def count_launches(fn) -> int:
 
 def phase_decode_kernel() -> None:
     """K11 against its plain version at the decode shapes of a b8 and a b128
-    caption batch (40 and 640 rows, beam 5), with and without key masks, half
-    the rows pad, on a decode layer's own weights; beside it the module path
-    for the same tail (no single PyTorch call computes it), timed and its
-    launches counted."""
+    caption batch (40 and 640 rows, beam 5) and of the trainer's b16
+    evaluation batch (80 rows: a full tile of rows and a ragged one; weights
+    cast from f32 master parameters at the call, as a model built for training
+    hands them over), with and without key masks, half the rows pad, on a
+    decode layer's own weights; beside it the module path for the same tail
+    (no single PyTorch call computes it), timed and its launches counted."""
     print("[kernels] K11 (decode-layer tail) vs plain, beam-5 rows over 60 + 150 keys",
           flush=True)
     g = torch.Generator(device=DEV).manual_seed(3)
@@ -504,10 +520,12 @@ def phase_decode_kernel() -> None:
                     prm.copy_(rnd(*prm.shape, scale=prm.shape[1] ** -0.5))
                 else:
                     prm.copy_(rnd(*prm.shape, scale=0.02))
+        from_masters = layer.tail_weights(dtype)
         to_compute_dtype(layer, dtype)
-        weights = layer.tail_weights(dtype)
-        wbytes = sum(w.numel() for w in weights) * esize(dtype)
-        for batch in (8, 128):
+        stored = layer.tail_weights(dtype)
+        wbytes = sum(w.numel() for w in stored) * esize(dtype)
+        for batch in (8, EVAL_BATCH, 128):
+            weights = from_masters if batch == EVAL_BATCH else stored
             rows = batch * BEAM
             x = rnd(rows, 1, D_MODEL).to(dtype)
             kv = [rnd(batch, t, D_MODEL).to(dtype) for t in (T_GRID, T_GRID, T_REG, T_REG)]
@@ -571,20 +589,24 @@ def phase_decode_kernel() -> None:
 def phase_adam_kernel() -> None:
     """K12 against its plain version for 3 consecutive steps on the
     captioner's own trainable leaves under frozen_stages=2 (both groups, plus
-    a 1-element and an odd-sized leaf), with and without weight decay; then
-    the times of one update over all leaves: kernel, plain, and
-    torch.optim.Adam(fused=True) as the library yardstick."""
+    a 1-element and an odd-sized leaf), with and without weight decay (a decay
+    large enough that three steps of it move either group's parameters by
+    over ten times the tolerance); then the times of one update over the
+    model's own leaves: kernel, plain, and torch.optim.Adam(fused=True) as the
+    library yardstick."""
     config = default_caption_config()
     config.model.frozen_stages = FROZEN_STAGES
     model = build_captioner(config, device=DEV, seed=0, train=True)
     freeze = optim_lib.frozen_mask(model, optim_lib.swin_frozen_stages_predicate(FROZEN_STAGES))
     opt = optim_lib.build_optimizer(model, model_lr=1e-4, backbone_lr=1e-5, freeze=freeze)
     shapes = [[tuple(p.shape) for p in grp["params"]] for grp in opt.param_groups]
-    shapes[0] += [(1,), (3, 10201 + 2)]
     del model, opt
     n_el = [sum(int(np.prod(s)) for s in grp) for grp in shapes]
     print(f"[kernels] K12 (Adam update) vs plain: {len(shapes[0])} + {len(shapes[1])} leaves, "
-          f"{n_el[0]} + {n_el[1]} = {sum(n_el)} trainable elements", flush=True)
+          f"{n_el[0]} + {n_el[1]} = {sum(n_el)} trainable elements of the captioner, and a "
+          f"1-element and an odd-sized leaf for the comparison", flush=True)
+    extra = [(1,), (3, 10201 + 2)]
+    shapes[0] += extra
     g = torch.Generator(device=DEV).manual_seed(4)
     hyper = dict(b1=0.9, b2=0.99, eps=1e-8)
     lrs = (1e-4, 1e-5)
@@ -592,7 +614,9 @@ def phase_adam_kernel() -> None:
     def leaves(scale):
         return [[torch.randn(s, generator=g, device=DEV) * scale for s in grp] for grp in shapes]
 
-    for wd in (0.0, 0.01):
+    # three steps of decay move a parameter by 3 * lr * wd of itself: 1.5e-5 in
+    # the backbone group, so a kernel that ignored it fails in either group
+    for wd in (0.0, 0.5):
         p0 = leaves(0.05)
         arms = {arm: ([[p.clone() for p in grp] for grp in p0],
                       [[torch.zeros_like(p) for p in grp] for grp in p0],
@@ -627,9 +651,13 @@ def phase_adam_kernel() -> None:
                     fail(f"K12 wd={wd} {gname} {part}: max rel err {worst:.3e} > {ADAM_TOL:.0e}")
         if wd:
             continue
-        # one update over both groups, as one training step makes it
+        # one update over both groups, as one training step makes it: the
+        # model's own leaves, without the two added for the comparison
         grads = leaves(1e-2)
-        ps, mus, nus = arms["kernel"]
+        grads[0] = grads[0][:-len(extra)]
+        ps, mus, nus = ([grp[:-len(extra)] if gi == 0 else grp for gi, grp in enumerate(part)]
+                        for part in arms["kernel"])
+        tables = [None, None]
 
         def kernel():
             for gi in range(2):
@@ -641,7 +669,7 @@ def phase_adam_kernel() -> None:
                 adam_ops.adam_update_plain(ps[gi], grads[gi], mus[gi], nus[gi], step=4,
                                            lr=lrs[gi], **hyper)
 
-        lib_params = [[torch.nn.Parameter(p.clone()) for p in grp] for grp in p0]
+        lib_params = [[torch.nn.Parameter(p.clone()) for p in grp] for grp in ps]
         for grp, gr in zip(lib_params, grads):
             for p, gg in zip(grp, gr):
                 p.grad = gg
@@ -653,12 +681,12 @@ def phase_adam_kernel() -> None:
               f"{plain_ms:.3f} ms, torch.optim.Adam(fused=True) {lib_ms:.3f} ms, bound "
               f"{bound:.3f} ms (28 bytes an element)", flush=True)
         RESULTS["K12"].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                              elements=sum(n_el), leaves=[len(s) for s in shapes])
+                              elements=sum(n_el), leaves=[len(grp) for grp in ps])
 
 
-def synthetic_batch(batch: int) -> ImageBatch:
+def synthetic_batch(batch: int, offset: int = 0) -> ImageBatch:
     """uint8 images from a seed; every other image smaller than the bucket."""
-    rng = np.random.default_rng(BATCH_SEED)
+    rng = np.random.default_rng(BATCH_SEED + offset)
     imgs = np.zeros((batch, *HW, 3), np.uint8)
     mask = np.ones((batch, *HW), bool)
     for i in range(batch):
@@ -905,11 +933,11 @@ SCHED = dict(num_epochs=10, num_its_per_epoch=1000, init_lr=1e-4, min_lr=1e-4,
              warmup_init_lr=1e-5)
 
 
-def training_batch(batch: int, config) -> dict:
+def training_batch(batch: int, config, offset: int = 0) -> dict:
     """Synthetic XE batch from a seed: the inference phase's images, and
     captions of CAPTION_LEN tokens (BOS, random words, EOS, then a pad tail of
     0-7 tokens)."""
-    rng = np.random.default_rng(1000 + BATCH_SEED)
+    rng = np.random.default_rng(1000 + BATCH_SEED + offset)
     m = config.model
     caps = rng.integers(4, m.vocab_size, (batch, CAPTION_LEN))
     caps[:, 0] = m.bos_idx
@@ -917,7 +945,8 @@ def training_batch(batch: int, config) -> dict:
         end = CAPTION_LEN - 1 - i % 8
         caps[i, end] = m.eos_idx
         caps[i, end + 1:] = m.pad_idx
-    return {"samples": synthetic_batch(batch), "captions": torch.from_numpy(caps).to(DEV)}
+    return {"samples": synthetic_batch(batch, offset),
+            "captions": torch.from_numpy(caps).to(DEV)}
 
 
 def training_setup(config, dtype, batch: int, dropouts: bool = True, seed: int = 0):
@@ -996,29 +1025,65 @@ def phase_train(card: str) -> None:
                         "images_per_s": batch / med, "peak_gib": peak, "launches": counts}
 
 
-SC_BATCH = TRAIN_BATCH // 2     # optimizer.batch_size // optimizer.sc_batch_divisor
-EVAL_BATCH = SC_BATCH * 2       # the dict loaders' evaluation batch
+def on_host(batch: ImageBatch) -> ImageBatch:
+    return ImageBatch(batch.images.cpu(), batch.mask.cpu())
+
+
+def on_stream(fn, spans: list, calls: list | None = None):
+    """``fn`` with a CUDA event recorded on the stream before and after each
+    call and no wait for the device (the loops' pipelining stays as it is);
+    the spans are read when the epoch is over, each beside the host's time in
+    the call.  ``calls`` keeps the arguments."""
+    def wrapped(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        b.record()
+        spans.append((a, b, host_ms))
+        if calls is not None:
+            calls.append(args)
+        return out
+    return wrapped
+
+
+def span_ms(spans: list) -> tuple[list[float], list[float]]:
+    """(ms between the two events on the stream, ms the host spent in the call), per call."""
+    torch.cuda.synchronize()
+    return ([round(a.elapsed_time(b), 1) for a, b, _ in spans],
+            [round(host, 1) for _, _, host in spans])
 
 
 def phase_trainer(card: str) -> None:
     """The caption trainer's path at full width, bf16 over f32 master
     parameters, frozen_stages=2, dropouts on, random weights (seed 0),
-    synthetic 384x640 images: two XE steps at b16; two SCST iterations at b8
-    (beam-5 generation of 20 steps, CIDEr rewards on the host against
-    synthetic references, the update); evaluate_metrics over two in-memory
-    batches in eval(); a checkpoint saved and restored into a freshly built
-    model and optimizer, after which one more SCST update from each must give
-    the same loss."""
+    synthetic 384x640 images, through the trainer's own loops over in-memory
+    loaders: ``train_xe_epoch`` over two b16 batches and a validation batch;
+    ``train_sc_epoch`` over two b8 batches (beam-5 generation of 20 steps,
+    batch 1's queued before batch 0's CIDEr rewards are computed on the host
+    and its update changes the parameters); evaluate_metrics over two batches
+    in eval(); a checkpoint saved and restored into a freshly built model and
+    optimizer, after which one more SCST update from each must give the same
+    loss."""
     import tempfile
 
     config = default_caption_config()
     m = config.model
     vocab_size, layers = m.vocab_size, m.cap_generator.n_layers
-    state, xe_step, tbatch = training_setup(config, torch.bfloat16, TRAIN_BATCH)
+    state, xe_step, _ = training_setup(config, torch.bfloat16, TRAIN_BATCH)
     model = state.model
     # a synthetic vocabulary; the search's EOS is off, so decoding stops at no word either
     text_field = TextField(vocab=Vocab(counter=collections.Counter(
         {f"w{i}": 5 for i in range(vocab_size - len(SPECIALS))})), eos_token="<off>")
+    eval_loss_step = xe_lib.make_eval_loss_step(model, pad_idx=m.pad_idx)
+
+    def xe_loader_batch(offset: int) -> dict:
+        b = training_batch(TRAIN_BATCH, config, offset)
+        return {"samples": on_host(b["samples"]), "captions": b["captions"].cpu().numpy()}
+
+    loaders = {"train": [xe_loader_batch(0), xe_loader_batch(1)], "valid": [xe_loader_batch(2)]}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1026,22 +1091,18 @@ def phase_trainer(card: str) -> None:
     def launches() -> dict:
         return {**train_launches(), "K11": tail_ops.LAUNCHES["decode_tail"]}
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
     # -- XE ---------------------------------------------------------------
-    xe_ms = []
-    for i in range(2):
-        (_, metrics), ms = timed(lambda: xe_step(state, tbatch))
-        xe_ms.append(ms)
-        loss = float(metrics["loss"])
-        print(f"[trainer] XE step {i} b{TRAIN_BATCH}: loss {loss:.4f}, {ms:.1f} ms")
-        if not np.isfinite(loss):
-            fail(f"trainer: XE loss {loss}")
+    xe_spans: list = []
+    t0 = time.perf_counter()
+    state, xe_res = loops_lib.train_xe_epoch(
+        on_stream(xe_step, xe_spans), eval_loss_step, state, loaders, epoch=0, device=DEV,
+        pad_idx=m.pad_idx, bos_idx=m.bos_idx)
+    (xe_ms, xe_host), xe_s = span_ms(xe_spans), time.perf_counter() - t0
+    print(f"[trainer] train_xe_epoch, 2 steps b{TRAIN_BATCH} and the validation loss: {xe_res}, "
+          f"steps {xe_ms} ms on the stream ({xe_host} ms of the host in the call), epoch "
+          f"{xe_s:.2f} s")
+    if not np.isfinite([xe_res["loss"], xe_res["val_loss"]]).all() or len(xe_ms) != 2:
+        fail(f"trainer: XE epoch {xe_res} over {len(xe_ms)} steps")
     if adam_ops.LAUNCHES["adam"] != 4:
         fail(f"trainer: K12 launched {adam_ops.LAUNCHES['adam']} times in 2 XE steps, want 4")
 
@@ -1052,48 +1113,76 @@ def phase_trainer(card: str) -> None:
     update = scst_lib.make_scst_update_step(
         bos_idx=m.bos_idx, eos_idx=vocab_size, model_lr=config.optimizer.sc_lr,
         backbone_lr=config.optimizer.sc_backbone_lr)
-    samples = synthetic_batch(SC_BATCH)
+    sc_samples = [synthetic_batch(SC_BATCH, 3 + j) for j in range(2)]
+    # References that random weights can earn a reward from: the epoch's own
+    # generations, made ahead from a copy of the generator's state (the epoch
+    # queues both batches' generations before its first update, so it draws the
+    # same masks on the same parameters), five an image: the words of the
+    # image's first beam, each with a random third of them replaced
     rng = np.random.default_rng(2000 + BATCH_SEED)
-    before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    held = {id(p) for grp in state.optimizer.param_groups for p in grp["params"]}
-    gen_ms, upd_ms = [], []
-    for i in range(2):
-        tail_before = tail_ops.LAUNCHES["decode_tail"]
-        (sequences, _), ms = timed(lambda: generate(samples, SC_BATCH, state.generator))
-        gen_ms.append(ms)
-        if tail_ops.LAUNCHES["decode_tail"] != tail_before:
-            fail("trainer: generation under live dropout went through K11")
-        seqs = sequences.cpu().numpy()
-        if seqs.shape != (SC_BATCH, BEAM, STEPS):
-            fail(f"trainer: generated sequences of shape {seqs.shape}")
-        caps_gen = text_field.decode(seqs.reshape(-1, STEPS))
-        # five references an image from the port's vocabulary: the words of the
-        # image's first sampled caption, each with a random third of them
-        # replaced, so that the beams' rewards differ
+    gen_state = state.generator.get_state()
+    ahead, ahead_ms = [], []
+    for samples in sc_samples:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ahead.append(generate(samples, SC_BATCH, state.generator)[0])
+        torch.cuda.synchronize()
+        ahead_ms.append(round((time.perf_counter() - t0) * 1e3, 1))
+    state.generator.set_state(gen_state)
+    loaders["train_dict"] = []
+    for j, sequences in enumerate(ahead):
+        caps_gen = text_field.decode(sequences.cpu().numpy().reshape(-1, STEPS))
         refs = []
         for b in range(SC_BATCH):
             words = caps_gen[b * BEAM].split() or ["w0"]
             refs.append([" ".join(w if rng.random() > 1 / 3 else f"w{rng.integers(0, 1000)}"
                                   for w in words) for _ in range(5)])
-        cider = Cider(PTBTokenizer.tokenize(refs))
-        gts = PTBTokenizer.tokenize([r for r in refs for _ in range(BEAM)])
-        reward = cider.compute_score(gts, PTBTokenizer.tokenize(caps_gen))[1]
-        reward = reward.astype(np.float32).reshape(SC_BATCH, BEAM)
-        adam_before = adam_ops.LAUNCHES["adam"]
-        (_, metrics), ms = timed(lambda: update(state, samples, sequences, reward,
-                                                float(SC_BATCH)))
-        upd_ms.append(ms)
-        vals = {k: float(v) for k, v in metrics.items()}
-        print(f"[trainer] SCST iteration {i} b{SC_BATCH} beam {BEAM} x {STEPS}: generate "
-              f"{gen_ms[-1]:.1f} ms, update {ms:.1f} ms, loss {vals['loss']:.6f}, reward "
-              f"{vals['reward']:.4f}, baseline {vals['reward_baseline']:.4f}, rewards "
-              f"{reward.shape} in [{reward.min():.3f}, {reward.max():.3f}]", flush=True)
-        if reward.shape != (SC_BATCH, BEAM) or not all(np.isfinite(list(vals.values()))):
-            fail(f"trainer: SCST metrics {vals}, reward shape {reward.shape}")
+        loaders["train_dict"].append({
+            "samples": on_host(sc_samples[j]), "captions": refs,
+            "image_id": list(range(j * SC_BATCH, (j + 1) * SC_BATCH))})
+    all_refs = [r for batch in loaders["train_dict"] for r in batch["captions"]]
+    cider = Cider(PTBTokenizer.tokenize(all_refs))
+
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    held = {id(p) for grp in state.optimizer.param_groups for p in grp["params"]}
+    counts_before = launches()
+    gen_spans, upd_spans, gen_calls, upd_calls = [], [], [], []
+    t0 = time.perf_counter()
+    state, sc_res = loops_lib.train_sc_epoch(
+        on_stream(generate, gen_spans, gen_calls), on_stream(update, upd_spans, upd_calls),
+        eval_loss_step, state, loaders, cider, text_field, beam_size=BEAM, epoch=1, device=DEV,
+        pad_idx=m.pad_idx, bos_idx=m.bos_idx)
+    (gen_ms, gen_host), (upd_ms, upd_host) = span_ms(gen_spans), span_ms(upd_spans)
+    sc_s = time.perf_counter() - t0
+    print(f"[trainer] train_sc_epoch, 2 iterations b{SC_BATCH} beam {BEAM} x {STEPS} and the "
+          f"validation loss: {sc_res}, generate {gen_ms} ms on the stream ({gen_host} ms of the "
+          f"host in the call; {ahead_ms} ms for the same generations ahead of the epoch, each "
+          f"waited for), update {upd_ms} ms ({upd_host}), epoch {sc_s:.2f} s", flush=True)
+    if len(gen_ms) != 2 or len(upd_ms) != 2 or not np.isfinite(list(sc_res.values())).all():
+        fail(f"trainer: SCST epoch {sc_res} over {len(gen_ms)} generations, {len(upd_ms)} updates")
+    if not sc_res["reward"] > 0 or sc_res["loss"] == 0:
+        fail(f"trainer: the SCST epoch earned no reward or had no loss: {sc_res}")
+    same = 0
+    for j, (_, _, sequences, reward, n_valid) in enumerate(upd_calls):
+        same += int((sequences == ahead[j]).all(-1).sum())
+        print(f"[trainer] SCST iteration {j}: sequences {tuple(sequences.shape)}, rewards "
+              f"{reward.shape} in [{reward.min():.3f}, {reward.max():.3f}], n_valid {n_valid}")
+        if tuple(sequences.shape) != (SC_BATCH, BEAM, STEPS) or reward.shape != (SC_BATCH, BEAM):
+            fail("trainer: SCST sequences or rewards of the wrong shape")
         if not (reward - reward.mean(1, keepdims=True)).any():
             fail("trainer: every beam got its image's mean reward: the update has no signal")
-        if adam_ops.LAUNCHES["adam"] - adam_before != 2:
-            fail("trainer: the SCST update did not launch K12 once per parameter group")
+    # batch 1 was generated before batch 0's update: it saw the parameters the
+    # generations made ahead saw
+    print(f"[trainer] {same} of {2 * SC_BATCH * BEAM} sequences equal those generated ahead of "
+          f"the epoch")
+    if same < SC_BATCH * BEAM:
+        fail("trainer: the epoch's generations differ from those made ahead from the same "
+             "parameters and generator state")
+    counts = launches()
+    if counts["K12"] - counts_before["K12"] != 4:
+        fail("trainer: the SCST updates did not launch K12 once per parameter group each")
+    if counts["K11"] != counts_before["K11"]:
+        fail("trainer: generation under live dropout went through K11")
     moved, stuck, frozen_moved = 0, [], 0
     for n, p in model.named_parameters():
         changed = not torch.equal(p.detach(), before[n])
@@ -1116,12 +1205,10 @@ def phase_trainer(card: str) -> None:
     # -- evaluation ---------------------------------------------------------
     model.eval()
     eval_gen = make_caption_generator(model, **beam)
-    loader = []
-    for j in range(2):
-        batch = synthetic_batch(EVAL_BATCH)
-        loader.append({"samples": ImageBatch(batch.images.cpu(), batch.mask.cpu()),
-                       "image_id": list(range(j * EVAL_BATCH, (j + 1) * EVAL_BATCH)),
-                       "captions": [refs[k % SC_BATCH] for k in range(EVAL_BATCH)]})
+    loader = [{"samples": on_host(synthetic_batch(EVAL_BATCH, 5 + j)),
+               "image_id": list(range(j * EVAL_BATCH, (j + 1) * EVAL_BATCH)),
+               "captions": [all_refs[k % len(all_refs)] for k in range(EVAL_BATCH)]}
+              for j in range(2)]
     tail_before = tail_ops.LAUNCHES["decode_tail"]
     scores, results, avg_s = evaluate_metrics(eval_gen, loader, text_field, device=DEV,
                                               verbose=False)
@@ -1137,7 +1224,7 @@ def phase_trainer(card: str) -> None:
 
     # -- checkpoint ---------------------------------------------------------
     with tempfile.TemporaryDirectory() as workdir:
-        ckpt_lib.save_checkpoint(workdir, "last", state=state, epoch=0,
+        ckpt_lib.save_checkpoint(workdir, "last", state=state, epoch=1,
                                  best_ciders=(scores["CIDEr"], 0.0), config=config)
         size_mb = os.path.getsize(os.path.join(workdir, "checkpoints", "last",
                                                ckpt_lib.STATE_FILE)) / 2 ** 20
@@ -1146,7 +1233,7 @@ def phase_trainer(card: str) -> None:
         ckpt_lib.load_train_state(state2, restored)
     losses = []
     for st in (state, state2):
-        _, metrics = update(st, samples, sequences, reward, float(SC_BATCH))
+        _, metrics = update(st, *upd_calls[-1][1:])
         losses.append(float(metrics["loss"]))
     rel = abs(losses[0] - losses[1]) / max(abs(losses[0]), 1e-30)
     print(f"[trainer] checkpoint ({size_mb:.0f} MiB) restored into a fresh model and "
@@ -1158,13 +1245,16 @@ def phase_trainer(card: str) -> None:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"[trainer] kernel launches over the phase: {counts}; peak {peak:.2f} GiB; XE "
           f"{min(xe_ms):.1f} ms/step, SCST generate {min(gen_ms):.1f} ms, update "
-          f"{min(upd_ms):.1f} ms (best of 2 each, the first includes warm-up)  [{card}]",
-          flush=True)
+          f"{min(upd_ms):.1f} ms (best of 2 each on the stream, the first includes warm-up)  "
+          f"[{card}]", flush=True)
     if not all(counts.values()):
         fail(f"trainer: a kernel of the path was never launched: {counts}")
     for k, n in counts.items():
         RESULTS[k]["launches_trainer"] = n
     RESULTS["trainer"] = {"xe_ms": xe_ms, "generate_ms": gen_ms, "update_ms": upd_ms,
+                          "xe_host_ms": xe_host, "generate_host_ms": gen_host,
+                          "update_host_ms": upd_host, "generate_ahead_ms": ahead_ms,
+                          "xe_epoch_s": xe_s, "sc_epoch_s": sc_s, "xe": xe_res, "sc": sc_res,
                           "eval_s_per_batch": avg_s, "eval_batch": EVAL_BATCH,
                           "sc_batch": SC_BATCH, "scores": scores, "peak_gib": peak,
                           "launches": counts, "checkpoint_mib": size_mb,
@@ -1421,7 +1511,9 @@ def main() -> None:
     print(f"[build] kernel library ready in {build_s:.1f} s", flush=True)
 
     phase_kernels(args.batch)
+    phase_kernels(EVAL_BATCH, counted=False)      # the trainer's evaluation batch
     phase_train_kernels(TRAIN_BATCH)
+    phase_train_kernels(SC_BATCH, counted=False)  # the SCST generation and update
     phase_decode_kernel()
     phase_adam_kernel()
     phase_yardsticks(args.batch)

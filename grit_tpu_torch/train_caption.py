@@ -9,9 +9,10 @@ Usage:
   (dotted overrides; config defaults mirror configs/caption/coco_config.yaml)
 
 ``exp.device`` (or ``--device``) defaults to ``cuda``, and the CLI raises
-without a card; ``exp.device=cpu`` runs on the CPU, in fp32 unless
-``model.compute_dtype=bfloat16``.  On the GPU the model computes in bf16 over
-f32 master parameters unless ``model.compute_dtype=float32``.
+without a card; ``exp.device=cpu`` runs on the CPU.  On either device the
+model computes in ``model.compute_dtype``: fp32 by default, as the config
+that grit_tpu's CLI reads; ``model.compute_dtype=bfloat16`` computes in bf16
+over f32 master parameters.
 
 One process, one device.  What waits for its own slice raises
 ``NotImplementedError``: the rank-specialised evaluation and the sharded batch
@@ -29,11 +30,8 @@ import numpy as np
 import torch
 
 
-def _compute_dtype(config, device: torch.device) -> torch.dtype:
-    name = config.model.get("compute_dtype")
-    if name is None:
-        return torch.bfloat16 if device.type == "cuda" else torch.float32
-    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+def _compute_dtype(config) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[config.model.compute_dtype]
 
 
 def main(argv=None):
@@ -75,7 +73,7 @@ def main(argv=None):
     random.seed(config.exp.seed)
     np.random.seed(config.exp.seed % (2 ** 32))
 
-    model = build_captioner(config, device=device, dtype=_compute_dtype(config, device),
+    model = build_captioner(config, device=device, dtype=_compute_dtype(config),
                             seed=config.exp.seed, train=True)
     text_field = TextField(vocab_path=config.dataset.vocab_path)
 

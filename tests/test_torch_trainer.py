@@ -311,6 +311,22 @@ def test_load_params_flexible_counts_like_the_jax_package():
 # the CLI
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("overrides, want", [
+    ([], torch.float32),
+    (["exp.device=cuda"], torch.float32),
+    (["model.compute_dtype=bfloat16"], torch.bfloat16),
+    (["exp.device=cpu", "model.compute_dtype=bfloat16"], torch.bfloat16),
+])
+def test_train_caption_compute_dtype_follows_the_config(data_root, monkeypatch, overrides, want):
+    """The CLI computes in ``model.compute_dtype`` on either device: fp32 by
+    default, as the config the JAX package's CLI reads."""
+    from grit_tpu_torch.train_caption import _compute_dtype
+
+    tconfig, jconfig = _configs(data_root, monkeypatch, overrides)
+    assert tconfig.model.compute_dtype == jconfig.model.compute_dtype
+    assert _compute_dtype(tconfig) is want
+
+
 def test_train_caption_cli_refuses_missing_cuda(data_root, monkeypatch, tmp_path):
     from grit_tpu_torch.train_caption import main
 
@@ -357,6 +373,7 @@ def test_train_caption_cli_trains_evaluates_and_resumes(data_root, monkeypatch, 
     last = ckpt.restore_checkpoint(str(workdir), "last")
     assert last["epoch"] == 1 and last["global_steps"] == state.global_steps
     assert all(p.dtype == torch.float32 for p in state.model.parameters())
+    assert state.model.cap_generator._dtype() is torch.float32   # the config's default
     assert (workdir / "tensorboard" / "scalars.jsonl").exists()
 
     resumed = main(overrides + ["exp.resume=true", "optimizer.finetune_sc_epochs=2"])
