@@ -59,10 +59,31 @@ Phases, each of which must pass:
      rewards on the host, the update through K12), evaluate_metrics over two
      b16 batches in eval() (through K11), and a checkpoint saved, restored
      into a fresh model and optimizer and held to the same next loss.  Its
-     shapes (K1-K3 at b16, K1-K6 at b8, K11 at 80 rows) are among phase 2's.
+     shapes (K1-K3 at b16, K1-K6 at b8, K11 at 80 rows) are among phase 2's;
+  9. among phase 2's kernels also: K10a (PatchMerging's gather, LayerNorm and
+     reduction) and K10b (the patch-embed LayerNorm), which every Swin forward
+     above runs (4 and 1 launches, counted in phases 4, 6 and 8), forward and
+     gradients, beside F.layer_norm + F.linear; K8 (window attention on
+     separate q, k, v and a dense bias), forward and backward, beside
+     scaled_dot_product_attention, which no model path reaches and this phase
+     holds; and K1-K6 at the shapes of a b4 batch in the detector's 832x1344
+     bucket (504 windows an image at stage 1; a last merge of 13x21 -> 14x22);
+ 10. detector pre-training at full width (between 8 and 7), b4 at 832x1344,
+     the whole Swin training, in fp32 (the CLI's type) and in bf16 over f32
+     master parameters, through detection.solver.Trainer.run_epoch over
+     in-memory loaders with the CLI's hooks: a warm-up epoch, then steps whose
+     kernel launches are checked one by one, Valider.run_epoch -> postprocess
+     -> CocoEvaluator over two batches in eval(), and the checkpoint hook's
+     detector_last restored into a fresh model and held to the same next loss;
+ 11. detector parity in fp32 (last), b2: one step through the kernels and one
+     through the plain versions against one through the plain versions in
+     float64, whose Hungarian assignments all three use: assignments, the
+     total and every named loss, every clipped gradient leaf by module group,
+     and the update against AdamW's step.
 
 Prints the card's name and power limit as nvidia-smi reports them, a JSON
-line of per-kernel results, and last {"ok": true, "device": {...}}; the
+line of per-kernel results (all 18 TPU kernel bodies: the eleven ported
+kernels, and the seven bodies that one of them serves), and last {"ok": true, "device": {...}}; the
 per-shape results go to chiprun_out/chip_smoke.json.  Exits non-zero, without
 that last line, when there is no CUDA device or any phase fails.
 """
@@ -88,11 +109,16 @@ try:
     import numpy as np
     import torch
 
-    from grit_tpu_torch.config import default_caption_config
+    from grit_tpu_torch.config import default_caption_config, default_detection_config
     from grit_tpu_torch.decoding.beam_search import beam_search
     from grit_tpu_torch.data.field import TextField
     from grit_tpu_torch.data.metrics import Cider, PTBTokenizer
     from grit_tpu_torch.data.vocab import SPECIALS, Vocab
+    from grit_tpu_torch.detection import hooks as det_hooks
+    from grit_tpu_torch.detection import losses as det_losses
+    from grit_tpu_torch.detection import solver as det_solver
+    from grit_tpu_torch.detection.coco_eval import CocoEvaluator
+    from grit_tpu_torch.detection.detector import build_detection_model
     from grit_tpu_torch.engine import checkpoint as ckpt_lib
     from grit_tpu_torch.engine import loops as loops_lib
     from grit_tpu_torch.engine import optim as optim_lib
@@ -128,6 +154,16 @@ MSDA_LEVELS = ((48, 80), (24, 40), (12, 20), (6, 10))
 # S-chunked MSDA kernels (K7a, K7b); served here by K3 and K6 themselves
 DET_LEVELS = ((104, 168), (52, 84), (26, 42), (13, 21))
 DET_LAYERS = 6
+# Swin-B stage maps of the detector's 832x1344 bucket: 504 windows an image at
+# stage 1, and a last merge that pads 13x21 to 14x22
+DET_HW, DET_BATCH = (832, 1344), 4
+DET_STAGES = [
+    ("stage1", 128, 4, (208, 336), (216, 336), 2),
+    ("stage2", 256, 8, (104, 168), (108, 168), 2),
+    ("stage3", 512, 16, (52, 84), (60, 84), 18),
+    ("stage4", 1024, 32, (26, 42), (36, 48), 2),
+]
+RUNS = ("caption", "train", "detector")
 TRAIN_BATCH, CAPTION_LEN, FROZEN_STAGES, TRAIN_STEPS = 16, 20, 2, 6
 SC_BATCH = TRAIN_BATCH // 2     # optimizer.batch_size // optimizer.sc_batch_divisor
 EVAL_BATCH = SC_BATCH * 2       # the dict loaders' evaluation batch
@@ -209,11 +245,13 @@ def cuda_ms(fn, reps: int = 10) -> float:
 
 def compare(kernel: str, case: str, out, ref, dtype, ms: float, plain_ms: float,
             calls: int, work: tuple[float, float] | None = None, run: str = "caption",
-            tol: float | None = None) -> None:
+            tol: float | None = None, library_ms: float = 0.0) -> None:
     """Hold one kernel output against the plain version's.  ``calls``: how
     often one ``run`` of a main path ("caption": a b8 caption forward,
-    "train": a b16 XE training step) makes this call (0: a check only);
-    ``work``: (bytes moved once each, operations) of the call, for the bound."""
+    "train": a b16 XE training step, "detector": a b4 832x1344 detector
+    training step) makes this call (0: a check only); ``work``: (bytes moved
+    once each, operations) of the call, for the bound; ``library_ms``: one
+    PyTorch call for the same function, where there is one."""
     if not torch.isfinite(out).all():
         fail(f"{kernel} {case}: non-finite output")
     err = (out.float() - ref.float()).abs().max().item()
@@ -224,14 +262,16 @@ def compare(kernel: str, case: str, out, ref, dtype, ms: float, plain_ms: float,
     if rel > tol:
         fail(f"{kernel} {case}: max rel err {rel:.3e} > {tol:.0e}")
     rec = RESULTS.setdefault(kernel, {"max_abs_err": 0.0, **{
-        r: {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
-        for r in ("caption", "train")}})
+        r: {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": 0.0}
+        for r in RUNS}})
     rec["max_abs_err"] = max(rec["max_abs_err"], err)
     row = {"kernel": kernel, "case": case, "max_abs_err": err, "max_rel_err": rel,
            "tol": tol, "ms": ms, "plain_ms": plain_ms, "calls_per_run": calls, "run": run}
     if work is not None:
         row["bytes_ms"] = work[0] / PEAK_BYTES * 1e3
         row["ops_ms"] = work[1] / PEAK_FLOPS[dtype] * 1e3
+    if library_ms:
+        row["library_ms"] = library_ms
     DETAIL.append(row)
     if dtype == torch.bfloat16 and calls and work is not None:
         # the main path's time in this kernel per run: each shape's median
@@ -242,6 +282,7 @@ def compare(kernel: str, case: str, out, ref, dtype, ms: float, plain_ms: float,
         acc["plain_ms"] += plain_ms * calls
         acc["bytes_ms"] += row["bytes_ms"] * calls
         acc["ops_ms"] += row["ops_ms"] * calls
+        acc["library_ms"] += library_ms * calls
 
 
 def esize(dtype) -> int:
@@ -275,21 +316,25 @@ def msda_work(n: int, s: int, lq: int, mh: int, d: int, taps: int, dtype,
     return nbytes, ops
 
 
-def phase_kernels(batch: int, counted: bool = True) -> None:
-    """K1-K3 at the shapes a caption forward of ``batch`` images gives them.
-    ``counted``: these are the calls of the b8 caption batch whose times add up
-    to the per-run numbers; otherwise a comparison only."""
-    print(f"[kernels] kernel vs plain at the {HW[0]}x{HW[1]} main-path shapes, b{batch}",
+def phase_kernels(batch: int, counted: bool = True, stages=None, levels=None,
+                  hw=None) -> None:
+    """K1-K3 at the shapes a forward in eval() of ``batch`` images gives
+    them: a caption forward at 384x640 or, with ``stages`` / ``levels`` /
+    ``hw``, the detector's evaluation at 832x1344.  ``counted``: these are the
+    calls of the b8 caption batch whose times add up to the per-run numbers;
+    otherwise a comparison only."""
+    stages, levels, hw = stages or STAGES, levels or MSDA_LEVELS, hw or HW
+    print(f"[kernels] kernel vs plain at the {hw[0]}x{hw[1]} main-path shapes, b{batch}",
           flush=True)
     g = torch.Generator(device=DEV).manual_seed(0)
-    tag = "" if counted else f" b{batch}"
+    tag = "" if counted else f" b{batch} {hw[0]}x{hw[1]}"
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=DEV) * scale
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = "fp32" if dtype == torch.float32 else "bf16"
-        for name, c, heads, real, (hp, wp), depth in STAGES:
+        for name, c, heads, real, (hp, wp), depth in stages:
             x = torch.zeros(batch, hp, wp, c, device=DEV)
             x[:, :real[0], :real[1]] = rnd(batch, real[0], real[1], c)
             x = x.to(dtype)
@@ -321,8 +366,8 @@ def phase_kernels(batch: int, counted: bool = True) -> None:
                     cuda_ms(lambda: wa.mlp(rows, *m, residual=False)),
                     cuda_ms(lambda: wa.mlp_plain(rows, *m, residual=False)), 0)
 
-        args = msda_inputs(g, batch, MSDA_LEVELS, dtype)
-        compare("K3", f"{dn} 384x640 pyramid{tag}", msda_ops.msda(*args),
+        args = msda_inputs(g, batch, levels, dtype)
+        compare("K3", f"{dn} {hw[0]}x{hw[1]} pyramid{tag}", msda_ops.msda(*args),
                 msda_ops.msda_plain(*args), dtype, cuda_ms(lambda: msda_ops.msda(*args)),
                 cuda_ms(lambda: msda_ops.msda_plain(*args)), DET_LAYERS * counted,
                 msda_work(batch, args[0].shape[1], 150, 8, 64, 16, dtype, False))
@@ -342,15 +387,20 @@ def msda_inputs(g, batch: int, levels, dtype):
     return value, levels, loc, attn.reshape(batch, lq, mh, L, P), real_hw
 
 
-def phase_train_kernels(batch: int, counted: bool = True) -> None:
+def phase_train_kernels(batch: int, counted: bool = True, stages=None, levels=None,
+                        hw=None, n_frozen: int = FROZEN_STAGES - 1, run: str = "train") -> None:
     """Every kernel at the shapes one training step of ``batch`` images gives
     it: K1 and K2 (with its residual) on the padded map of the frozen stage 1;
     K4, K5 and K2 with ``residual=False`` (on the unpadded rows) at the three
     stages that train; K3 and K6 at the caption pyramid, and at the 832x1344
     detection pyramid.  ``counted``: these are the calls of the b16 XE step
     whose times add up to the per-run numbers, and the detection pyramid is
-    checked too; otherwise (the b8 of the SCST update) a comparison only."""
-    print(f"[kernels] kernels vs plain (autograd for the backwards) at the {HW[0]}x{HW[1]} "
+    checked too; otherwise (the b8 of the SCST update) a comparison only.
+    With ``stages`` / ``levels`` / ``hw`` and ``n_frozen=0``, ``run="detector"``:
+    the shapes of one detector training step at 832x1344, where every stage
+    trains."""
+    stages, levels, hw = stages or STAGES, levels or MSDA_LEVELS, hw or HW
+    print(f"[kernels] kernels vs plain (autograd for the backwards) at the {hw[0]}x{hw[1]} "
           f"shapes of one training step, b{batch}", flush=True)
     g = torch.Generator(device=DEV).manual_seed(1)
     n = WINDOW * WINDOW
@@ -360,8 +410,8 @@ def phase_train_kernels(batch: int, counted: bool = True) -> None:
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = "fp32" if dtype == torch.float32 else "bf16"
-        for k, (name, c, heads, real, (hp, wp), depth) in enumerate(STAGES):
-            frozen = k < FROZEN_STAGES - 1
+        for k, (name, c, heads, real, (hp, wp), depth) in enumerate(stages):
+            frozen = k < n_frozen
             rows = batch * hp * wp
             x = torch.zeros(batch, hp, wp, c, device=DEV)     # zero outside the real map
             x[:, :real[0], :real[1]] = rnd(batch, real[0], real[1], c)
@@ -382,7 +432,7 @@ def phase_train_kernels(batch: int, counted: bool = True) -> None:
                     wa.mlp_plain(mrows, *m, **mkw), dtype,
                     cuda_ms(lambda: wa.mlp(mrows, *m, **mkw)),
                     cuda_ms(lambda: wa.mlp_plain(mrows, *m, **mkw)), depth * counted,
-                    mlp_work(mrows.shape[0], c, dtype), "train")
+                    mlp_work(mrows.shape[0], c, dtype), run)
             d_ao = rnd(rows, c).to(dtype)
             for shift in (0, WINDOW // 2):
                 case = f"{dn} {name} b{batch} shift={shift}"
@@ -394,14 +444,14 @@ def phase_train_kernels(batch: int, counted: bool = True) -> None:
                     compare("K1", case, out[:, :real[0], :real[1]], ref[:, :real[0], :real[1]],
                             dtype, cuda_ms(lambda: wa.block_step(x, **ln, **p, **kw, real_hw=real)),
                             cuda_ms(lambda: wa.block_step_plain(x, **ln, **p, **kw, real_hw=real)),
-                            depth // 2 * counted, block_work(rows, c, heads, dtype, 2), "train")
+                            depth // 2 * counted, block_work(rows, c, heads, dtype, 2), run)
                     continue
                 out, ao = wa.block_attention(x, **p, **kw, save_attn=True)
                 ref, ref_ao, qkv = wa.block_attention_plain(x, **p, **kw)
                 ms = cuda_ms(lambda: wa.block_attention(x, **p, **kw, save_attn=True))
                 plain_ms = cuda_ms(lambda: wa.block_attention_plain(x, **p, **kw))
                 compare("K4", case + " branch", out, ref, dtype, ms, plain_ms,
-                        depth // 2 * counted, block_work(rows, c, heads, dtype, 3), "train")
+                        depth // 2 * counted, block_work(rows, c, heads, dtype, 3), run)
                 compare("K4", case + " attn_out", ao, ref_ao, dtype, ms, plain_ms, 0)
 
                 geo = dict(batch=batch, hp=hp, wp=wp, **kw)
@@ -417,19 +467,19 @@ def phase_train_kernels(batch: int, counted: bool = True) -> None:
                     compare("K5", f"{case} {part}", dqkv[:, j * c:(j + 1) * c],
                             ref_dqkv[:, j * c:(j + 1) * c], dtype, ms, plain_ms,
                             depth // 2 * counted if j == 0 else 0, work if j == 0 else None,
-                            "train")
+                            run)
                 compare("K5", case + " dtable", dtable, ref_dtable, dtype, ms, plain_ms, 0)
                 del ref_dqkv, ref_dtable, dqkv, ref, ref_ao, qkv
 
-        pyramids = [(MSDA_LEVELS, f"384x640 pyramid b{batch}", batch, DET_LAYERS * counted)]
-        if counted:
+        pyramids = [(levels, f"{hw[0]}x{hw[1]} pyramid b{batch}", batch, DET_LAYERS * counted)]
+        if counted and run == "train":
             pyramids.append((DET_LEVELS, "832x1344 pyramid", 2, 0))
         for levels, tag, nb, calls in pyramids:
             args = msda_inputs(g, nb, levels, dtype)
             compare("K3", f"{dn} {tag}", msda_ops.msda(*args), msda_ops.msda_plain(*args),
                     dtype, cuda_ms(lambda: msda_ops.msda(*args)),
                     cuda_ms(lambda: msda_ops.msda_plain(*args), reps=3), calls,
-                    msda_work(nb, args[0].shape[1], 150, 8, 64, 16, dtype, False), "train")
+                    msda_work(nb, args[0].shape[1], 150, 8, 64, 16, dtype, False), run)
             dout = rnd(nb, 150, 512).to(dtype)
             grads = msda_ops.msda_bwd(dout, *args)
             refs = msda_ops.msda_bwd_plain(dout, *args)
@@ -438,7 +488,7 @@ def phase_train_kernels(batch: int, counted: bool = True) -> None:
             work = msda_work(nb, args[0].shape[1], 150, 8, 64, 16, dtype, True)
             for j, part in enumerate(("dvalue", "dloc", "dattn")):
                 compare("K6", f"{dn} {tag} {part}", grads[j], refs[j], dtype, ms, plain_ms,
-                        calls if j == 0 else 0, work if j == 0 else None, "train")
+                        calls if j == 0 else 0, work if j == 0 else None, run)
 
 
 def phase_yardsticks(batch: int) -> None:
@@ -684,6 +734,164 @@ def phase_adam_kernel() -> None:
                               elements=sum(n_el), leaves=[len(grp) for grp in ps])
 
 
+def grads_of(fn, leaves, gout):
+    """Gradients of ``fn(*leaves)`` to every leaf under the output gradient ``gout``."""
+    leaves = [t.detach().requires_grad_() for t in leaves]
+    return torch.autograd.grad(fn(*leaves), leaves, gout)
+
+
+def phase_merge_kernels() -> None:
+    """K10a (PatchMerging: 2x2 gather, LayerNorm over 4C, reduction) and K10b
+    (the patch-embed LayerNorm) against their plain versions, fp32 and bf16,
+    forward and the gradient of every input against the plain version's
+    autograd, at the shapes of the three main paths: a b8 caption forward and
+    a b16 XE step at 384x640, a b4 detector step at 832x1344 (whose last merge
+    pads 13x21 to 14x22).  Library yardsticks, used nowhere in the port:
+    F.layer_norm + F.linear on the gathered rows for K10a, F.layer_norm for
+    K10b."""
+    import torch.nn.functional as F
+
+    print("[kernels] K10a (PatchMerging LN + reduction) and K10b (patch-embed LN) vs plain",
+          flush=True)
+    g = torch.Generator(device=DEV).manual_seed(5)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=DEV) * scale
+
+    paths = (("caption", 8, STAGES, HW), ("train", TRAIN_BATCH, STAGES, HW),
+             ("detector", DET_BATCH, DET_STAGES, DET_HW))
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = "fp32" if dtype == torch.float32 else "bf16"
+        es = esize(dtype)
+        for run, batch, stages, hw in paths:
+            tag = f"b{batch} {hw[0]}x{hw[1]}"
+            rows, c = batch * (hw[0] // 4) * (hw[1] // 4), stages[0][1]
+            x = (rnd(rows, c) * 2 + 0.5).to(dtype)
+            ln = [1 + rnd(c, scale=0.1), rnd(c, scale=0.1)]
+            gout = rnd(rows, c).to(dtype)
+            out, ref = wa.layernorm_rows(x, *ln), wa.layernorm_rows_plain(x, *ln)
+            lib = cuda_ms(lambda: F.layer_norm(x, (c,), ln[0].to(dtype), ln[1].to(dtype), 1e-5))
+            compare("K10b", f"{dn} {tag}", out, ref, dtype,
+                    cuda_ms(lambda: wa.layernorm_rows(x, *ln)),
+                    cuda_ms(lambda: wa.layernorm_rows_plain(x, *ln)), 1,
+                    (2.0 * rows * c * es + 8 * c, 8.0 * rows * c), run, library_ms=lib)
+            for part, a, b in zip(("dx", "dscale", "dbias"),
+                                  grads_of(wa.layernorm_rows, [x, *ln], gout),
+                                  grads_of(wa.layernorm_rows_plain, [x, *ln], gout)):
+                compare("K10b", f"{dn} {tag} {part}", a, b, dtype, 0.0, 0.0, 0)
+            for k, (name, c, _, (h, w), _, _) in enumerate(stages):
+                n_out = stages[k + 1][1] if k + 1 < len(stages) else 1024
+                x = rnd(batch, h, w, c).to(dtype)
+                ln = [1 + rnd(4 * c, scale=0.1), rnd(4 * c, scale=0.1)]
+                wt = rnd(n_out, 4 * c, scale=(4 * c) ** -0.5).to(dtype)
+                mrows = batch * ((h + 1) // 2) * ((w + 1) // 2)
+                out, ref = wa.patch_merge(x, *ln, wt), wa.patch_merge_plain(x, *ln, wt)
+
+                def library():
+                    rows4 = wa._merge_rows(x)
+                    return F.linear(F.layer_norm(rows4, (4 * c,), ln[0].to(dtype),
+                                                 ln[1].to(dtype), 1e-5), wt)
+
+                compare("K10a", f"{dn} {name} {tag}", out, ref, dtype,
+                        cuda_ms(lambda: wa.patch_merge(x, *ln, wt)),
+                        cuda_ms(lambda: wa.patch_merge_plain(x, *ln, wt)), 1,
+                        ((batch * h * w * c + mrows * n_out + 4 * c * n_out) * es + 32 * c,
+                         2.0 * mrows * 4 * c * n_out), run, library_ms=cuda_ms(library))
+                gout = rnd(*out.shape).to(dtype)
+                for part, a, b in zip(("dx", "dscale", "dbias", "dweight"),
+                                      grads_of(wa.patch_merge, [x, *ln, wt], gout),
+                                      grads_of(wa.patch_merge_plain, [x, *ln, wt], gout)):
+                    compare("K10a", f"{dn} {name} {tag} {part}", a, b, dtype, 0.0, 0.0, 0)
+        # K10a on rows that are merged already (the JAX op's own signature)
+        x = rnd(4, 77, 512).to(dtype)
+        ln, wt = [1 + rnd(512, scale=0.1), rnd(512, scale=0.1)], rnd(256, 512, scale=0.05).to(dtype)
+        compare("K10a", f"{dn} rows [4, 77, 512] -> 256", wa.ln_linear(x, *ln, wt),
+                wa.ln_linear_plain(x, *ln, wt), dtype, cuda_ms(lambda: wa.ln_linear(x, *ln, wt)),
+                cuda_ms(lambda: wa.ln_linear_plain(x, *ln, wt)), 0)
+
+
+def phase_dense_attention_kernel(batch: int) -> None:
+    """K8 (the window-attention core on separate q, k, v and a dense bias)
+    against its plain version, forward and backward (dq, dk, dv and the bias
+    gradient in the bias's own shape), with a bias over one window and over
+    every window, at the four Swin stage shapes of a b8 384x640 batch.  No
+    model path of either package reaches it, so this phase is what holds it;
+    its times are of the shapes with a bias over every window.  Library
+    yardstick, used nowhere in the port: scaled_dot_product_attention with an
+    additive mask."""
+    import torch.nn.functional as F
+
+    print(f"[kernels] K8 (window attention on a dense bias) vs plain, forward and backward, "
+          f"b{batch} at {HW[0]}x{HW[1]}", flush=True)
+    g = torch.Generator(device=DEV).manual_seed(6)
+    n = WINDOW * WINDOW
+    before = dict(wa.LAUNCHES)
+    rec = RESULTS.setdefault("K8", {"max_abs_err": 0.0})
+    rec.update({k: 0.0 for k in ("ms", "plain_ms", "bound_bytes_ms", "bound_ops_ms",
+                                 "library_ms", "bwd_ms", "bwd_plain_ms", "bwd_bound_ms")})
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=DEV)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = "fp32" if dtype == torch.float32 else "bf16"
+        es = esize(dtype)
+        for name, c, heads, _, (hp, wp), _ in STAGES:
+            nw = (hp // WINDOW) * (wp // WINDOW)
+            d = c // heads
+            scale = d ** -0.5
+            q, k, v = (rnd(batch, nw, n, c).to(dtype) for _ in range(3))
+            gout = rnd(batch, nw, n, c).to(dtype)
+            for m in (1, nw):
+                bias = rnd(m, heads, n, n)
+                case = f"{dn} {name} bias over {m} window{'s' if m > 1 else ''}"
+                args = (q, k, v, bias)
+
+                def kernel_bwd():
+                    return grads_of(lambda *a: wa.window_attention(*a, scale, heads), args, gout)
+
+                def plain_bwd():
+                    return grads_of(lambda *a: wa.window_attention_plain(*a, scale, heads), args,
+                                    gout)
+
+                out = wa.window_attention(*args, scale, heads)
+                ref = wa.window_attention_plain(*args, scale, heads)
+                ms = cuda_ms(lambda: wa.window_attention(*args, scale, heads))
+                plain_ms = cuda_ms(lambda: wa.window_attention_plain(*args, scale, heads))
+                work = (4.0 * q.numel() * es + bias.numel() * 4, 4.0 * q.numel() * n)
+                compare("K8", case, out, ref, dtype, ms, plain_ms, 0, work)
+                for part, a, b in zip(("dq", "dk", "dv", "dbias"), kernel_bwd(), plain_bwd()):
+                    if a.shape != b.shape:
+                        fail(f"K8 {case} {part}: shape {tuple(a.shape)} != {tuple(b.shape)}")
+                    compare("K8", f"{case} {part}", a, b, dtype, 0.0, 0.0, 0)
+                if dtype == torch.bfloat16 and m == nw:
+                    qh, kh, vh = (t.reshape(batch * nw, n, heads, d).transpose(1, 2)
+                                  for t in (q, k, v))
+                    mask = bias.to(dtype).repeat(batch, 1, 1, 1)
+                    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                        qh, kh, vh, attn_mask=mask, scale=scale))
+                    # the backward runs the forward first; time it net of that
+                    bwd_ms = cuda_ms(kernel_bwd) - ms
+                    bwd_plain = cuda_ms(plain_bwd, reps=3) - plain_ms
+                    bwd_bytes = 8.0 * q.numel() * es + 2 * nw * heads * n * n * 4
+                    rec["ms"] += ms
+                    rec["plain_ms"] += plain_ms
+                    rec["bound_bytes_ms"] += work[0] / PEAK_BYTES * 1e3
+                    rec["bound_ops_ms"] += work[1] / PEAK_FLOPS[dtype] * 1e3
+                    rec["library_ms"] += lib
+                    rec["bwd_ms"] += bwd_ms
+                    rec["bwd_plain_ms"] += bwd_plain
+                    rec["bwd_bound_ms"] += max(bwd_bytes / PEAK_BYTES,
+                                               10.0 * q.numel() * n / PEAK_FLOPS[dtype]) * 1e3
+                    print(f"  K8 {case:<30} backward {bwd_ms:.3f} ms (plain {bwd_plain:.3f}); "
+                          f"SDPA + mask forward {lib:.3f} ms", flush=True)
+    rec["kernel_phase_launches"] = {
+        "forward": wa.LAUNCHES["window_attention"] - before["window_attention"],
+        "backward": wa.LAUNCHES["window_attention_grad"] - before["window_attention_grad"]}
+    if not all(rec["kernel_phase_launches"].values()):
+        fail(f"K8: the phase launched no kernel: {rec['kernel_phase_launches']}")
+
+
 def synthetic_batch(batch: int, offset: int = 0) -> ImageBatch:
     """uint8 images from a seed; every other image smaller than the bucket."""
     rng = np.random.default_rng(BATCH_SEED + offset)
@@ -719,10 +927,12 @@ def phase_slice(batch: int, card: str) -> None:
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     counts = {"K1": wa.LAUNCHES["block_step"], "K2": wa.LAUNCHES["mlp"],
-              "K3": msda_ops.LAUNCHES["msda"], "K11": tail_ops.LAUNCHES["decode_tail"]}
+              "K3": msda_ops.LAUNCHES["msda"], "K10a": wa.LAUNCHES["ln_linear"],
+              "K10b": wa.LAUNCHES["layernorm_rows"], "K11": tail_ops.LAUNCHES["decode_tail"]}
     blocks = sum(s[-1] for s in STAGES)
-    # EOS is off, so each of the generator's layers takes K11 at every step
-    want = {"K1": blocks, "K2": blocks, "K3": DET_LAYERS,
+    # EOS is off, so each of the generator's layers takes K11 at every step; a
+    # Swin forward makes one PatchMerging a stage and one patch-embed norm
+    want = {"K1": blocks, "K2": blocks, "K3": DET_LAYERS, "K10a": len(STAGES), "K10b": 1,
             "K11": config.model.cap_generator.n_layers * STEPS}
     print(f"[slice] launches in one b{batch} caption batch: {counts} (want {want})")
     if counts != want:
@@ -732,7 +942,7 @@ def phase_slice(batch: int, card: str) -> None:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     total_launches = count_launches(lambda: gen(samples, batch))
     print(f"[slice] device kernels launched by one b{batch} caption batch: {total_launches} "
-          f"(6560 before the decode tail went through K11)")
+          f"(3860 before PatchMerging and the patch-embed norm went through K10a and K10b)")
     # the first timed batches still run slower (host-side warm-up), so the
     # rate is the median of TIMED_REPS more
     times = []
@@ -786,7 +996,8 @@ def profile_run(fn, title: str, path: str) -> None:
 
 
 def phase_profile(batch: int, card: str) -> None:
-    """Profile one bf16 caption batch and one bf16 training step."""
+    """Profile one bf16 caption batch, one bf16 XE training step and one
+    detector training step in bf16 and in fp32."""
     config = default_caption_config()
     model = build_captioner(config, device=DEV, dtype=torch.bfloat16, seed=0)
     samples = synthetic_batch(batch)
@@ -803,6 +1014,19 @@ def phase_profile(batch: int, card: str) -> None:
     torch.cuda.synchronize()
     profile_run(lambda: step(state, tbatch),
                 f"b{TRAIN_BATCH} bf16 XE training step [{card}]", "profile_train.txt")
+    del state, step, tbatch
+    for dtype, dn in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        config, state, _, step = detector_setup(dtype)
+        images = detector_images(DET_BATCH).to(DEV)
+        targets = {k: torch.from_numpy(v).to(DEV) for k, v in detector_targets(
+            DET_BATCH, config.model.detector.num_classes).items()}
+        targets["labels"] = targets["labels"].long()
+        step(state, images, targets)
+        torch.cuda.synchronize()
+        profile_run(lambda: step(state, images, targets),
+                    f"b{DET_BATCH} {dn} detector training step at {DET_HW[0]}x{DET_HW[1]} [{card}]",
+                    f"profile_detector_{dn}.txt")
+        del state, step
 
 
 @contextlib.contextmanager
@@ -811,15 +1035,18 @@ def plain_arm():
     autograd, and the decode layers' fused tail for their module path
     (comparison only)."""
     saved = wa.block_step, wa.mlp, msda_ops.msda, wa.block_attention_train
+    saved_ln = wa.patch_merge, wa.layernorm_rows
     saved_tail = cap_generator_lib.use_fused_tail
     wa.block_step, wa.mlp, msda_ops.msda = wa.block_step_plain, wa.mlp_plain, msda_ops.msda_plain
     wa.block_attention_train = wa.block_attention_train_plain
+    wa.patch_merge, wa.layernorm_rows = wa.patch_merge_plain, wa.layernorm_rows_plain
     # K11's plain arm is the decode layer's module path
     cap_generator_lib.use_fused_tail = lambda layer, x: False
     try:
         yield
     finally:
         wa.block_step, wa.mlp, msda_ops.msda, wa.block_attention_train = saved
+        wa.patch_merge, wa.layernorm_rows = saved_ln
         cap_generator_lib.use_fused_tail = saved_tail
 
 
@@ -976,6 +1203,7 @@ def train_launches() -> dict:
     return {"K1": wa.LAUNCHES["block_step"], "K2": wa.LAUNCHES["mlp"],
             "K3": msda_ops.LAUNCHES["msda"], "K4": wa.LAUNCHES["block_attention"],
             "K5": wa.LAUNCHES["window_attention_bwd"], "K6": msda_ops.LAUNCHES["msda_bwd"],
+            "K10a": wa.LAUNCHES["ln_linear"], "K10b": wa.LAUNCHES["layernorm_rows"],
             "K12": adam_ops.LAUNCHES["adam"]}
 
 
@@ -993,7 +1221,8 @@ def phase_train(card: str) -> None:
     frozen = sum(s[-1] for s in STAGES[:FROZEN_STAGES - 1])
     trained = sum(s[-1] for s in STAGES[FROZEN_STAGES - 1:])
     want = {"K1": frozen, "K2": frozen + trained, "K3": DET_LAYERS, "K4": trained,
-            "K5": trained, "K6": DET_LAYERS, "K12": 2}   # one Adam launch per parameter group
+            "K5": trained, "K6": DET_LAYERS, "K10a": len(STAGES), "K10b": 1,
+            "K12": 2}   # one Adam launch per parameter group
     print(f"[train] launches in one b{batch} XE step: {counts} (want {want})")
     if counts != want:
         fail(f"training kernel launch counts {counts} != {want}")
@@ -1485,6 +1714,383 @@ def parity_seeds(batch: int, seeds: int) -> None:
     RESULTS["parity_seeds"] = spread
 
 
+# ---------------------------------------------------------------------------
+# detector pre-training at 832x1344
+# ---------------------------------------------------------------------------
+MAX_BOXES = 100      # dataset.max_boxes: the padded targets' width
+DET_STEPS = 3        # timed training steps after the warm-up epoch
+DET_PARITY_BATCH = 2
+
+
+def detector_images(batch: int, offset: int = 0) -> ImageBatch:
+    """uint8 images in the 832x1344 bucket from a seed, on the host; every
+    other image smaller than the bucket."""
+    rng = np.random.default_rng(3000 + BATCH_SEED + offset)
+    imgs = np.zeros((batch, *DET_HW, 3), np.uint8)
+    mask = np.ones((batch, *DET_HW), bool)
+    for i in range(batch):
+        h, w = DET_HW if i % 2 == 0 else (DET_HW[0] * 3 // 4, DET_HW[1] * 4 // 5)
+        imgs[i, :h, :w] = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        mask[i, :h, :w] = False
+    return ImageBatch(torch.from_numpy(imgs), torch.from_numpy(mask))
+
+
+def detector_targets(batch: int, num_classes: int, offset: int = 0) -> dict:
+    """Padded targets as ``datasets.pad_targets`` builds them: 0 to 20 boxes an
+    image (the first image of every second batch has none), cxcywh in [0, 1]."""
+    rng = np.random.default_rng(4000 + BATCH_SEED + offset)
+    out = {"labels": np.zeros((batch, MAX_BOXES), np.int32),
+           "boxes": np.zeros((batch, MAX_BOXES, 4), np.float32),
+           "valid": np.zeros((batch, MAX_BOXES), bool)}
+    for i in range(batch):
+        n = 0 if (i == 0 and offset % 2) else int(rng.integers(1, min(20, MAX_BOXES) + 1))
+        out["labels"][i, :n] = rng.integers(0, num_classes, n)
+        out["boxes"][i, :n] = np.concatenate(
+            [rng.uniform(0.2, 0.8, (n, 2)), rng.uniform(0.03, 0.4, (n, 2))], 1)
+        out["valid"][i, :n] = True
+    return out
+
+
+def detector_setup(dtype, *, dropouts: bool = True, use_checkpoint: bool = False, seed: int = 0):
+    """The detector trainer a user would build (``train_detector.main``'s
+    recipe) at full width: the model in train() with f32 master parameters
+    computing in ``dtype``, the whole Swin training, the criterion, the
+    five-group AdamW (four groups hold parameters without the attribute head)
+    and the train step.  The norms' scales and biases are perturbed from the
+    seed: with the initial zero biases a padded pixel is an all-zero row at
+    every LayerNorm it meets, each of which multiplies its gradient by
+    eps^-1/2 = 316."""
+    config = default_detection_config()
+    config.model.use_checkpoint = use_checkpoint
+    model, criterion = build_detection_model(config, dtype, device=DEV, seed=seed)
+    g = torch.Generator(device=DEV).manual_seed(seed + 1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
+                mod.weight.add_(torch.randn(mod.weight.shape, generator=g, device=DEV) * 0.1)
+                mod.bias.add_(torch.randn(mod.bias.shape, generator=g, device=DEV) * 0.1)
+            elif not dropouts and isinstance(mod, Dropout):
+                mod.p = 0.0
+            elif not dropouts and isinstance(mod, SwinBlock):
+                mod.drop_path_rate = 0.0
+    o = config.optimizer
+    opt = optim_lib.build_detector_optimizer(
+        model, lr=o.lr, lr_backbone=o.lr_backbone, sp_lr=o.sp_lr, weight_decay=o.weight_decay,
+        sp_names=list(o.sp_names))
+    state = xe_lib.TrainState(model, opt, global_steps=0,
+                              generator=torch.Generator(device=DEV).manual_seed(seed))
+    step = det_solver.make_detector_train_step(criterion, clip_max_norm=o.clip_max_norm)
+    return config, state, criterion, step
+
+
+def phase_detector(card: str, dtype) -> None:
+    """Detector pre-training at full width (``default_detection_config()``:
+    Swin-B window 12 training whole, d512, 6 deformable layers, 150 queries,
+    1849 classes, aux losses, box refinement), random weights from a seed, b4
+    in the 832x1344 bucket, through the port's own ``Trainer.run_epoch`` over
+    in-memory loaders with the CLI's hooks attached: a warm-up epoch of one
+    step, then an epoch of DET_STEPS steps whose kernel launches are checked
+    step by step; inside each epoch ``Valider.run_epoch`` -> ``postprocess`` ->
+    ``CocoEvaluator`` over two batches in eval(); the checkpoint hook's
+    ``detector_last`` restored into a freshly built model and optimizer, after
+    which one more step from each must give the same loss."""
+    import tempfile
+
+    dn = "fp32" if dtype == torch.float32 else "bf16"
+    config, state, criterion, step = detector_setup(dtype)
+    model = state.model
+    num_classes = config.model.detector.num_classes
+    groups = [g["name"] for g in state.optimizer.param_groups]
+    blocks = sum(s[-1] for s in DET_STAGES)
+    want_step = {"K1": 0, "K2": blocks, "K3": DET_LAYERS, "K4": blocks, "K5": blocks,
+                 "K6": DET_LAYERS, "K10a": len(DET_STAGES), "K10b": 1, "K12": len(groups)}
+    want_eval = {"K1": blocks, "K2": blocks, "K3": DET_LAYERS, "K4": 0, "K5": 0, "K6": 0,
+                 "K10a": len(DET_STAGES), "K10b": 1, "K12": 0}
+
+    def train_batch(offset: int) -> dict:
+        return {"samples": detector_images(DET_BATCH, offset),
+                "targets": detector_targets(DET_BATCH, num_classes, offset)}
+
+    rng = np.random.default_rng(5000 + BATCH_SEED)
+    valid_loader, gt = [], {}
+    for j in range(2):
+        ids = list(range(j * DET_BATCH, (j + 1) * DET_BATCH))
+        valid_loader.append({"samples": detector_images(DET_BATCH, 10 + j),
+                             "orig_sizes": np.tile([[480, 640]], (DET_BATCH, 1)),
+                             "image_id": ids})
+        for i in ids:
+            xy = rng.uniform(0, 300, (3, 2))
+            gt[i] = {"boxes": np.concatenate([xy, xy + rng.uniform(20, 200, (3, 2))], 1),
+                     "labels": rng.integers(0, num_classes, 3)}
+
+    spans, per_step, per_eval, eval_s, metrics_seen = [], [], [], [], []
+
+    def counted_step(*args, **kw):
+        before = train_launches()
+        out = timed(*args, **kw)
+        after = train_launches()
+        per_step.append({k: after[k] - before[k] for k in after})
+        metrics_seen.append(out[1])
+        return out
+
+    timed = on_stream(step, spans)
+
+    class CountEval(det_hooks.Hook):
+        """Kernel launches of one validation epoch (attached to the valider)."""
+
+        def before_epoch(self, solver):
+            self.before = train_launches()
+            torch.cuda.synchronize()
+            self.t0 = time.perf_counter()
+
+        def after_epoch(self, solver):
+            torch.cuda.synchronize()
+            eval_s.append(time.perf_counter() - self.t0)
+            after = train_launches()
+            per_eval.append({k: after[k] - self.before[k] for k in after})
+
+    with tempfile.TemporaryDirectory() as workdir:
+        valider = det_solver.Valider(lambda: trainer.state.model, valid_loader,
+                                     lambda: CocoEvaluator(gt), device=DEV, hooks=[CountEval()])
+        decay = float(config.optimizer.decay_rate)
+        hooks = [det_hooks.EpochLRHook([m - 1 for m in config.optimizer.lr_drop_epochs], decay),
+                 det_hooks.EpochLRHook([m - 1 for m in config.optimizer.sp_lr_drop_epochs],
+                                       decay, attr="sp_epoch_lr_scale"),
+                 det_hooks.ProgressHook(),
+                 det_hooks.TextLoggingHook(os.path.join(workdir, "detector_log.txt")),
+                 det_hooks.ScalarWriterHook(os.path.join(workdir, "scalars.jsonl")),
+                 # saves at the end of the second epoch: detector_epoch_1 and detector_last
+                 det_hooks.CheckpointHook(workdir, every=2)]
+        trainer = det_solver.Trainer(counted_step, state, [train_batch(0)], device=DEV, seed=0,
+                                     hooks=hooks, validers=[valider])
+        trainer.run_epoch(0)                         # warm-up: one step and a validation
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        del spans[:], per_step[:], per_eval[:], metrics_seen[:]
+        trainer.dataloader = [train_batch(1 + j) for j in range(DET_STEPS)]
+        t0 = time.perf_counter()
+        trainer.run_epoch(1)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = train_launches()
+        step_ms, host_ms = span_ms(spans)
+        losses = [{k: float(v) for k, v in m.items()} for m in metrics_seen]
+        size_mb = os.path.getsize(os.path.join(workdir, "checkpoints", "detector_last",
+                                               ckpt_lib.STATE_FILE)) / 2 ** 20
+        saved = sorted(os.listdir(os.path.join(workdir, "checkpoints")))
+        _, state2, _, _ = detector_setup(dtype, seed=1)
+        restored = ckpt_lib.restore_checkpoint(workdir, "detector_last")
+        ckpt_lib.load_train_state(state2, restored)
+
+    print(f"[detector {dn}] optimizer groups {groups}; launches of each of {DET_STEPS} training "
+          f"steps: {per_step[0]} (want {want_step}); of a validation epoch of 2 batches: "
+          f"{per_eval[0]} (want 2 x {want_eval})")
+    if any(c != want_step for c in per_step) or len(per_step) != DET_STEPS:
+        fail(f"detector {dn}: launches per training step {per_step} != {want_step}")
+    if per_eval != [{k: 2 * v for k, v in want_eval.items()}]:
+        fail(f"detector {dn}: launches of the validation epoch {per_eval} != 2 x {want_eval}")
+    for i, m in enumerate(losses):
+        print(f"[detector {dn}] step {i}: " + " ".join(f"{k} {v:.4f}" for k, v in m.items()))
+    if not all(np.isfinite(list(m.values())).all() for m in losses):
+        fail(f"detector {dn}: non-finite training metrics {losses}")
+    res = trainer.epoch_results
+    print(f"[detector {dn}] Valider -> postprocess -> CocoEvaluator over 2 batches of "
+          f"{DET_BATCH} in eval(): {eval_s[-1] / 2 * 1e3:.1f} ms/batch, {json.dumps(res)}")
+    if "mAP" not in res or not np.isfinite(list(res.values())).all():
+        fail(f"detector {dn}: validation summary {res}")
+    if saved != ["detector_epoch_1", "detector_last"] or restored["epoch"] != 1:
+        fail(f"detector {dn}: checkpoints {saved}, epoch {restored['epoch']}")
+    for name, prm in model.named_parameters():
+        if prm.dtype != torch.float32 or not torch.isfinite(prm).all():
+            fail(f"detector {dn}: parameter {name} is {prm.dtype} or non-finite")
+
+    # one more step from the trained state and from the restored one
+    nxt = train_batch(9)
+    nxt = {"samples": nxt["samples"].to(DEV),
+           "targets": {k: torch.from_numpy(v).to(DEV) for k, v in nxt["targets"].items()}}
+    nxt["targets"]["labels"] = nxt["targets"]["labels"].long()
+    after = []
+    for st in (state, state2):
+        st.generator.manual_seed(77)
+        after.append(float(step(st, nxt["samples"], nxt["targets"])[1]["loss"]))
+    rel = abs(after[0] - after[1]) / max(abs(after[0]), 1e-30)
+    print(f"[detector {dn}] detector_last ({size_mb:.0f} MiB) restored into a fresh model and "
+          f"optimizer: next loss {after[0]:.9f} vs {after[1]:.9f}, rel diff {rel:.3e} (tol 1e-06), "
+          f"step counter {state2.global_steps}")
+    if not np.isfinite(after).all() or rel > 1e-6 or state2.global_steps != state.global_steps:
+        fail(f"detector {dn}: checkpoint round trip: losses {after}")
+    del state2
+    device_launches = count_launches(lambda: step(state, nxt["samples"], nxt["targets"]))
+    # K12 on the detector's own leaves: one update of every group, on the last step's gradients
+    n_el = sum(p.numel() for g in state.optimizer.param_groups for p in g["params"])
+    adam_ms = cuda_ms(state.optimizer.step)
+    print(f"[detector {dn}] K12, one update of {n_el} elements in {len(groups)} launches: "
+          f"{adam_ms:.3f} ms, bound {28.0 * n_el / PEAK_BYTES * 1e3:.3f} ms (28 bytes an element)")
+    med = sorted(step_ms)[len(step_ms) // 2]
+    print(f"[detector {dn}] b{DET_BATCH} {dn} detector step at {DET_HW[0]}x{DET_HW[1]}, the whole "
+          f"Swin training: {med:.1f} ms/step (median of {step_ms} on the stream; {host_ms} ms of "
+          f"the host in the call), {DET_BATCH / med * 1e3:.2f} images/s, {device_launches} device "
+          f"kernels a step, peak {peak:.2f} GiB; the epoch of {DET_STEPS} steps and a validation "
+          f"of 2 batches {epoch_s:.2f} s  [{card}]", flush=True)
+    if dtype == torch.bfloat16:
+        for k, n in per_step[0].items():
+            RESULTS[k]["launches_detector"] = n
+    RESULTS[f"detector_{dn}"] = {
+        "batch": DET_BATCH, "step_ms": step_ms, "host_ms": host_ms, "epoch_s": epoch_s,
+        "images_per_s": DET_BATCH / med * 1e3, "device_launches": device_launches,
+        "peak_gib": peak, "launches_per_step": per_step[0], "launches_eval": per_eval[0],
+        "eval_s_per_batch": eval_s[-1] / 2, "adam_ms": adam_ms, "adam_elements": n_el,
+        "adam_bound_ms": 28.0 * n_el / PEAK_BYTES * 1e3,
+        "losses": losses, "valid": res, "checkpoint_mib": size_mb,
+        "checkpoint_loss_rel_diff": rel, "groups": groups, "phase_launches": counts}
+
+
+DET_PARITY_GROUPS = (("heads", "det_module.class_embed."), ("heads", "det_module.bbox_embed."),
+                     ("deformable decoder", "det_module."), ("input_proj", "input_proj."),
+                     ("swin", "backbone."))
+# an assignment found on one arm's costs may differ from another arm's at a
+# near-tie: the yardstick's assignment may cost an fp32 arm at most this much
+# more, summed over an image's boxes, than the arm's own optimum
+ASSIGN_MARGIN = 1e-3
+# The detector's losses read its boxes directly, at all seven levels, and the
+# random-weight decoder multiplies a forward rounding difference by 2-4.5 at
+# each of its six refinements (see REG_FEAT_TOL): the plain fp32 path itself
+# stands 1.5e-5 (total) to 1.1e-4 (loss_bbox) from float64, the kernel path
+# 1.1e-5 to 6.5e-5 (PERF.md).  The offsets of the last layers' sampling
+# locations take the flips of every floor() downstream of six refinements:
+# both fp32 paths read 0.35 of the leaf's max there, alike; a wrong gradient
+# reads 1 or more
+DET_LOSS_TOL, DET_FLIP_TOL = 1e-3, 0.5
+
+
+def detector_parity_arm(arm: str, batch: int, assigns=None):
+    """One fp32 detector step, dropouts and drop-path off, from the seed's
+    weights and batch, through the kernels ("kernel"), the plain versions
+    ("plain") or the plain versions in float64 with the Swin blocks
+    checkpointed ("float64"), with the Hungarian assignments ``assigns`` (None:
+    the arm's own) -> (metrics, the assignments used, how much more ``assigns``
+    costs than the arm's own optimum, {name: gradient}, {name: (update, lr,
+    weight decay, the parameter before)})."""
+    _, state, criterion, step = detector_setup(torch.float32, dropouts=False,
+                                               use_checkpoint=arm == "float64")
+    model = state.model
+    if arm == "float64":
+        to_compute_dtype(model.double(), torch.float64, master_f32=True)
+    images = detector_images(batch).to(DEV)
+    targets = {k: torch.from_numpy(v).to(DEV)
+               for k, v in detector_targets(batch, criterion.num_classes).items()}
+    targets["labels"] = targets["labels"].long()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with {"kernel": contextlib.nullcontext, "plain": plain_arm, "float64": float64_arm}[arm]():
+        with torch.no_grad():
+            outputs = model(images, training=True)
+            own = criterion.match_levels(outputs, targets)
+            gap = 0.0
+            if assigns is not None:
+                aux = outputs["aux_outputs"]
+                cost = det_losses.matching_cost(
+                    torch.stack([outputs["pred_logits"]] + [a["pred_logits"] for a in aux]),
+                    torch.stack([outputs["pred_boxes"]] + [a["pred_boxes"] for a in aux]),
+                    targets["labels"], targets["boxes"], targets["valid"],
+                    **{k: v for k, v in criterion.cost.items() if k != "impl"})
+
+                def total(a):   # [levels, B]: the cost of an assignment, image by image
+                    picked = torch.gather(cost, 2, a.clamp(min=0)[:, :, None, :])[:, :, 0, :]
+                    return torch.where(a >= 0, picked, 0.0).sum(-1)
+
+                gap = float((total(assigns) - total(own)).max())
+            del outputs
+        reset_launches()
+        _, metrics = step(state, images, targets, assigns=own if assigns is None else assigns)
+    launched = sum(n for k, n in train_launches().items() if k != "K12")
+    if (arm == "kernel") != (launched > 0):
+        fail(f"detector parity: the {arm} arm launched {launched} kernels")
+    group = {id(p): g for g in state.optimizer.param_groups for p in g["params"]}
+    metrics = {k: float(v) for k, v in metrics.items()}
+    print(f"[detector parity] {arm} arm: loss {metrics['loss']:.9f}, grad norm "
+          f"{metrics['grad_norm']:.6e}, {int((own >= 0).sum())} matched boxes over "
+          f"{own.shape[0]} levels, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB",
+          flush=True)
+    return (metrics, own, gap, {n: p.grad for n, p in model.named_parameters()},
+            {n: (p.detach() - before[n], group[id(p)]["lr"], group[id(p)]["weight_decay"],
+                 before[n]) for n, p in model.named_parameters()})
+
+
+def phase_detector_parity(batch: int) -> None:
+    """fp32, dropouts and drop-path off, b2 at 832x1344 (the float64 arm's
+    memory): one detector step through the plain versions in float64 (Swin
+    blocks checkpointed), whose Hungarian assignments are then fed to one step
+    through the kernels and one through the plain versions in fp32, from the
+    same weights and batch.  Held: each fp32 arm's own assignments (equal to
+    float64's, or differing only where float64's costs the arm at most
+    ASSIGN_MARGIN more than its own optimum), the total and every named loss
+    (DET_LOSS_TOL), the gradient norm and every clipped gradient leaf by module
+    group (DET_FLIP_TOL: a ReLU gate or a sampling floor may flip, as in the
+    caption training parity), and the kernel path's update against AdamW's
+    first step on its own gradient (UPDATE_TOL of the group's learning rate)."""
+    m_r, assign_r, _, grad_r, _ = detector_parity_arm("float64", batch)
+    torch.cuda.empty_cache()
+    m_k, assign_k, gap_k, grad_k, upd_k = detector_parity_arm("kernel", batch, assign_r)
+    m_p, assign_p, gap_p, grad_p, _ = detector_parity_arm("plain", batch, assign_r)
+    torch.cuda.empty_cache()
+    failures = []
+    for arm, own, gap in (("kernel", assign_k, gap_k), ("plain", assign_p, gap_p)):
+        differ = int((own != assign_r).sum())
+        print(f"[detector parity] {arm} arm's own assignments differ from float64's at {differ} "
+              f"of {int((assign_r >= 0).sum())} boxes; float64's cost it at most {gap:.3e} more "
+              f"than its optimum (margin {ASSIGN_MARGIN:.0e})")
+        if differ and not gap <= ASSIGN_MARGIN:
+            failures.append(f"{arm} assignments differ from float64's beyond a near-tie ({gap:.3e})")
+    for key, ref in m_r.items():
+        rel_k = abs(m_k[key] - ref) / max(abs(ref), 1e-30)
+        rel_p = abs(m_p[key] - ref) / max(abs(ref), 1e-30)
+        # the norm is over gradients that may hold a flip; the two logging errors
+        # count arg-maxes over 1849 near-equal logits and are reported only
+        tol = (DET_LOSS_TOL if key.startswith("loss") else DET_FLIP_TOL if key == "grad_norm"
+               else None)
+        print(f"[detector parity] {key:<18} float64 {ref:.9e}: kernel rel err {rel_k:.3e}, "
+              f"plain {rel_p:.3e} (tol {tol})")
+        if not np.isfinite(m_k[key]) or (tol is not None and rel_k > tol):
+            failures.append(f"{key} rel err {rel_k:.3e} > {tol}")
+    worst: dict[str, list] = {}
+    for name, gr in grad_r.items():
+        gk, gp = grad_k[name], grad_p[name]
+        upd, lr, wd, p0 = upd_k[name]
+        scale = gr.abs().max().clamp(min=GRAD_FLOOR)
+        k_err = ((gk - gr).abs().max() / scale).item()
+        p_err = ((gp - gr).abs().max() / scale).item()
+        # AdamW's first step on the clipped gradient, with the decoupled decay
+        a_err = max(0.0, (upd + lr * (gk / (gk.abs() + 1e-8) + wd * p0)).abs().max().item()
+                    - 1.2e-7 * p0.abs().max().item()) / lr
+        gname = next((g for g, key in DET_PARITY_GROUPS if name.startswith(key)), "other")
+        rec = worst.setdefault(gname, [0.0, 0.0, 0.0, ""])
+        if k_err > rec[0]:
+            rec[3] = name
+        for j, v in enumerate((k_err, p_err, a_err)):
+            rec[j] = max(rec[j], v)
+        if not k_err <= DET_FLIP_TOL:
+            failures.append(f"{name} gradient err {k_err:.3e} > {DET_FLIP_TOL}")
+        if not a_err <= UPDATE_TOL:
+            failures.append(f"{name} update err {a_err:.3e} of lr > {UPDATE_TOL:.0e}")
+    print(f"[detector parity] worst leaf by module group, against float64: the kernel path's "
+          f"clipped gradient err (share of the leaf's max; tol {DET_FLIP_TOL}), the plain path's, and "
+          f"the kernel path's update against AdamW's step (share of lr; tol {UPDATE_TOL:.0e})")
+    for gname, (k_err, p_err, a_err, name) in worst.items():
+        print(f"[detector parity]   {gname:<18} kernel {k_err:.3e}  plain {p_err:.3e}  "
+              f"adam {a_err:.3e}  ({name})", flush=True)
+    RESULTS["detector_parity"] = {
+        "batch": batch, "metrics": {"float64": m_r, "kernel": m_k, "plain": m_p},
+        "assignment_gap": {"kernel": gap_k, "plain": gap_p},
+        "groups": {g: {"kernel": v[0], "plain": v[1], "adam": v[2], "leaf": v[3]}
+                   for g, v in worst.items()}}
+    if failures:
+        fail("detector parity: " + "; ".join(failures[:10]))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=8)
@@ -1510,10 +2116,15 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     print(f"[build] kernel library ready in {build_s:.1f} s", flush=True)
 
+    det = dict(stages=DET_STAGES, levels=DET_LEVELS, hw=DET_HW)
     phase_kernels(args.batch)
     phase_kernels(EVAL_BATCH, counted=False)      # the trainer's evaluation batch
+    phase_kernels(DET_BATCH, counted=False, **det)    # the detector's validation
     phase_train_kernels(TRAIN_BATCH)
     phase_train_kernels(SC_BATCH, counted=False)  # the SCST generation and update
+    phase_train_kernels(DET_BATCH, n_frozen=0, run="detector", **det)
+    phase_merge_kernels()
+    phase_dense_attention_kernel(args.batch)
     phase_decode_kernel()
     phase_adam_kernel()
     phase_yardsticks(args.batch)
@@ -1521,43 +2132,63 @@ def main() -> None:
     phase_parity(args.batch)
     phase_train(card)
     phase_trainer(card)
+    phase_detector(card, torch.float32)           # the CLI's compute type
+    phase_detector(card, torch.bfloat16)
     if args.profile:
         phase_profile(args.batch, card)
     phase_train_parity(TRAIN_BATCH)
     parity_seeds(TRAIN_BATCH, args.parity_seeds)
+    phase_detector_parity(DET_PARITY_BATCH)
 
     csrc = "grit_tpu_torch/csrc/"
     swin, msda = csrc + "swin_block.cu", csrc + "msda.cu"
+    jwa, jmsda = "grit_tpu/ops/window_attention.py", "grit_tpu/ops/msda_pallas.py"
+    per = {"caption": f"b{args.batch} bf16 caption forward",
+           "train": f"b{TRAIN_BATCH} bf16 XE training step",
+           "detector": f"b{DET_BATCH} bf16 detector training step at {DET_HW[0]}x{DET_HW[1]}"}
     # name: (source, TPU kernel it replaces, the run its launches, ms and bound are of)
-    sources = {"K1": (swin, "grit_tpu/ops/window_attention.py:1029", "caption"),
-               "K2": (swin, "grit_tpu/ops/window_attention.py:1819", "caption"),
-               "K3": (msda, "grit_tpu/ops/msda_pallas.py:1018", "caption"),
-               "K4": (swin, "grit_tpu/ops/window_attention.py:385", "train"),
-               "K5": (swin, "grit_tpu/ops/window_attention.py:197", "train"),
-               "K6": (msda, "grit_tpu/ops/msda_pallas.py:633", "train"),
+    sources = {"K1": (swin, jwa + ":1029", "caption"), "K2": (swin, jwa + ":1819", "caption"),
+               "K3": (msda, jmsda + ":1018", "caption"), "K4": (swin, jwa + ":385", "train"),
+               "K5": (swin, jwa + ":197", "train"), "K6": (msda, jmsda + ":633", "train"),
+               "K10a": (swin, jwa + ":1985", "caption"), "K10b": (swin, jwa + ":2081", "caption"),
                "K11": (csrc + "decode_layer.cu", "grit_tpu/ops/decode_layer.py:117", "caption")}
+    launch_key = {"caption": "launches", "train": "launches_train",
+                  "detector": "launches_detector"}
     kernels = []
     for k, (src, rep, run) in sources.items():
         r = RESULTS[k]
-        acc, train = r[run], r["train"]
-        kernels.append({
-            "name": k, "route": "cuda", "source": src, "replaces": rep,
-            "launches": r["launches"] if run == "caption" else r["launches_train"],
-            "max_abs_err": r["max_abs_err"], "ms": acc["ms"], "plain_ms": acc["plain_ms"],
-            "bound_ms": max(acc["bytes_ms"], acc["ops_ms"]),
-            "bound_by": "bytes" if acc["bytes_ms"] >= acc["ops_ms"] else "operations",
-            # no single PyTorch call computes any of these whole; the parts'
-            # yardsticks (and the module path of K11's tail) are in chip_smoke.json
-            "library_ms": None,
-            "per": f"b{args.batch} bf16 caption forward" if run == "caption"
-                   else f"b{TRAIN_BATCH} bf16 XE training step",
-            # the same four for one b16 bf16 XE training step, whichever run
-            # the keys above are of, and the launches of the trainer phase
-            "launches_caption": r.get("launches", 0),
-            "launches_train": r.get("launches_train", 0),
-            "launches_trainer": r["launches_trainer"],
-            "train_ms": train["ms"], "train_plain_ms": train["plain_ms"],
-            "train_bound_ms": max(train["bytes_ms"], train["ops_ms"])})
+        acc = r[run]
+        row = {"name": k, "route": "cuda", "source": src, "replaces": rep,
+               "launches": r[launch_key[run]], "max_abs_err": r["max_abs_err"],
+               "ms": acc["ms"], "plain_ms": acc["plain_ms"],
+               "bound_ms": max(acc["bytes_ms"], acc["ops_ms"]),
+               "bound_by": "bytes" if acc["bytes_ms"] >= acc["ops_ms"] else "operations",
+               # one PyTorch call computes K10a's rows (F.layer_norm + F.linear
+               # after the gather) and K10b (F.layer_norm); none computes the
+               # others whole: their parts' yardsticks (and the module path of
+               # K11's tail) are in chip_smoke.json
+               "library_ms": acc["library_ms"] or None, "per": per[run],
+               "launches_trainer": r["launches_trainer"]}
+        # the same numbers for each of the three runs, whichever the keys above are of
+        for other in RUNS:
+            o = r[other]
+            row.update({f"launches_{other}": r.get(launch_key[other], 0),
+                        f"{other}_ms": o["ms"], f"{other}_plain_ms": o["plain_ms"],
+                        f"{other}_bound_ms": max(o["bytes_ms"], o["ops_ms"]),
+                        f"{other}_library_ms": o["library_ms"] or None})
+        kernels.append(row)
+    r = RESULTS["K8"]
+    kernels.append({
+        "name": "K8", "route": "cuda", "source": swin, "replaces": jwa + ":57",
+        # no model path of either package reaches K8: its kernel phase holds it
+        "launches": 0, "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": max(r["bound_bytes_ms"], r["bound_ops_ms"]),
+        "bound_by": "bytes" if r["bound_bytes_ms"] >= r["bound_ops_ms"] else "operations",
+        "library_ms": r["library_ms"],
+        "per": f"one bf16 forward at each of the four Swin stage shapes of a b{args.batch} "
+               f"{HW[0]}x{HW[1]} batch, a bias over every window",
+        "bwd_ms": r["bwd_ms"], "bwd_plain_ms": r["bwd_plain_ms"], "bwd_bound_ms": r["bwd_bound_ms"],
+        "kernel_phase_launches": r["kernel_phase_launches"]})
     r = RESULTS["K12"]
     kernels.append({
         "name": "K12", "route": "cuda", "source": csrc + "adam.cu",
@@ -1566,15 +2197,24 @@ def main() -> None:
         "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": r["library_ms"],
         "per": f"b{TRAIN_BATCH} bf16 XE training step (one update of {r['elements']} elements)",
         "launches_caption": 0, "launches_train": r["launches_train"],
-        "launches_trainer": r["launches_trainer"], "train_ms": r["ms"],
-        "train_plain_ms": r["plain_ms"], "train_bound_ms": r["bound_ms"]})
-    # K7a / K7b: the S-chunked TPU variants map onto K3 / K6, checked at 832x1344
+        "launches_trainer": r["launches_trainer"],
+        "launches_detector": r["launches_detector"], "train_ms": r["ms"],
+        "train_plain_ms": r["plain_ms"], "train_bound_ms": r["bound_ms"],
+        "detector_ms": RESULTS["detector_bf16"]["adam_ms"],
+        "detector_bound_ms": RESULTS["detector_bf16"]["adam_bound_ms"]})
+    # TPU bodies that one GPU kernel serves, with the cases that kernel was
+    # checked at: the S-chunked MSDA pair (K7a, K7b) and the first-generation
+    # MSDA bodies (K13a-d) at the 832x1344 pyramid, K1's other layout (K9) at
+    # the 832x1344 stage maps
+    det_tag = f"{DET_HW[0]}x{DET_HW[1]}"
     mapped = [{"name": name, "maps_onto": onto, "replaces": rep, "checked": [
-                   c for c in DETAIL if c["kernel"] == onto and "832x1344" in c["case"]]}
-              for name, onto, rep in (("K7a", "K3", "grit_tpu/ops/msda_pallas.py:1259"),
-                                      ("K7b", "K6", "grit_tpu/ops/msda_pallas.py:1324"))]
+                   c for c in DETAIL if c["kernel"] == onto and det_tag in c["case"]]}
+              for name, onto, rep in (("K7a", "K3", jmsda + ":1259"), ("K7b", "K6", jmsda + ":1324"),
+                                      ("K9", "K1", jwa + ":751"), ("K13a", "K3", jmsda + ":144"),
+                                      ("K13b", "K6", jmsda + ":189"), ("K13c", "K3", jmsda + ":235"),
+                                      ("K13d", "K3", jmsda + ":579"))]
     if not all(m["checked"] for m in mapped):
-        fail("K7a/K7b: no check at the 832x1344 pyramid ran")
+        fail(f"a mapped kernel has no check at the {det_tag} shapes")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "build_s": build_s,
@@ -1582,8 +2222,25 @@ def main() -> None:
                    "mapped": mapped, "yardsticks": YARDSTICKS, "cases": DETAIL,
                    "slice": RESULTS.get("slice"), "train": RESULTS.get("train"),
                    "trainer": RESULTS.get("trainer"),
+                   "detector_fp32": RESULTS.get("detector_fp32"),
+                   "detector_bf16": RESULTS.get("detector_bf16"),
+                   "detector_parity": RESULTS.get("detector_parity"),
                    "train_parity": RESULTS.get("train_parity"),
                    "parity_seeds": RESULTS.get("parity_seeds")}, f, indent=1)
+    # in the printed line a mapped body carries its kernel's launches on that
+    # kernel's run and the numbers of one bf16 check at the 832x1344 shapes
+    by_name = {k["name"]: k for k in kernels}
+    for m in mapped:
+        onto = by_name[m["maps_onto"]]
+        case = next(c for c in m["checked"] if c["case"].startswith("bf16") and "bytes_ms" in c)
+        kernels.append({
+            "name": m["name"], "route": "cuda", "source": onto["source"],
+            "replaces": m["replaces"], "maps_onto": m["maps_onto"], "launches": onto["launches"],
+            "max_abs_err": max(c["max_abs_err"] for c in m["checked"]), "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": max(case["bytes_ms"], case["ops_ms"]),
+            "bound_by": "bytes" if case["bytes_ms"] >= case["ops_ms"] else "operations",
+            "library_ms": None, "per": f"one call of {m['maps_onto']}: {case['case']}",
+            f"checks_at_{det_tag}": len(m["checked"])})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

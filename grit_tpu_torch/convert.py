@@ -35,7 +35,7 @@ _SKIP_PATTERNS = [
 
 _INDEXED = re.compile(r"(class_embed|bbox_embed|decoder_layers|blocks|layers)_(\d+)")
 _INPUT_PROJ = re.compile(r"input_proj_(\d+)_(conv|norm)")
-_EMBEDDINGS = ("word_emb", "pos_emb", "query_embed")
+_EMBEDDINGS = ("word_emb", "pos_emb", "query_embed", "od_cls_embed")
 
 
 def _torch_token(tok: str) -> str:

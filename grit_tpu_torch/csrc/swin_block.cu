@@ -39,6 +39,22 @@
 // dQ = scale dS K, dK = dS^T Q.  Q, K, V, dO (f32, 74 KB) and one N x N f32
 // matrix that holds P and then dS (81 KB) live in dynamic shared memory.
 //
+// K8 replaces ::_kernel and, for its gradient, ::_bwd_kernel on a dense bias
+// (through fused_window_attention): the same two attention kernels, given q, k
+// and v as three [rows, C] tensors (q unscaled: the load scales and rounds
+// it), and the additive bias as a dense f32 [1 or nW, heads, N, N] tensor read
+// row by row in place of the table and the shift regions.
+//
+// K10a replaces ::_lnlin_kernel (through fused_ln_linear; PatchMerging's norm
+// -> reduction): ln_merge gathers the 2x2 neighbourhood of each output token
+// from the stage map, zero beyond an odd edge, and normalises the 4C values
+// (f32 statistics, var = E[x^2] - mu^2) into the storage type; then the
+// GEMM without a bias.  On already merged rows the first launch is ln_rows.
+// The TPU kernel keeps the whole weight in VMEM and walks row blocks; here the
+// product's column tiles spread over the SMs and the weight comes through L2.
+// K10b replaces ::_ln_kernel (through fused_layernorm; the patch-embed norm):
+// ln_rows in row mode, one pass, one warp a row.  Both are memory passes.
+//
 // What bounds them on an H100: the GEMMs are tensor-core work (bf16 in, f32
 // accumulate via WMMA 16x16x16 tiles; fp32 parity runs use a SIMT FMA tile),
 // the attention core is shared-memory FMA work over 144 x 144 scores per
@@ -55,7 +71,7 @@ namespace grit {
 enum { EPI_BIAS = 0, EPI_GELU = 1, EPI_RESID = 2, EPI_RESID_MAP = 3, EPI_MAP = 4 };
 
 struct Epi {
-  const void* bias;    // storage type; [N]
+  const void* bias;    // storage type; [N], or null for none
   void* out;
   const void* resid;   // storage type; [M, N] (EPI_RESID) or the map (EPI_RESID_MAP)
   int mode;
@@ -72,7 +88,7 @@ __device__ __forceinline__ size_t a_row(const Epi& e, int row) {
 
 template <typename T>
 __device__ __forceinline__ void epi_store(const Epi& e, int row, int col, int N, float acc) {
-  float v = acc + to_f<T>(static_cast<const T*>(e.bias)[col]);
+  float v = e.bias ? acc + to_f<T>(static_cast<const T*>(e.bias)[col]) : acc;
   size_t orow = (size_t)row;
   if (e.mode == EPI_BIAS) {
     if (col < e.scale_cols) v *= e.scale;
@@ -119,6 +135,54 @@ __global__ void __launch_bounds__(256) ln_rows_kernel(
   const float rs = rsqrtf(s2 / C - mu * mu + eps);
   for (int c = lane; c < C; c += 32) {
     o[c] = from_f<T>((to_f<T>(xr[c]) - mu) * rs * g[c] + b[c]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K10a's first launch: LayerNorm over the 4C channels of PatchMerging's rows,
+// gathered from the map x [B, H, W, C].  Output row (b, y2, x2) is the
+// concatenation of tokens (2y2, 2x2), (2y2+1, 2x2), (2y2, 2x2+1), (2y2+1, 2x2+1),
+// zeros where an odd H or W ends the map (they count in the statistics, as
+// the zero pad before the norm does).  One warp per row; g, b: f32 [4C].
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(256) ln_merge_kernel(
+    const T* __restrict__ x, const float* __restrict__ g, const float* __restrict__ b,
+    T* __restrict__ out, int rows, int H, int W, int C, float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (r >= rows) return;
+  const int H2 = (H + 1) / 2, W2 = (W + 1) / 2;
+  const int bi = r / (H2 * W2), rem = r - bi * (H2 * W2);
+  const int y2 = rem / W2, x2 = rem - y2 * W2;
+  const T* src[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int y = 2 * y2 + (q & 1), xx = 2 * x2 + (q >> 1);
+    src[q] = (y < H && xx < W) ? x + (((size_t)bi * H + y) * W + xx) * C : nullptr;
+  }
+  float s = 0.0f, s2 = 0.0f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (src[q] == nullptr) continue;
+    for (int c = lane; c < C; c += 32) {
+      const float v = to_f<T>(src[q][c]);
+      s += v;
+      s2 += v * v;
+    }
+  }
+  s = warp_sum(s);
+  s2 = warp_sum(s2);
+  const int C4 = 4 * C;
+  const float mu = s / C4;
+  const float rs = rsqrtf(s2 / C4 - mu * mu + eps);
+  T* o = out + (size_t)r * C4;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    for (int c = lane; c < C; c += 32) {
+      const float v = src[q] == nullptr ? 0.0f : to_f<T>(src[q][c]);
+      o[q * C + c] = from_f<T>((v - mu) * rs * g[q * C + c] + b[q * C + c]);
+    }
   }
 }
 
@@ -267,12 +331,15 @@ __global__ void __launch_bounds__(256) gemm_f32_kernel(
 constexpr int WA_D = 32, WA_WARPS = 8, WA_MAXT = 8;  // N <= 32 * WA_MAXT
 
 // scores of query row i against keys j = lane + 32 t, bias and shift mask
-// included; returns the row max over the warp
+// included; returns the row max over the warp.  The bias comes from the
+// relative-position table or, when dense_row is given (K8), from row i of a
+// dense [N, N] bias
 template <int MAXT>
 __device__ __forceinline__ float score_row(
     const float* __restrict__ q, const float* __restrict__ Ks, int ldk,
-    const float* __restrict__ table, const int* __restrict__ reg, int i, int n, int win,
-    int heads, int h, int shift, int lane, float* s) {
+    const float* __restrict__ table, const float* __restrict__ dense_row,
+    const int* __restrict__ reg, int i, int n, int win, int heads, int h, int shift, int lane,
+    float* s) {
   const int tw = 2 * win - 1;
   const int iy = i / win, ix = i - (i / win) * win;
   const int ri = shift > 0 ? reg[i] : 0;
@@ -287,7 +354,8 @@ __device__ __forceinline__ float score_row(
 #pragma unroll
       for (int dd = 0; dd < WA_D; ++dd) acc = fmaf(q[dd], kr[dd], acc);
       const int jy = j / win, jx = j - (j / win) * win;
-      acc += table[((iy - jy + win - 1) * tw + (ix - jx + win - 1)) * heads + h];
+      acc += dense_row ? dense_row[j]
+                       : table[((iy - jy + win - 1) * tw + (ix - jx + win - 1)) * heads + h];
       if (shift > 0 && reg[j] != ri) acc += -100.0f;
       s[t] = acc;
       mx = fmaxf(mx, acc);
@@ -296,10 +364,15 @@ __device__ __forceinline__ float score_row(
   return warp_max(mx);
 }
 
+// q, k, v: rows of stride ld (the three column blocks of one qkv tensor, or
+// three tensors); qscale multiplies q before it is rounded to the storage
+// type (1 where the projection scaled it already); dense: null, or the K8
+// bias f32 [dense_windows, heads, N, N], window wi reading slice wi % dense_windows.
 template <typename T>
 __global__ void __launch_bounds__(256) win_attn_kernel(
-    const T* __restrict__ qkv, const float* __restrict__ table, T* __restrict__ out,
-    int C, int heads, WinMap m) {
+    const T* __restrict__ qp, const T* __restrict__ kp, const T* __restrict__ vp, size_t ld,
+    float qscale, const float* __restrict__ table, const float* __restrict__ dense,
+    int dense_windows, T* __restrict__ out, int C, int heads, WinMap m) {
   extern __shared__ float sm[];
   const int win = m.win, n = win * win;
   float* Ks = sm;                       // n x (D + 1)
@@ -310,13 +383,14 @@ __global__ void __launch_bounds__(256) win_attn_kernel(
   const int wi = blockIdx.x, h = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const size_t row0 = (size_t)wi * n;
-  const size_t ld = 3 * (size_t)C;
+  const float* dense_w =
+      dense ? dense + ((size_t)(wi % dense_windows) * heads + h) * n * n : nullptr;
 
   for (int idx = tid; idx < n * WA_D; idx += blockDim.x) {
     const int j = idx / WA_D, dd = idx - (idx / WA_D) * WA_D;
-    const T* rp = qkv + (row0 + j) * ld + h * WA_D + dd;
-    Ks[j * (WA_D + 1) + dd] = to_f<T>(rp[C]);
-    Vs[j * WA_D + dd] = to_f<T>(rp[2 * C]);
+    const size_t off = (row0 + j) * ld + h * WA_D + dd;
+    Ks[j * (WA_D + 1) + dd] = to_f<T>(kp[off]);
+    Vs[j * WA_D + dd] = to_f<T>(vp[off]);
   }
   if (m.shift > 0) {
     // shifted-window regions on the rolled padded grid: rows [0, Hp - w),
@@ -335,11 +409,11 @@ __global__ void __launch_bounds__(256) win_attn_kernel(
   float* q = Qw + warp * WA_D;
   float* p = Pw + warp * n;
   for (int i = warp; i < n; i += WA_WARPS) {
-    q[lane] = to_f<T>(qkv[(row0 + i) * ld + h * WA_D + lane]);
+    q[lane] = to_f<T>(from_f<T>(to_f<T>(qp[(row0 + i) * ld + h * WA_D + lane]) * qscale));
     __syncwarp();
     float s[WA_MAXT];
-    const float mx = score_row<WA_MAXT>(q, Ks, WA_D + 1, table, reg, i, n, win, heads, h,
-                                        m.shift, lane, s);
+    const float mx = score_row<WA_MAXT>(q, Ks, WA_D + 1, table, dense_w ? dense_w + i * n : nullptr,
+                                        reg, i, n, win, heads, h, m.shift, lane, s);
     float sum = 0.0f;
 #pragma unroll
     for (int t = 0; t < WA_MAXT; ++t) {
@@ -372,10 +446,14 @@ __global__ void __launch_bounds__(256) win_attn_kernel(
 // 18 warps: 144 rows are 8 rounds of 18, 36 column groups of 4 are 2 rounds
 constexpr int WB_LD = WA_D + 1, WB_WARPS = 18;
 
+// q, k, v and their gradients dq, dk, dv: rows of stride ld (column blocks of
+// one tensor, or three tensors); qscale and dense as in win_attn_kernel.
 template <typename T>
 __global__ void __launch_bounds__(32 * WB_WARPS) win_attn_bwd_kernel(
-    const T* __restrict__ qkv, const T* __restrict__ dout, const float* __restrict__ table,
-    T* __restrict__ dqkv, float* __restrict__ dbias, int batch, int C, int heads, float scale,
+    const T* __restrict__ qp, const T* __restrict__ kp, const T* __restrict__ vp,
+    const T* __restrict__ dout, size_t ld, float qscale, const float* __restrict__ table,
+    const float* __restrict__ dense, int dense_windows, T* __restrict__ dq, T* __restrict__ dk,
+    T* __restrict__ dv, float* __restrict__ dbias, int batch, int C, int heads, float scale,
     WinMap m) {
   extern __shared__ float sm[];
   const int win = m.win, n = win * win;
@@ -387,8 +465,9 @@ __global__ void __launch_bounds__(32 * WB_WARPS) win_attn_bwd_kernel(
   int* reg = reinterpret_cast<int*>(Mx + n * n);
   const int w = blockIdx.x, h = blockIdx.y, per_img = gridDim.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t ld = 3 * (size_t)C;
   float* db = dbias + ((size_t)w * heads + h) * n * n;
+  const float* dense_w =
+      dense ? dense + ((size_t)(w % dense_windows) * heads + h) * n * n : nullptr;
 
   if (m.shift > 0) {
     const int nwx = m.Wp / win;
@@ -406,10 +485,10 @@ __global__ void __launch_bounds__(32 * WB_WARPS) win_attn_bwd_kernel(
     __syncthreads();  // the previous image's passes are done with shared memory
     for (int idx = tid; idx < n * WA_D; idx += blockDim.x) {
       const int j = idx / WA_D, dd = idx - (idx / WA_D) * WA_D;
-      const T* rp = qkv + (row0 + j) * ld + h * WA_D + dd;
-      Qs[j * WB_LD + dd] = to_f<T>(rp[0]);
-      Ks[j * WB_LD + dd] = to_f<T>(rp[C]);
-      Vs[j * WB_LD + dd] = to_f<T>(rp[2 * C]);
+      const size_t off = (row0 + j) * ld + h * WA_D + dd;
+      Qs[j * WB_LD + dd] = to_f<T>(from_f<T>(to_f<T>(qp[off]) * qscale));
+      Ks[j * WB_LD + dd] = to_f<T>(kp[off]);
+      Vs[j * WB_LD + dd] = to_f<T>(vp[off]);
       Gs[j * WB_LD + dd] = to_f<T>(dout[(row0 + j) * C + h * WA_D + dd]);
     }
     __syncthreads();
@@ -417,7 +496,8 @@ __global__ void __launch_bounds__(32 * WB_WARPS) win_attn_bwd_kernel(
     // pass 1: P = softmax(S), one query row per warp
     for (int i = warp; i < n; i += WB_WARPS) {
       float s[WA_MAXT];
-      const float mx = score_row<WA_MAXT>(Qs + i * WB_LD, Ks, WB_LD, table, reg, i, n, win,
+      const float mx = score_row<WA_MAXT>(Qs + i * WB_LD, Ks, WB_LD, table,
+                                          dense_w ? dense_w + i * n : nullptr, reg, i, n, win,
                                           heads, h, m.shift, lane, s);
       float sum = 0.0f;
 #pragma unroll
@@ -450,7 +530,7 @@ __global__ void __launch_bounds__(32 * WB_WARPS) win_attn_bwd_kernel(
       }
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        dqkv[(row0 + j + k) * ld + 2 * C + h * WA_D + lane] = from_f<T>(acc[k]);
+        dv[(row0 + j + k) * ld + h * WA_D + lane] = from_f<T>(acc[k]);
     }
     __syncthreads();
 
@@ -481,7 +561,7 @@ __global__ void __launch_bounds__(32 * WB_WARPS) win_attn_bwd_kernel(
       __syncwarp();
       float acc = 0.0f;
       for (int j = 0; j < n; ++j) acc = fmaf(Mx[i * n + j], Ks[j * WB_LD + lane], acc);
-      dqkv[(row0 + i) * ld + h * WA_D + lane] = from_f<T>(acc * scale);
+      dq[(row0 + i) * ld + h * WA_D + lane] = from_f<T>(acc * scale);
     }
     __syncthreads();
 
@@ -498,7 +578,7 @@ __global__ void __launch_bounds__(32 * WB_WARPS) win_attn_bwd_kernel(
       }
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        dqkv[(row0 + j + k) * ld + C + h * WA_D + lane] = from_f<T>(acc[k]);
+        dk[(row0 + j + k) * ld + h * WA_D + lane] = from_f<T>(acc[k]);
     }
     for (int idx = tid; idx < n * n; idx += blockDim.x)
       db[idx] = (b == 0 ? 0.0f : db[idx]) + Mx[idx];
@@ -506,9 +586,10 @@ __global__ void __launch_bounds__(32 * WB_WARPS) win_attn_bwd_kernel(
 }
 
 template <typename T>
-int launch_win_attn_bwd(const void* qkv, const void* dout, const void* table, void* dqkv,
-                        void* dbias, int batch, int C, int heads, float scale, WinMap m,
-                        cudaStream_t st) {
+int launch_win_attn_bwd(const void* q, const void* k, const void* v, const void* dout, size_t ld,
+                        float qscale, const void* table, const void* dense, int dense_windows,
+                        void* dq, void* dk, void* dv, void* dbias, int batch, int C, int heads,
+                        float scale, WinMap m, cudaStream_t st) {
   const int n = m.win * m.win;
   const size_t smem = (size_t)(4 * n * WB_LD + n * n + n) * 4;
   cudaError_t err = cudaFuncSetAttribute(
@@ -516,8 +597,10 @@ int launch_win_attn_bwd(const void* qkv, const void* dout, const void* table, vo
   if (err != cudaSuccess) return (int)err;
   dim3 grid((m.Hp / m.win) * (m.Wp / m.win), heads);
   win_attn_bwd_kernel<T><<<grid, 32 * WB_WARPS, smem, st>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(dout), static_cast<const float*>(table),
-      static_cast<T*>(dqkv), static_cast<float*>(dbias), batch, C, heads, scale, m);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), ld, qscale, static_cast<const float*>(table),
+      static_cast<const float*>(dense), dense_windows, static_cast<T*>(dq), static_cast<T*>(dk),
+      static_cast<T*>(dv), static_cast<float*>(dbias), batch, C, heads, scale, m);
   return (int)cudaGetLastError();
 }
 
@@ -532,8 +615,9 @@ int launch_ln(const void* x, const void* g, const void* b, void* out, int rows, 
 }
 
 template <typename T>
-int launch_win_attn(const void* qkv, const void* table, void* out, int num_windows, int C,
-                    int heads, WinMap m, cudaStream_t st) {
+int launch_win_attn(const void* q, const void* k, const void* v, size_t ld, float qscale,
+                    const void* table, const void* dense, int dense_windows, void* out,
+                    int num_windows, int C, int heads, WinMap m, cudaStream_t st) {
   const int n = m.win * m.win;
   const size_t smem = (size_t)(n * (WA_D + 1) + n * WA_D + WA_WARPS * WA_D + WA_WARPS * n) * 4 +
                       (size_t)n * 4;
@@ -544,10 +628,27 @@ int launch_win_attn(const void* qkv, const void* table, void* out, int num_windo
   }
   dim3 grid(num_windows, heads);
   win_attn_kernel<T><<<grid, 32 * WA_WARPS, smem, st>>>(
-      static_cast<const T*>(qkv), static_cast<const float*>(table), static_cast<T*>(out), C,
-      heads, m);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), ld, qscale,
+      static_cast<const float*>(table), static_cast<const float*>(dense), dense_windows,
+      static_cast<T*>(out), C, heads, m);
   return (int)cudaGetLastError();
 }
+
+template <typename T>
+int launch_ln_merge(const void* x, const void* g, const void* b, void* out, int rows, int H,
+                    int W, int C, float eps, cudaStream_t st) {
+  const int per_block = 8;
+  ln_merge_kernel<T><<<(rows + per_block - 1) / per_block, 32 * per_block, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const float*>(g), static_cast<const float*>(b),
+      static_cast<T*>(out), rows, H, W, C, eps);
+  return (int)cudaGetLastError();
+}
+
+// the three column blocks of a packed [rows, 3C] tensor
+template <typename T>
+const void* col_block(const void* p, int C, int k) { return static_cast<const T*>(p) + k * C; }
+template <typename T>
+void* col_block(void* p, int C, int k) { return static_cast<T*>(p) + k * C; }
 
 }  // namespace grit
 
@@ -593,8 +694,12 @@ int grit_window_attn(const void* qkv, const void* table, void* out, int num_wind
                      int heads, int Hp, int Wp, int win, int shift, int dtype, void* stream) {
   WinMap m{Hp, Wp, win, shift, Hp, Wp};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_win_attn<bf16>(qkv, table, out, num_windows, C, heads, m, st);
-  return launch_win_attn<float>(qkv, table, out, num_windows, C, heads, m, st);
+  const size_t ld = 3 * (size_t)C;
+  if (dtype == 1)
+    return launch_win_attn<bf16>(qkv, col_block<bf16>(qkv, C, 1), col_block<bf16>(qkv, C, 2), ld,
+                                 1.0f, table, nullptr, 1, out, num_windows, C, heads, m, st);
+  return launch_win_attn<float>(qkv, col_block<float>(qkv, C, 1), col_block<float>(qkv, C, 2), ld,
+                                1.0f, table, nullptr, 1, out, num_windows, C, heads, m, st);
 }
 
 // K5 (see win_attn_bwd_kernel): qkv, dqkv [batch * nW * win^2, 3C]; dout [.., C];
@@ -604,9 +709,67 @@ int grit_window_attn_bwd(const void* qkv, const void* dout, const void* table, v
                          int win, int shift, int dtype, void* stream) {
   WinMap m{Hp, Wp, win, shift, Hp, Wp};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t ld = 3 * (size_t)C;
   if (dtype == 1)
-    return launch_win_attn_bwd<bf16>(qkv, dout, table, dqkv, dbias, batch, C, heads, scale, m, st);
-  return launch_win_attn_bwd<float>(qkv, dout, table, dqkv, dbias, batch, C, heads, scale, m, st);
+    return launch_win_attn_bwd<bf16>(
+        qkv, col_block<bf16>(qkv, C, 1), col_block<bf16>(qkv, C, 2), dout, ld, 1.0f, table,
+        nullptr, 1, dqkv, col_block<bf16>(dqkv, C, 1), col_block<bf16>(dqkv, C, 2), dbias, batch,
+        C, heads, scale, m, st);
+  return launch_win_attn_bwd<float>(
+      qkv, col_block<float>(qkv, C, 1), col_block<float>(qkv, C, 2), dout, ld, 1.0f, table,
+      nullptr, 1, dqkv, col_block<float>(dqkv, C, 1), col_block<float>(dqkv, C, 2), dbias, batch,
+      C, heads, scale, m, st);
+}
+
+// K8 forward: q, k, v, out [batch * nW * win^2, C] (q unscaled); bias f32
+// [bias_windows, heads, win^2, win^2] with bias_windows 1 or nW.
+int grit_window_attn_dense(const void* q, const void* k, const void* v, const void* bias,
+                           void* out, int batch, int nW, int win, int C, int heads,
+                           int bias_windows, float scale, int dtype, void* stream) {
+  WinMap m{win, win * nW, win, 0, win, win * nW};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_win_attn<bf16>(q, k, v, (size_t)C, scale, nullptr, bias, bias_windows, out,
+                                 batch * nW, C, heads, m, st);
+  return launch_win_attn<float>(q, k, v, (size_t)C, scale, nullptr, bias, bias_windows, out,
+                                batch * nW, C, heads, m, st);
+}
+
+// K8 backward: dq, dk, dv as q; dbias f32 [nW, heads, win^2, win^2], dS summed
+// over the batch (the sum over windows for a one-window bias is the caller's).
+int grit_window_attn_dense_bwd(const void* q, const void* k, const void* v, const void* dout,
+                               const void* bias, void* dq, void* dk, void* dv, void* dbias,
+                               int batch, int nW, int win, int C, int heads, int bias_windows,
+                               float scale, int dtype, void* stream) {
+  WinMap m{win, win * nW, win, 0, win, win * nW};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_win_attn_bwd<bf16>(q, k, v, dout, (size_t)C, scale, nullptr, bias, bias_windows,
+                                     dq, dk, dv, dbias, batch, C, heads, scale, m, st);
+  return launch_win_attn_bwd<float>(q, k, v, dout, (size_t)C, scale, nullptr, bias, bias_windows,
+                                    dq, dk, dv, dbias, batch, C, heads, scale, m, st);
+}
+
+// K10a: out [rows, N] = LN(rows of x) W^T, W [N, K] in the storage type, g, b f32
+// [K]; xn [rows, K] is scratch.  merge = 1: x is the map [B, H, W, K / 4] and
+// row (b, y2, x2) its 2x2 neighbourhood (rows = B ceil(H/2) ceil(W/2)); merge = 0:
+// x is [rows, K].  bf16 needs K % 32 == 0, fp32 K % 16 == 0; both N % 64 == 0.
+int grit_ln_linear(const void* x, const void* g, const void* b, const void* w, void* xn,
+                   void* out, int rows, int N, int K, int merge, int H, int W, float eps,
+                   int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err;
+  if (merge) {
+    err = dtype == 1 ? launch_ln_merge<bf16>(x, g, b, xn, rows, H, W, K / 4, eps, st)
+                     : launch_ln_merge<float>(x, g, b, xn, rows, H, W, K / 4, eps, st);
+  } else {
+    WinMap none{1, 1, 1, 0, 1, 1};
+    err = dtype == 1 ? launch_ln<bf16>(x, g, b, xn, rows, K, 0, none, eps, st)
+                     : launch_ln<float>(x, g, b, xn, rows, K, 0, none, eps, st);
+  }
+  if (err != 0) return err;
+  return grit_gemm(xn, w, nullptr, out, nullptr, rows, N, K, EPI_BIAS, 1.0f, 0, 1, 1, 1, 0, 1, 1,
+                   0, dtype, stream);
 }
 
 }  // extern "C"

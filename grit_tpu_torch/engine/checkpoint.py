@@ -1,4 +1,4 @@
-"""``torch.save`` checkpointing for caption training.
+"""``torch.save`` checkpointing for caption training and detector pre-training.
 
 The JAX package writes Orbax trees (grit_tpu/engine/checkpoint.py); the port
 goes back to the reference's ``torch.save`` dict checkpoints
@@ -8,7 +8,9 @@ goes back to the reference's ``torch.save`` dict checkpoints
   counter, epoch, best CIDErs, the state of the dropout generator, and a
   config snapshot;
 - the same file roles: ``last``, ``best_valid``, ``best_test``, per-phase and
-  per-epoch checkpoints (train_caption.py:181-202), each a directory
+  per-epoch checkpoints (train_caption.py:181-202), and the detector
+  trainer's ``detector_last`` and ``detector_epoch_N``
+  (detection/hooks.py::CheckpointHook), each a directory
   ``<workdir>/checkpoints/<name>/`` holding ``state.pth`` and ``config.yaml``.
 
 The model's part (``state_dict``) carries the reference's torch parameter

@@ -1,4 +1,4 @@
-"""Optimizer and LR schedule for caption training.
+"""Optimizers and LR schedules for caption training and detector pre-training.
 
 Parity notes (reference engine/caption_engine.py:18-73, utils/cap_scheduler.py;
 grit_tpu/engine/optim.py):
@@ -24,6 +24,10 @@ before ``optimizer.step()``.  Its ``step()`` goes through
 ``ops.fused_adam.adam_update`` (kernel K12 on CUDA parameters, the plain
 version on CPU parameters), one call per group.  Frozen parameters are in no
 group.
+
+Detector pre-training (reference train_detector.py:24-89) uses the same
+``Adam`` over up to five groups with decoupled decay on three of them
+(``detector_param_labels``, ``build_detector_optimizer``).
 """
 
 from __future__ import annotations
@@ -145,3 +149,71 @@ def build_optimizer(model: nn.Module, *, model_lr: float, backbone_lr: float,
         [{"params": groups["model"], "lr": model_lr, "name": "model"},
          {"params": groups["backbone"], "lr": backbone_lr, "name": "backbone"}],
         betas=(beta_1, beta_2), eps=1e-8, weight_decay=weight_decay)
+
+
+#: detector groups -> (which learning rate, whether weight decay applies);
+#: the order of ``build_detector_optimizer``'s parameter groups
+DETECTOR_GROUPS = {"head": ("lr", True), "det_no_decay": ("lr", False),
+                   "backbone_no_decay": ("lr_backbone", False),
+                   "backbone_decay": ("lr_backbone", True), "sp": ("sp_lr", True)}
+
+
+def detector_param_labels(model: nn.Module, sp_names=()) -> dict[str, str]:
+    """name -> one of the five detector groups (reference
+    train_detector.py:24-69; grit_tpu.engine.optim.detector_param_labels):
+
+    - ``sp``                 the name contains an ``sp_names`` entry (default
+                             ``['attr_head']``): own learning rate ``sp_lr``,
+                             full weight decay, own MultiStepLR;
+    - ``head``               non-backbone, decayed (lr, weight_decay);
+    - ``det_no_decay``       non-backbone, ndim <= 1 or a bias (wd = 0, lr);
+    - ``backbone_no_decay``  backbone, same no-decay rule (wd = 0, lr_backbone);
+    - ``backbone_decay``     backbone (lr_backbone, weight_decay).
+
+    The reference's ``skip`` list is dead (``query_embed.weight`` ends in
+    ``weight``), so ``query_embed`` lands in ``head``, as upstream."""
+    labels = {}
+    for name, p in model.named_parameters():
+        if sp_names and any(ns in name for ns in sp_names):
+            labels[name] = "sp"
+            continue
+        no_decay = p.dim() <= 1 or name.endswith(".bias")
+        if "backbone" in name:
+            labels[name] = "backbone_no_decay" if no_decay else "backbone_decay"
+        else:
+            labels[name] = "det_no_decay" if no_decay else "head"
+    return labels
+
+
+def build_detector_optimizer(model: nn.Module, *, lr: float, lr_backbone: float,
+                             sp_lr: float = 0.0, weight_decay: float = 0.0, sp_names=(),
+                             freeze: Optional[dict[str, bool]] = None) -> Adam:
+    """The reference's AdamW recipe as one ``Adam`` over the non-empty groups
+    of ``DETECTOR_GROUPS``, in that order: betas (0.9, 0.999), decoupled decay
+    on head / backbone_decay / sp only, parameters named by ``freeze`` (frozen
+    Swin stages: no update and no decay, as ``requires_grad=False`` upstream)
+    left out.  Each group carries ``name``, its ``base_lr`` and an
+    ``lr_scale`` key (``"main"`` or ``"sp"``) that says which of the solver's
+    two schedules drives it (``apply_detector_lr``).  K12 takes one launch a
+    group."""
+    labels = detector_param_labels(model, sp_names)
+    base = {"lr": lr, "lr_backbone": lr_backbone, "sp_lr": sp_lr}
+    params: dict[str, list] = {g: [] for g in DETECTOR_GROUPS}
+    for name, p in model.named_parameters():
+        if not (freeze and freeze[name]):
+            params[labels[name]].append(p)
+    groups = [{"params": ps, "name": g, "lr": base[DETECTOR_GROUPS[g][0]],
+               "base_lr": base[DETECTOR_GROUPS[g][0]],
+               "weight_decay": weight_decay if DETECTOR_GROUPS[g][1] else 0.0,
+               "lr_scale": "sp" if g == "sp" else "main"}
+              for g, ps in params.items() if ps]
+    return Adam(groups, betas=(0.9, 0.999), eps=1e-8)
+
+
+def apply_detector_lr(optimizer: Adam, lr_scale: float, sp_lr_scale: float) -> None:
+    """Set every group's learning rate to its base rate times the solver's
+    schedule for it: ``lr_scale`` for the four main groups (warm-up and the
+    MultiStepLR over ``lr_drop_epochs``), ``sp_lr_scale`` for the sp group
+    (``sp_lr_drop_epochs``)."""
+    for group in optimizer.param_groups:
+        group["lr"] = group["base_lr"] * (sp_lr_scale if group["lr_scale"] == "sp" else lr_scale)

@@ -16,6 +16,7 @@ from grit_tpu_torch.models.det_module import (DetectionModule, MSDeformAttnModul
                                               SelfAttention, msda_offset_bias)
 from grit_tpu_torch.models.detector import Detector
 from grit_tpu_torch.models.grid_net import GridFeatureNetwork
+from grit_tpu_torch.models.layers import set_generator
 from grit_tpu_torch.models.swin import SwinTransformer, build_swin
 from grit_tpu_torch.ops.posemb import sinusoid_encoding_table
 from grit_tpu_torch.utils.nested import ImageBatch
@@ -49,10 +50,7 @@ class GRITCaptioner(nn.Module):
     def set_generator(self, generator) -> "GRITCaptioner":
         """Draw every dropout and drop-path mask from ``generator`` (None:
         torch's global generator)."""
-        for mod in self.modules():
-            if hasattr(mod, "generator"):
-                mod.generator = generator
-        return self
+        return set_generator(self, generator)
 
     def precompute_vis_kv(self, vis_inputs: dict):
         return self.cap_generator.precompute_vis_kv(vis_inputs)
@@ -70,8 +68,9 @@ class GRITCaptioner(nn.Module):
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights drawn from ``generator``: xavier-uniform for every
     matrix (the reference's Transformer.init_weights), zero biases, unit
-    norm scales, MSDA offsets at the radial init (ms_deform_attn.py:57-65)
-    and the sinusoid position table."""
+    norm scales, MSDA offsets at the radial init (ms_deform_attn.py:57-65),
+    the detection heads' prior biases (``reset_head_parameters``) and the
+    sinusoid position table."""
     for name, p in model.named_parameters():
         if p.dim() > 1:
             torch.nn.init.xavier_uniform_(p.view(p.shape[0], -1), generator=generator)
@@ -85,6 +84,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.sampling_offsets.bias.copy_(torch.from_numpy(
                 msda_offset_bias(mod.n_heads, mod.n_levels, mod.n_points)))
             mod.attention_weights.weight.zero_()
+        elif isinstance(mod, DetectionModule):
+            mod.reset_head_parameters()
         elif isinstance(mod, CaptionGenerator):
             n, d = mod.pos_emb.weight.shape
             mod.pos_emb.weight.copy_(sinusoid_encoding_table(n, d, 0))

@@ -8,8 +8,9 @@ FFN] with iterative box refinement (:40-53); the module keeps
 reference points, :106-112).  The sampling core is kernel K3
 (``ops.msda.msda``) on the value in its natural [B, S, C] layout; pad
 positions are masked through each image's per-level real extent instead of
-a pre-mask pass over the value.  ``level_embed`` and ``class_embed`` are
-kept for checkpoint compatibility; the caption path does not use them.
+a pre-mask pass over the value.  ``level_embed`` is kept for checkpoint
+compatibility; the caption path does not use ``class_embed``, the detection
+flavour's ``detection_head`` (:219-271) does.
 """
 
 from __future__ import annotations
@@ -24,14 +25,9 @@ from torch import nn
 from grit_tpu_torch.models.layers import Dropout, Linear
 from grit_tpu_torch.models.norm import LayerNorm
 from grit_tpu_torch.ops import msda as msda_ops
+from grit_tpu_torch.utils.boxes import inverse_sigmoid
 
 LN_EPS = 1e-5
-
-
-def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """logit with the reference's clamping (utils/misc.py:516)."""
-    x = x.clamp(0.0, 1.0)
-    return torch.log(x.clamp(min=eps) / (1 - x).clamp(min=eps))
 
 
 def msda_offset_bias(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
@@ -161,6 +157,17 @@ class DetectionModule(nn.Module):
         self.class_embed = nn.ModuleList(
             Linear(d_model, num_classes) for _ in range(num_layers + 1))
         self.bbox_embed = nn.ModuleList(MLP(d_model, 4, 3) for _ in range(num_layers + 1))
+        self.reset_head_parameters()
+
+    @torch.no_grad()
+    def reset_head_parameters(self, prior: float = 0.01) -> None:
+        """The prediction heads' start (det_module.py:98-112): every class
+        bias at the focal prior -log((1 - p) / p), and clone 0 of the box
+        head, which refines the 2-d initial reference points, biased to
+        small boxes (w, h logits -2)."""
+        for head in self.class_embed:
+            head.bias.fill_(-math.log((1 - prior) / prior))
+        self.bbox_embed[0].layers[-1].bias.copy_(torch.tensor([0.0, 0.0, -2.0, -2.0]))
 
     @staticmethod
     def bbox_refine(bbox_embed: MLP, output, reference_points):
@@ -206,3 +213,26 @@ class DetectionModule(nn.Module):
             hs.append(tgt)
             refs.append(reference_points)
         return torch.stack(hs), refs[0], torch.stack(refs)
+
+    def detection_head(self, hs, init_reference, inter_references, *, training: bool) -> dict:
+        """Per-layer class and box predictions (det_module.py:219-271): level
+        ``lvl`` adds its box head's output to the logit of the reference it
+        refined.  Training returns the last level as ``pred_logits`` /
+        ``pred_boxes`` and the others as ``aux_outputs``; evaluation the last
+        level only.  Boxes are f32 (cx, cy, w, h) in [0, 1]."""
+        def level(lvl: int, reference) -> tuple[torch.Tensor, torch.Tensor]:
+            reference = inverse_sigmoid(reference)
+            tmp = self.bbox_embed[lvl](hs[lvl]).float()
+            if reference.shape[-1] == 4:
+                tmp = tmp + reference
+            else:
+                tmp = torch.cat([tmp[..., :2] + reference, tmp[..., 2:]], -1)
+            return self.class_embed[lvl](hs[lvl]), torch.sigmoid(tmp)
+
+        if not training:
+            cls, box = level(hs.shape[0] - 1, inter_references[-2])
+            return {"pred_logits": cls, "pred_boxes": box}
+        outs = [level(lvl, init_reference if lvl == 0 else inter_references[lvl - 1])
+                for lvl in range(hs.shape[0])]
+        return {"pred_logits": outs[-1][0], "pred_boxes": outs[-1][1],
+                "aux_outputs": [{"pred_logits": c, "pred_boxes": b} for c, b in outs[:-1]]}

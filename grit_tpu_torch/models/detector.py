@@ -30,17 +30,22 @@ class Detector(nn.Module):
             nn.Sequential(Conv2d(c, hidden_dim, 1), GroupNorm(32, hidden_dim))
             for c in backbone.num_channels)
 
-    def forward(self, images: ImageBatch) -> dict:
+    def decode(self, images: ImageBatch):
+        """-> (hs [n_layers+1, B, Lq, C], init_ref, inter_refs, the backbone's
+        four maps, their pad masks)."""
         images = device_normalize(images)
         features = self.backbone(images.images)
         n_stages = len(self.backbone.depths)
         patch = self.backbone.patch_size
         strides = [patch * 2 ** s for s in range(1, n_stages)] + [patch * 2 ** n_stages]
         masks = [downsample_mask(images.mask, s) for s in strides]
-        b = images.images.shape[0]
         srcs = [proj(f.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
                 for proj, f in zip(self.input_proj, features)]
-        hs, _, _ = self.det_module(srcs, masks)
+        return (*self.det_module(srcs, masks), features, masks)
+
+    def forward(self, images: ImageBatch) -> dict:
+        hs, _, _, features, masks = self.decode(images)
+        b = hs.shape[1]
         return {"gri_feat": features[-1].reshape(b, -1, features[-1].shape[-1]),
                 "gri_mask": masks[-1].reshape(b, 1, 1, -1),
                 "reg_feat": hs[-1],

@@ -65,3 +65,12 @@ def drop_path(x: torch.Tensor, keep: Optional[torch.Tensor], rate: float) -> tor
         return x
     mask = keep.reshape(-1, *([1] * (x.dim() - 1)))
     return torch.where(mask, x / (1.0 - rate), 0.0)
+
+
+def set_generator(module: nn.Module, generator: Optional[torch.Generator]) -> nn.Module:
+    """Draw every dropout and drop-path mask under ``module`` from
+    ``generator`` (None: torch's global generator)."""
+    for mod in module.modules():
+        if hasattr(mod, "generator"):
+            mod.generator = generator
+    return module

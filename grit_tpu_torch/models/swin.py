@@ -20,8 +20,10 @@ drop-path is active.  ``frozen_stages`` follows the reference's
 ``_freeze_stages`` (swin_model.py:622-637): ``fs >= 0`` freezes the patch
 embed, ``fs >= 2`` stages ``0 .. fs-2``; frozen parts run as in ``eval()``
 without a graph.  ``use_checkpoint`` recomputes each training block in the
-backward (``torch.utils.checkpoint``).  The patch embed and PatchMerging are
-plain convolution / LayerNorm / Linear.
+backward (``torch.utils.checkpoint``).  The patch embed is a plain
+convolution, then K10b (``ops.window_attention.layernorm_rows``); every
+PatchMerging is K10a (``ops.window_attention.patch_merge``: the 2x2 gather,
+LayerNorm over 4C and the reduction), in ``eval()`` and in ``train()`` alike.
 """
 
 from __future__ import annotations
@@ -141,12 +143,8 @@ class PatchMerging(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """[B, H, W, C] -> [B, ceil(H/2), ceil(W/2), out_dim]."""
-        h, w = x.shape[1:3]
-        if h % 2 or w % 2:
-            x = F.pad(x, (0, 0, 0, w % 2, 0, h % 2))
-        x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2],
-                       x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
-        return self.reduction(self.norm(x))
+        return wa.patch_merge(x.contiguous(), self.norm.weight, self.norm.bias,
+                              self.reduction.weight.to(x.dtype), eps=LN_EPS)
 
 
 class BasicLayer(nn.Module):
@@ -190,7 +188,7 @@ class PatchEmbed(nn.Module):
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """[B, H, W, 3] -> [B, H/p, W/p, C]."""
         x = self.proj(images.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-        return self.norm(x)
+        return wa.layernorm_rows(x.contiguous(), self.norm.weight, self.norm.bias, eps=LN_EPS)
 
 
 class SwinTransformer(nn.Module):

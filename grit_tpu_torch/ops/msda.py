@@ -9,7 +9,16 @@ value from device memory and has no such limit, so there is nothing to chunk.
 ``msda_bwd`` replaces ``_gather_bwd_kernel_v4`` (via ``_gather_bwd_v5`` /
 ``_gather_bwd_v4``) and the S-chunked ``_gather_bwd_kernel_v5s`` (K7b), and
 also the chain from corner weights to locations and attention weights that
-the TPU path leaves to autodiff.  On a CUDA tensor each launches the
+the TPU path leaves to autodiff.  The TPU's earlier generations map onto the
+same two kernels: ``_gather_matmul_kernel`` (K13a) and
+``_gather_matmul_kernel_v3`` (K13c, both via ``ms_deform_attn_pallas``) and
+``_gather_matmul_kernel_v4`` (K13d, via ``ms_deform_attn_pallas_relaid``
+with ``GRIT_MSDA_V5=0``) onto ``msda``; ``_gather_bwd_kernel`` (K13b) onto
+``msda_bwd``.  They differ from v5 in how the value slab is laid out for the
+TPU's matrix unit (head-major with aligned level spans, a relaid slab with
+head pairs) and in how the one-hot selection is built; the GPU gathers the
+four corners by address from the natural ``[N, S, M*D]`` layout, so no relay
+layout, span alignment or head pairing exists to distinguish them.  On a CUDA tensor each launches the
 hand-written kernel in ``csrc/msda.cu`` (design notes there) or raises; on a
 CPU tensor it runs ``msda_plain``, the level-by-level formulation of the
 reference's python oracle (models/ops/functions/ms_deform_attn_func.py:41-61,

@@ -1,5 +1,7 @@
-"""Swin block kernels: K1 (attention half-block), K2 (MLP half-block), K4
-(the training block's attention branch) and K5 (window-attention backward).
+"""Swin kernels: K1 (attention half-block), K2 (MLP half-block), K4 (the
+training block's attention branch), K5 (window-attention backward), K8 (the
+window-attention core on a dense bias), K10a (PatchMerging's LayerNorm +
+reduction) and K10b (the patch-embed LayerNorm).
 
 ``block_step`` replaces the TPU's ``grit_tpu/ops/window_attention.py``
 ``_band_kernel`` (via ``fused_block_step`` / ``fused_block_mlp_step``),
@@ -13,6 +15,11 @@ kernels reproduce: f32 LN statistics with var = E[x^2] - mu^2, f32 matmul
 accumulation, q scaled before rounding to the storage type, softmax
 probabilities rounded to the storage type before the value product,
 exact-erf GELU, residuals added in f32.
+
+``window_attention`` replaces its ``_kernel`` and, for the gradient, its
+``_bwd_kernel`` on a dense bias (via ``fused_window_attention``);
+``ln_linear`` / ``patch_merge`` its ``_lnlin_kernel`` (via ``fused_ln_linear``)
+and ``layernorm_rows`` its ``_ln_kernel`` (via ``fused_layernorm``).
 
 ``block_attention_train`` and ``mlp`` are differentiable
 (``torch.autograd.Function``): the attention branch's backward runs K5 for
@@ -39,7 +46,9 @@ from grit_tpu_torch.ops.window import (relative_position_index,
 LN_EPS = 1e-5
 
 #: Kernel launches per wrapper (one per call that reached the CUDA kernels).
-LAUNCHES = {"block_step": 0, "mlp": 0, "block_attention": 0, "window_attention_bwd": 0}
+LAUNCHES = {"block_step": 0, "mlp": 0, "block_attention": 0, "window_attention_bwd": 0,
+            "window_attention": 0, "window_attention_grad": 0, "ln_linear": 0,
+            "layernorm_rows": 0}
 
 _EPI_BIAS, _EPI_GELU, _EPI_RESID, _EPI_RESID_MAP, _EPI_MAP = 0, 1, 2, 3, 4
 #: K5 keeps Q, K, V, dO and an N x N matrix in shared memory (227 KB a block)
@@ -70,7 +79,7 @@ def _qkv_plain(xw, qkv_w, qkv_b, num_heads: int) -> torch.Tensor:
     return (qkv * scale).to(xw.dtype)
 
 
-def window_attention_plain(qkv, table, *, batch: int, hp: int, wp: int, num_heads: int,
+def attention_core_plain(qkv, table, *, batch: int, hp: int, wp: int, num_heads: int,
                            window: int, shift: int = 0) -> torch.Tensor:
     """Plain version of the window-attention core: qkv [B*nW*N, 3C] in
     window order (q pre-scaled) -> attention output [B*nW*N, C] in qkv's
@@ -114,7 +123,7 @@ def block_step_plain(x, norm_w, norm_b, qkv_w, qkv_b, proj_w, proj_b, table, *,
     xf = xs.float().masked_fill(pad, 0.0)
     xn = _ln_fast(xf, norm_w, norm_b, eps).masked_fill(pad, 0.0).to(dt)
     qkv = _qkv_plain(window_partition(xn, window).reshape(-1, c), qkv_w, qkv_b, num_heads)
-    o = window_attention_plain(qkv, table, batch=b, hp=hp, wp=wp, num_heads=num_heads,
+    o = attention_core_plain(qkv, table, batch=b, hp=hp, wp=wp, num_heads=num_heads,
                                window=window, shift=shift)
     y = F.linear(o.float(), proj_w.float(), proj_b.float()).reshape(-1, n, c)
     y = window_reverse(y, window, hp, wp) + xf
@@ -127,7 +136,14 @@ def block_step(x, norm_w, norm_b, qkv_w, qkv_b, proj_w, proj_b, table, *,
                eps: float = LN_EPS) -> torch.Tensor:
     """K1: one Swin attention half-block on the padded map (see
     ``block_step_plain``).  CPU tensors run the plain version; CUDA tensors
-    launch the kernels or raise."""
+    launch the kernels or raise.
+
+    It also serves the TPU's ``_step_kernel`` (K9, the ``GRIT_WA_BAND=0``
+    layout of the same function, ``_step_forward``): that body and
+    ``_band_kernel`` differ only in how many windows share one VMEM-resident
+    band of the map, a choice the GPU does not have to make (a block of
+    threads owns one (window, head) and the map stays in device memory), so
+    one set of launches computes both."""
     if x.device.type == "cpu":
         return block_step_plain(
             x, norm_w, norm_b, qkv_w, qkv_b, proj_w, proj_b, table,
@@ -200,7 +216,7 @@ def block_attention_plain(x, qkv_w, qkv_b, proj_w, proj_b, table, *, num_heads: 
     window order, qkv [B*nW*N, 3C])."""
     b, hp, wp, c = x.shape
     qkv = _qkv_plain(_to_windows(x, window, shift), qkv_w, qkv_b, num_heads)
-    ao = window_attention_plain(qkv, table, batch=b, hp=hp, wp=wp, num_heads=num_heads,
+    ao = attention_core_plain(qkv, table, batch=b, hp=hp, wp=wp, num_heads=num_heads,
                                 window=window, shift=shift)
     y = F.linear(ao.float(), proj_w.float(), proj_b.float()).to(x.dtype)
     return _from_windows(y, window, shift, hp, wp), ao, qkv
@@ -267,7 +283,7 @@ def block_attention(x, qkv_w, qkv_b, proj_w, proj_b, table, *, num_heads: int, w
 
 def window_attention_bwd_plain(qkv, d_ao, table, *, batch: int, hp: int, wp: int,
                                num_heads: int, window: int, shift: int = 0):
-    """Plain version of K5, by autograd of ``window_attention_plain``: from qkv
+    """Plain version of K5, by autograd of ``attention_core_plain``: from qkv
     [B*nW*N, 3C] (q pre-scaled) and the gradient of the attention output,
     (dqkv [B*nW*N, 3C] in qkv's dtype, the gradients of the qkv projection's
     output, so dq carries the q scale; dtable f32 [(2w-1)^2, heads])."""
@@ -275,7 +291,7 @@ def window_attention_bwd_plain(qkv, d_ao, table, *, batch: int, hp: int, wp: int
     with torch.enable_grad():
         qkv_l = qkv.detach().requires_grad_()
         table_l = table.detach().requires_grad_()
-        ao = window_attention_plain(qkv_l, table_l, batch=batch, hp=hp, wp=wp,
+        ao = attention_core_plain(qkv_l, table_l, batch=batch, hp=hp, wp=wp,
                                     num_heads=num_heads, window=window, shift=shift)
         dqkv, dtable = torch.autograd.grad(ao, (qkv_l, table_l), d_ao)
     scale = torch.ones(3 * c, device=qkv.device)
@@ -462,3 +478,251 @@ def mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, *, eps: float = LN_EPS,
     alone.  Differentiable.  CPU tensors run the plain version; CUDA tensors
     launch the kernels or raise."""
     return _MlpFn.apply(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, eps, residual)
+
+
+# ---------------------------------------------------------------------------
+# K8: the window-attention core on separate q, k, v and a dense additive bias
+# ---------------------------------------------------------------------------
+
+def window_attention_plain(q, k, v, bias, scale: float, num_heads: int) -> torch.Tensor:
+    """Plain version of K8: softmax(q k^T * scale + bias) v per (window, head).
+
+    q, k, v: [B, nW, N, C] with the heads merged in C; bias: [M, heads, N, N]
+    with M == nW or 1 (f32 in the kernel).  q is scaled and rounded to the
+    storage type before the product, the probabilities are rounded to it
+    before the value product, sums are f32."""
+    b, nw, n, c = q.shape
+    d = c // num_heads
+    dt = q.dtype
+
+    def heads(t):
+        return t.float().reshape(b, nw, n, num_heads, d).permute(0, 1, 3, 2, 4)
+
+    s = heads((q.float() * scale).to(dt)) @ heads(k).transpose(-1, -2) + bias.float()[None]
+    p = torch.softmax(s, dim=-1).to(dt).float()
+    return (p @ heads(v)).permute(0, 1, 3, 2, 4).reshape(b, nw, n, c).to(dt)
+
+
+def _dense_attention_check(q, k, v, bias, num_heads: int) -> int:
+    """Validate K8's arguments on the card; returns the window side."""
+    b, nw, n, c = q.shape
+    dt = q.dtype
+    win = int(round(n ** 0.5))
+    if dt not in _cuda.DTYPE_CODE:
+        raise ValueError(f"window_attention: unsupported dtype {dt}")
+    if c != 32 * num_heads:
+        raise ValueError(f"window_attention: head dim must be 32, got {c}/{num_heads}")
+    if win * win != n or win > _MAX_BWD_WINDOW or n % 4:
+        raise ValueError(f"window_attention: {n} tokens a window: need an even square <= "
+                         f"{_MAX_BWD_WINDOW ** 2} (the block's shared memory)")
+    if bias.shape[0] not in (1, nw):
+        raise ValueError(f"window_attention: bias over {bias.shape[0]} windows for {nw}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _cuda.require(t, name, dt, (b, nw, n, c))
+    _cuda.require(bias, "bias", torch.float32, (bias.shape[0], num_heads, n, n))
+    return win
+
+
+class _WindowAttentionFn(torch.autograd.Function):
+    """K8 forward and backward (dq, dk, dv and the bias gradient in the bias's
+    own shape: summed over the batch, and over windows for a one-window bias)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale, num_heads):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.cfg = (scale, num_heads)
+        if q.device.type == "cpu":
+            return window_attention_plain(q, k, v, bias, scale, num_heads)
+        b, nw, n, c = q.shape
+        bias_f = bias.float().contiguous()
+        win = _dense_attention_check(q, k, v, bias_f, num_heads)
+        out = torch.empty_like(q)
+        _cuda.check(_cuda.library().grit_window_attn_dense(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_f.data_ptr(), out.data_ptr(),
+            b, nw, win, c, num_heads, bias.shape[0], scale, _cuda.DTYPE_CODE[q.dtype],
+            _cuda.stream()), "window_attention")
+        LAUNCHES["window_attention"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias = ctx.saved_tensors
+        scale, num_heads = ctx.cfg
+        if q.device.type == "cpu":
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+                out = window_attention_plain(*leaves, scale, num_heads)
+                grads = torch.autograd.grad(out, leaves, dout.to(out.dtype))
+            return (*grads, None, None)
+        b, nw, n, c = q.shape
+        bias_f = bias.float().contiguous()
+        win = _dense_attention_check(q, k, v, bias_f, num_heads)
+        dout = dout.to(q.dtype).contiguous()
+        _cuda.require(dout, "dout", q.dtype, (b, nw, n, c))
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        dbias = torch.empty((nw, num_heads, n, n), dtype=torch.float32, device=q.device)
+        _cuda.check(_cuda.library().grit_window_attn_dense_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), bias_f.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), b, nw, win, c,
+            num_heads, bias.shape[0], scale, _cuda.DTYPE_CODE[q.dtype], _cuda.stream()),
+            "window_attention backward")
+        LAUNCHES["window_attention_grad"] += 1
+        if bias.shape[0] == 1:
+            dbias = dbias.sum(0, keepdim=True)
+        return dq, dk, dv, dbias.to(bias.dtype), None, None
+
+
+def window_attention(q, k, v, bias, scale: float, num_heads: int) -> torch.Tensor:
+    """K8: the window-attention core on given q, k, v and a dense additive
+    bias (see ``window_attention_plain``), differentiable in all four, with
+    the signature of the JAX package's ``fused_window_attention``.  It runs
+    the attention kernels of K1/K4 and K5 in their dense-bias mode.  No model
+    path of either package calls it (the Swin blocks go through K1 and K4,
+    which read the bias table and the shift regions themselves).  CPU tensors
+    run the plain version; CUDA tensors launch the kernels or raise."""
+    return _WindowAttentionFn.apply(q, k, v, bias, float(scale), num_heads)
+
+
+# ---------------------------------------------------------------------------
+# K10a / K10b: LayerNorm (+ Linear) over rows
+# ---------------------------------------------------------------------------
+
+def _merge_rows(x: torch.Tensor) -> torch.Tensor:
+    """PatchMerging's gather: map [B, H, W, C] -> [B, ceil(H/2), ceil(W/2), 4C],
+    zero beyond an odd edge."""
+    h, w = x.shape[1:3]
+    if h % 2 or w % 2:
+        x = F.pad(x, (0, 0, 0, w % 2, 0, h % 2))
+    return torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2], x[:, 1::2, 1::2]],
+                     dim=-1)
+
+
+def ln_linear_plain(x, norm_w, norm_b, w, *, eps: float = LN_EPS) -> torch.Tensor:
+    """Plain version of K10a: Linear(LN(x)) over the last axis, no bias; f32
+    statistics with var = E[x^2] - mu^2, the normalised rows rounded to the
+    storage type, f32 accumulation, one rounding of the output.  ``w``:
+    [out, in] (torch Linear layout)."""
+    dt = x.dtype
+    xn = _ln_fast(x.float(), norm_w, norm_b, eps).to(dt)
+    return F.linear(xn.float(), w.float()).to(dt)
+
+
+def patch_merge_plain(x, norm_w, norm_b, w, *, eps: float = LN_EPS) -> torch.Tensor:
+    """Plain version of K10a on the stage map: the 2x2 gather, then
+    ``ln_linear_plain``."""
+    return ln_linear_plain(_merge_rows(x), norm_w, norm_b, w, eps=eps)
+
+
+def _ln_linear_recompute(x, norm_w, norm_b, w, eps: float, merge: bool) -> torch.Tensor:
+    """What K10a's backward differentiates: the plain version with the product
+    taken in the rows' dtype (f32 accumulation; identical in f32)."""
+    if merge:
+        x = _merge_rows(x)
+    return F.linear(_ln_fast(x.float(), norm_w, norm_b, eps).to(x.dtype), w)
+
+
+def _ln_linear(x, norm_w, norm_b, w, eps: float, merge: bool) -> torch.Tensor:
+    if x.device.type == "cpu":
+        fn = patch_merge_plain if merge else ln_linear_plain
+        return fn(x, norm_w, norm_b, w, eps=eps)
+    dt = x.dtype
+    n_out, k_in = w.shape
+    if dt not in _cuda.DTYPE_CODE:
+        raise ValueError(f"ln_linear: unsupported dtype {dt}")
+    if n_out % 64 or k_in % 32:   # the GEMM tiles
+        raise ValueError(f"ln_linear: widths {k_in} -> {n_out} do not tile (in % 32, out % 64)")
+    if merge:
+        b, h, wd, c = x.shape
+        if 4 * c != k_in:
+            raise ValueError(f"patch_merge: map of {c} channels for a weight over {k_in}")
+        lead, hw = (b, (h + 1) // 2, (wd + 1) // 2), (h, wd)
+    else:
+        if x.shape[-1] != k_in:
+            raise ValueError(f"ln_linear: rows of {x.shape[-1]} channels for a weight over {k_in}")
+        lead, hw = tuple(x.shape[:-1]), (1, 1)
+    rows = 1
+    for s in lead:
+        rows *= s
+    _cuda.require(x, "x", dt)
+    _cuda.require(w, "w", dt, (n_out, k_in))
+    _cuda.require(norm_w, "norm_w", torch.float32, (k_in,))
+    _cuda.require(norm_b, "norm_b", torch.float32, (k_in,))
+    xn = torch.empty((rows, k_in), dtype=dt, device=x.device)
+    out = torch.empty((*lead, n_out), dtype=dt, device=x.device)
+    _cuda.check(_cuda.library().grit_ln_linear(
+        x.data_ptr(), norm_w.data_ptr(), norm_b.data_ptr(), w.data_ptr(), xn.data_ptr(),
+        out.data_ptr(), rows, n_out, k_in, int(merge), *hw, eps, _cuda.DTYPE_CODE[dt],
+        _cuda.stream()), "ln_linear")
+    LAUNCHES["ln_linear"] += 1
+    return out
+
+
+class _RecomputeFn(torch.autograd.Function):
+    """A kernel forward whose backward recomputes through a plain function of
+    the same tensor inputs and differentiates that (the TPU's ``_lnlin_bwd``
+    and ``_ln_bwd``): nothing is kept but the inputs."""
+
+    @staticmethod
+    def forward(ctx, kernel, recompute, cfg, *tensors):
+        ctx.save_for_backward(*tensors)
+        ctx.recompute, ctx.cfg = recompute, cfg
+        return kernel(*tensors, *cfg)
+
+    @staticmethod
+    def backward(ctx, dy):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            y = ctx.recompute(*leaves, *ctx.cfg)
+            grads = torch.autograd.grad(y, leaves, dy.to(y.dtype))
+        return (None, None, None, *grads)
+
+
+def ln_linear(x, norm_w, norm_b, w, *, eps: float = LN_EPS) -> torch.Tensor:
+    """K10a on rows: Linear(LN(x)) over the last axis of x [..., in] with
+    ``w`` [out, in], no bias (see ``ln_linear_plain``).  Differentiable (the
+    backward recomputes).  CPU tensors run the plain version; CUDA tensors
+    launch the kernels or raise."""
+    return _RecomputeFn.apply(_ln_linear, _ln_linear_recompute, (eps, False),
+                              x, norm_w, norm_b, w)
+
+
+def patch_merge(x, norm_w, norm_b, w, *, eps: float = LN_EPS) -> torch.Tensor:
+    """K10a on the stage map [B, H, W, C] -> [B, ceil(H/2), ceil(W/2), out]:
+    PatchMerging's 2x2 gather and odd-edge zero pad folded into the LayerNorm's
+    load address, then the reduction (see ``patch_merge_plain``).
+    Differentiable.  CPU tensors run the plain version; CUDA tensors launch the
+    kernels or raise."""
+    return _RecomputeFn.apply(_ln_linear, _ln_linear_recompute, (eps, True),
+                              x, norm_w, norm_b, w)
+
+
+def layernorm_rows_plain(x, norm_w, norm_b, eps: float = LN_EPS) -> torch.Tensor:
+    """Plain version of K10b: LayerNorm over the last axis, f32 statistics
+    with var = E[x^2] - mu^2, the result in x's dtype."""
+    return _ln_fast(x.float(), norm_w, norm_b, eps).to(x.dtype)
+
+
+def _layernorm_rows(x, norm_w, norm_b, eps: float) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return layernorm_rows_plain(x, norm_w, norm_b, eps=eps)
+    dt = x.dtype
+    c = x.shape[-1]
+    if dt not in _cuda.DTYPE_CODE:
+        raise ValueError(f"layernorm_rows: unsupported dtype {dt}")
+    _cuda.require(x, "x", dt)
+    _cuda.require(norm_w, "norm_w", torch.float32, (c,))
+    _cuda.require(norm_b, "norm_b", torch.float32, (c,))
+    out = torch.empty_like(x)
+    _cuda.check(_cuda.library().grit_ln_rows(
+        x.data_ptr(), norm_w.data_ptr(), norm_b.data_ptr(), out.data_ptr(), x.numel() // c, c,
+        0, 1, 1, 1, 0, 1, 1, eps, _cuda.DTYPE_CODE[dt], _cuda.stream()), "layernorm_rows")
+    LAUNCHES["layernorm_rows"] += 1
+    return out
+
+
+def layernorm_rows(x, norm_w, norm_b, *, eps: float = LN_EPS) -> torch.Tensor:
+    """K10b: LayerNorm over the last axis of x [..., C] in one pass (see
+    ``layernorm_rows_plain``).  Differentiable (the backward recomputes).  CPU
+    tensors run the plain version; CUDA tensors launch the kernel or raise."""
+    return _RecomputeFn.apply(_layernorm_rows, layernorm_rows_plain, (eps,),
+                              x, norm_w, norm_b)

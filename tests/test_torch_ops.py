@@ -5,18 +5,29 @@ port's kernel wrappers (K1 ``block_step``, K2 ``mlp``, K3 ``msda``) run their
 plain versions; those are held here against the JAX package's own oracles
 (``block_step_ref``, ``_mlp_ref2``, ``ms_deform_attn_reference``), which the
 Pallas kernels are tested against in tests/test_window_attention.py and
-tests/test_ops.py.  The CUDA branches are compared with the same plain
-versions on the card by chip_smoke.py.
+tests/test_ops.py.  K8 (``window_attention``), K10a (``ln_linear``,
+``patch_merge``) and K10b (``layernorm_rows``) are held against the Pallas
+bodies themselves in interpret mode, and the kernels that serve several TPU
+bodies against those bodies: ``block_step`` against ``_step_kernel`` (K9),
+``msda`` against the first-generation MSDA kernels (K13a, K13c, K13d).  The
+CUDA branches are compared with the same plain versions on the card by
+chip_smoke.py.
 
 Tolerances: fp32 on both sides; the differences are summation order and
 LN's rsqrt, so 1e-5 absolute on O(1) values (2e-5 for MSDA, whose reference
 sums corners and points in another order).
 """
 
+from unittest import mock
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
+
+from grit_tpu.models import swin as jswin
+from grit_tpu.ops import msda_pallas as jmp
 
 from grit_tpu.ops import msda as jmsda
 from grit_tpu.ops import posemb as jposemb
@@ -137,4 +148,136 @@ def test_msda_plain_matches_jax_reference(padded):
         masked[:, st:st + h * w] = lv.reshape(n, h * w, -1)
     out = tmsda.msda(_t(value), shapes, _t(loc), _t(attn), _t(real_hw))
     ref = jmsda.ms_deform_attn_reference(masked.reshape(n, s, m, d), shapes, loc, attn)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# K8, K9, K10a, K10b, K13: against the Pallas bodies in interpret mode
+# ---------------------------------------------------------------------------
+
+def interpret(module):
+    """Run ``module``'s ``pallas_call``s in interpret mode, as the JAX
+    package's own tests do on the CPU."""
+    orig = pl.pallas_call
+
+    def interp(*a, **kw):
+        kw["interpret"] = True
+        return orig(*a, **kw)
+
+    return mock.patch.object(module.pl, "pallas_call", interp)
+
+
+def _f(rng):
+    return lambda *s, sc=1.0: (rng.standard_normal(s) * sc).astype(np.float32)
+
+
+@pytest.mark.parametrize("m_windows", ["one", "every"])
+def test_window_attention_matches_jax_kernel(m_windows):
+    """K8's plain version vs the Pallas ``_kernel`` (fused_window_attention),
+    with a bias over one window and over every window."""
+    b, nw, heads, n, d = 3, 4, 2, 16, 8
+    f = _f(np.random.default_rng(4))
+    q, k, v = (f(b, nw, n, heads * d) for _ in range(3))
+    bias = f(1 if m_windows == "one" else nw, heads, n, n)
+    with interpret(jwa):
+        ref = jwa.fused_window_attention(*map(jnp.asarray, (q, k, v, bias)), 0.3, heads)
+    out = twa.window_attention(_t(q), _t(k), _t(v), _t(bias), 0.3, heads)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("shift", [0, 4])
+def test_block_step_serves_the_step_kernel(shift):
+    """K9: ``block_step`` against the Pallas ``_step_kernel`` (the
+    ``GRIT_WA_BAND=0`` layout of K1's function), which it maps onto."""
+    b, hp, wp, c, heads, win, real = 2, 16, 24, 16, 2, 8, (13, 20)
+    p = _block_inputs(5, b, hp, wp, c, heads, win, real)
+    out = twa.block_step(*[_t(p[k]) for k in ("x", "norm_w", "norm_b", "qkv_w", "qkv_b",
+                                               "proj_w", "proj_b", "table")],
+                         num_heads=heads, window=win, real_hw=real, shift=shift)
+    n = win * win
+    bias = p["table"][jwin.relative_position_index((win, win)).reshape(-1)]
+    bias = bias.reshape(n, n, heads).transpose(2, 0, 1)[None]
+    if shift:
+        bias = bias + jwin.shifted_window_mask(hp, wp, win, shift)[:, None]
+    with interpret(jwa):
+        ref = jwa._step_forward(
+            jnp.asarray(np.roll(p["x"], (-shift, -shift), (1, 2))), p["norm_w"], p["norm_b"],
+            p["qkv_w"].T, p["qkv_b"], p["proj_w"].T, p["proj_b"], jnp.asarray(bias),
+            (c // heads) ** -0.5, heads, win, real, shift, True, 1e-5)
+    ref = np.roll(np.asarray(ref), (shift, shift), (1, 2))
+    h, w = real
+    np.testing.assert_allclose(out.numpy()[:, :h, :w], ref[:, :h, :w], atol=ATOL, rtol=0)
+
+
+def test_ln_linear_matches_jax_kernel():
+    """K10a on rows: ``ln_linear`` vs the Pallas ``_lnlin_kernel`` (fused_ln_linear)."""
+    f = _f(np.random.default_rng(6))
+    x, lw, lb, w = f(2, 24, 64) * 2 + 0.5, 1 + f(64, sc=0.1), f(64, sc=0.1), f(32, 64, sc=0.125)
+    with interpret(jwa):
+        ref = jwa.fused_ln_linear(jnp.asarray(x), lw, lb, jnp.asarray(w.T), eps=1e-5)
+    out = twa.ln_linear(_t(x), _t(lw), _t(lb), _t(w), eps=1e-5)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("hw", [(8, 12), (7, 11)])
+def test_patch_merge_matches_jax_patch_merging(hw):
+    """K10a on the stage map: ``patch_merge`` (2x2 gather, odd-edge zero pad,
+    LayerNorm over 4C, reduction) vs the JAX package's PatchMerging module on
+    its default path, from the same parameters."""
+    h, w = hw
+    c, out_dim = 16, 24
+    f = _f(np.random.default_rng(7))
+    x = f(2, h, w, c)
+    params = {"norm": {"scale": 1 + f(4 * c, sc=0.1), "bias": f(4 * c, sc=0.1)},
+              "reduction": {"kernel": f(4 * c, out_dim, sc=0.125)}}
+    ref = jswin.PatchMerging(c, out_dim).apply({"params": params},
+                                               jnp.asarray(x.reshape(2, h * w, c)), (h, w))
+    out = twa.patch_merge(_t(x), _t(params["norm"]["scale"]), _t(params["norm"]["bias"]),
+                          _t(np.ascontiguousarray(params["reduction"]["kernel"].T)), eps=1e-5)
+    assert out.shape == (2, (h + 1) // 2, (w + 1) // 2, out_dim)
+    np.testing.assert_allclose(out.numpy().reshape(2, -1, out_dim), np.asarray(ref),
+                               atol=ATOL, rtol=0)
+
+
+def test_layernorm_rows_matches_jax_kernel():
+    """K10b: ``layernorm_rows`` vs the Pallas ``_ln_kernel`` (fused_layernorm)."""
+    f = _f(np.random.default_rng(8))
+    x, lw, lb = f(2, 40, 16) * 3 - 1, 1 + f(16, sc=0.1), f(16, sc=0.1)
+    with interpret(jwa):
+        ref = jwa.fused_layernorm(jnp.asarray(x), lw, lb, eps=1e-5)
+    out = twa.layernorm_rows(_t(x), _t(lw), _t(lb), eps=1e-5)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
+def msda_case(seed=9):
+    """MSDA inputs whose level sizes (24, 6, 4 rows) are not all multiples of
+    8, so the relaid layout's re-lay runs; locations spill past [0, 1]."""
+    rng = np.random.default_rng(seed)
+    shapes = ((4, 6), (2, 3), (2, 2))
+    n, lq, m, d, p = 2, 5, 2, 4, 2
+    s = sum(h * w for h, w in shapes)
+    value = rng.standard_normal((n, s, m, d)).astype(np.float32)
+    loc = (rng.random((n, lq, m, len(shapes), p, 2)) * 1.3 - 0.15).astype(np.float32)
+    attn = rng.random((n, lq, m, len(shapes), p)).astype(np.float32)
+    attn /= attn.reshape(n, lq, m, -1).sum(-1)[..., None, None]
+    real_hw = np.array([[h, w] for h, w in shapes] * n).reshape(n, len(shapes), 2)
+    return value, shapes, loc, attn, real_hw
+
+
+@pytest.mark.parametrize("body", ["K13a _gather_matmul_kernel", "K13c _gather_matmul_kernel_v3",
+                                  "K13d _gather_matmul_kernel_v4"])
+def test_msda_serves_the_first_generation_kernels(body, monkeypatch):
+    """``msda`` against the three earlier Pallas MSDA forwards, which map
+    onto it; 2e-5 (they sum corners and points in another order)."""
+    value, shapes, loc, attn, real_hw = msda_case()
+    n, s, m, d = value.shape
+    with interpret(jmp):
+        if body.startswith("K13d"):
+            monkeypatch.setenv("GRIT_MSDA_V5", "0")
+            relaid = jmp.relay_value(jnp.asarray(value.reshape(n, s, m * d)), shapes)
+            ref = jmp.ms_deform_attn_pallas_relaid(relaid, shapes, loc, attn)
+        else:
+            monkeypatch.setattr(jmp, "FWD_VARIANT", "v3" if body.startswith("K13c") else "v2")
+            ref = jmp.ms_deform_attn_pallas(jnp.asarray(value), shapes, loc, attn)
+    out = tmsda.msda(_t(value.reshape(n, s, m * d)), shapes, _t(loc), _t(attn), _t(real_hw))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=0)

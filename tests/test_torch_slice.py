@@ -137,12 +137,17 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(grit_tpu_torch.__path__, 'grit_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import grit_tpu_torch.inference_caption, grit_tpu_torch.train_caption, chip_smoke\n"
+        "import grit_tpu_torch.train_detector\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'grit_tpu'))\n"
         "assert not bad, bad\n"
         "assert 'grit_tpu_torch.engine.xe' in sys.modules\n"
         "for m in ('engine.scst', 'engine.loops', 'engine.checkpoint', 'engine.logger',\n"
-        "          'data.coco', 'data.metrics.cider', 'ops.decode_layer', 'ops.fused_adam'):\n"
+        "          'data.coco', 'data.metrics.cider', 'ops.decode_layer', 'ops.fused_adam',\n"
+        "          'detection.detector', 'detection.losses', 'detection.postprocess',\n"
+        "          'detection.solver', 'detection.hooks', 'detection.loader',\n"
+        "          'detection.datasets', 'detection.det_transforms', 'detection.coco_eval',\n"
+        "          'utils.boxes', 'utils.misc', 'train_detector'):\n"
         "    assert 'grit_tpu_torch.' + m in sys.modules, m\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -158,7 +163,8 @@ def test_chip_smoke_imports_no_image_or_checkpoint_library():
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('PIL', 'h5py', 'orbax', 'jax', 'jaxlib', 'grit_tpu'))\n"
             "assert not bad, bad\n"
-            "assert 'grit_tpu_torch.engine.scst' in sys.modules\n")
+            "assert 'grit_tpu_torch.engine.scst' in sys.modules\n"
+            "assert 'grit_tpu_torch.detection.solver' in sys.modules\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
@@ -176,7 +182,9 @@ def test_port_sources_name_no_jax_package_module():
                          r"|from\s+(grit_tpu|jax|flax|optax)(\.\S+)?\s+import)", re.M)
     files = sorted(f for f in Path(REPO, "grit_tpu_torch").rglob("*.py")
                    if "_build" not in f.parts) + [Path(REPO, "chip_smoke.py")]   # build outputs
-    assert len(files) > 45 and Path(REPO, "grit_tpu_torch", "train_caption.py") in files
+    assert len(files) > 58 and Path(REPO, "grit_tpu_torch", "train_caption.py") in files
+    assert Path(REPO, "grit_tpu_torch", "train_detector.py") in files
+    assert Path(REPO, "grit_tpu_torch", "detection", "losses.py") in files
     bad = [str(f.relative_to(REPO)) for f in files if pattern.search(f.read_text())]
     assert not bad, bad
     assert pattern.search("    from grit_tpu.config import x") and pattern.search("import jax")

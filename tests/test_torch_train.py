@@ -211,6 +211,99 @@ def test_msda_gradients_match_jax():
 
 
 # ---------------------------------------------------------------------------
+# (c2) K8, K10a, K10b, K13b: gradients against the Pallas backward bodies
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m_windows", ["one", "every"])
+def test_window_attention_gradients_match_jax_kernel(m_windows):
+    """K8: dq, dk, dv and the bias gradient in the bias's own shape (summed
+    over the batch, and over windows for a one-window bias) against jax.grad
+    of ``fused_window_attention``, whose backward is the Pallas ``_bwd_kernel``
+    in interpret mode; 1e-5 of each gradient's max."""
+    from test_torch_ops import interpret
+
+    b, nw, heads, n, d = 3, 4, 2, 16, 8
+    rng = np.random.default_rng(24)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    q, k, v = (f(b, nw, n, heads * d) for _ in range(3))
+    bias = f(1 if m_windows == "one" else nw, heads, n, n)
+    cot = f(b, nw, n, heads * d)
+    with interpret(jwa):
+        ref = jax.grad(lambda *a: (jwa.fused_window_attention(*a, 0.3, heads) * cot).sum(),
+                       argnums=(0, 1, 2, 3))(*map(jnp.asarray, (q, k, v, bias)))
+    leaves = [_t(a, grad=True) for a in (q, k, v, bias)]
+    (twa.window_attention(*leaves, 0.3, heads) * _t(cot)).sum().backward()
+    for leaf, r, name in zip(leaves, ref, ("q", "k", "v", "bias")):
+        assert leaf.grad.shape == leaf.shape
+        assert _rel(leaf.grad.numpy(), r) <= 1e-5, name
+
+
+@pytest.mark.parametrize("op", ["ln_linear", "patch_merge", "layernorm_rows"])
+def test_ln_kernels_gradients_match_jax(op):
+    """K10a and K10b: the gradients of every input (the backward recomputes
+    through the plain version) against jax.grad of ``fused_ln_linear`` /
+    ``fused_layernorm`` in interpret mode, whose backwards recompute through
+    their jnp mirrors; ``patch_merge`` on an odd map against the same
+    composition behind the gather; 1e-5 of each gradient's max."""
+    from test_torch_ops import interpret
+
+    rng = np.random.default_rng(25)
+    f = lambda *s, sc=1.0: (rng.standard_normal(s) * sc).astype(np.float32)  # noqa: E731
+    c, out_dim = 16, 24
+    if op == "patch_merge":
+        x, k_in = f(2, 7, 9, c), 4 * c
+    else:
+        x, k_in = f(2, 24, 4 * c) * 2 + 0.5, 4 * c
+    lw, lb, w = 1 + f(k_in, sc=0.1), f(k_in, sc=0.1), f(out_dim, k_in, sc=0.125)
+
+    def gather(x):
+        x = jnp.pad(x, ((0, 0), (0, 1), (0, 1), (0, 0)))
+        x = jnp.concatenate([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2],
+                             x[:, 1::2, 1::2]], -1)
+        return x.reshape(2, -1, 4 * c)
+
+    if op == "layernorm_rows":
+        cot = f(*x.shape)
+        jfn = lambda x, lw, lb: (jwa.fused_layernorm(x, lw, lb, eps=1e-5) * cot).sum()  # noqa: E731
+        jargs, targs = (x, lw, lb), (x, lw, lb)
+        tfn = lambda *a: twa.layernorm_rows(*a, eps=1e-5)  # noqa: E731
+    else:
+        merge = op == "patch_merge"
+        cot = f(2, 4 * 5 if merge else 24, out_dim)
+        jfn = lambda x, lw, lb, wt: (jwa.fused_ln_linear(  # noqa: E731
+            gather(x) if merge else x, lw, lb, wt, eps=1e-5) * cot).sum()
+        jargs, targs = (x, lw, lb, w.T), (x, lw, lb, w)
+        tfn = lambda *a: (twa.patch_merge if merge else twa.ln_linear)(*a, eps=1e-5)  # noqa: E731
+    with interpret(jwa):
+        ref = jax.grad(jfn, argnums=tuple(range(len(jargs))))(*map(jnp.asarray, jargs))
+    leaves = [_t(a, grad=True) for a in targs]
+    (tfn(*leaves).reshape(cot.shape) * _t(cot)).sum().backward()
+    for i, (leaf, r) in enumerate(zip(leaves, ref)):
+        r = np.asarray(r).T if i == 3 else r
+        assert _rel(leaf.grad.numpy(), r) <= 1e-5, i
+
+
+def test_msda_bwd_serves_the_first_generation_backward():
+    """K13b: ``msda``'s gradients (K6's plain version here) against jax.grad
+    through ``ms_deform_attn_pallas``, whose backward is the Pallas
+    ``_gather_bwd_kernel`` in interpret mode; 2e-5 of each gradient's max."""
+    from grit_tpu.ops import msda_pallas as jmp
+    from test_torch_ops import interpret, msda_case
+
+    value, shapes, loc, attn, real_hw = msda_case()
+    n, s, m, d = value.shape
+    cot = np.random.default_rng(26).standard_normal((n, loc.shape[1], m * d)).astype(np.float32)
+    with interpret(jmp):
+        ref = jax.grad(lambda v, l, a: (jmp.ms_deform_attn_pallas(v, shapes, l, a) * cot).sum(),
+                       argnums=(0, 1, 2))(*map(jnp.asarray, (value, loc, attn)))
+    leaves = [_t(a, grad=True) for a in (value.reshape(n, s, m * d), loc, attn)]
+    out = tmsda.msda(leaves[0], shapes, leaves[1], leaves[2], _t(real_hw))
+    (out * _t(cot)).sum().backward()
+    for leaf, r, name in zip(leaves, ref, ("value", "locations", "weights")):
+        assert _rel(leaf.grad.numpy(), np.asarray(r).reshape(leaf.shape)) <= 2e-5, name
+
+
+# ---------------------------------------------------------------------------
 # (d) loss and schedule
 # ---------------------------------------------------------------------------
 
