@@ -22,14 +22,21 @@ Phases, each of which must pass:
      a b8 and a b128 caption batch, beside the module path for the same tail;
      K12 (the multi-tensor Adam update) for three steps on the captioner's
      own trainable leaves, beside torch.optim.Adam(fused=True);
-  3. library yardsticks, timed and used nowhere in the port: F.linear at the
-     four GEMM shapes of a Swin block and scaled_dot_product_attention with
-     an additive mask at the attention core's shape, per stage;
+  3. the two kernels that do most of K1, K2, K4 and K10a's work, the bf16
+     GEMM (csrc/gemm_sm90.cu: TMA, an mbarrier ring, wgmma) and the bf16
+     window-attention core (csrc/window_attn_mma.cu: mma.sync tiles), each at
+     every shape at which a b8 caption forward, a b16 XE step and a b4
+     832x1344 detector step launch it, against its plain version and beside
+     one PyTorch call for the same function (F.linear a GEMM launch,
+     scaled_dot_product_attention with an additive mask a core launch; also
+     F.linear in fp32 beside the fp32 GEMM at the detector's shapes), timed
+     as device time by CUDA-graph replay and used nowhere in the port;
   4. the inference path: batch caption inference at the full width of the
      shipped GRIT model on random weights (seed 0), bf16, beam 5, 20 steps,
      through grit_tpu_torch.engine.evaluator.make_caption_generator, with
      each kernel's launch count checked against one forward's calls (K11:
-     layers x steps) and the batch's device launches counted;
+     layers x steps) and the batch's device launches counted; then one timed
+     b128 batch (the device-bound case): ms/batch, images/s, peak memory;
   5. the same model in fp32, kernel path against plain path: features within
      tolerance, captions token for token (a difference only at a near-tie:
      at the first differing step, the gap between adjacent candidates among
@@ -83,7 +90,8 @@ Phases, each of which must pass:
 
 Prints the card's name and power limit as nvidia-smi reports them, a JSON
 line of per-kernel results (all 18 TPU kernel bodies: the eleven ported
-kernels, and the seven bodies that one of them serves), and last {"ok": true, "device": {...}}; the
+kernels, and the seven bodies that one of them serves; and the two kernels
+inside K1, K2, K4, K8 and K10a, gemm_bf16 and win_attn), and last {"ok": true, "device": {...}}; the
 per-shape results go to chiprun_out/chip_smoke.json.  Exits non-zero, without
 that last line, when there is no CUDA device or any phase fails.
 """
@@ -216,7 +224,7 @@ BATCH_SEED = 0   # of the synthetic images and captions
 
 RESULTS: dict[str, dict] = {}
 DETAIL: list[dict] = []
-YARDSTICKS: dict[str, float] = {}
+YARDSTICKS: dict[str, object] = {}
 
 
 def card_line() -> str:
@@ -241,6 +249,28 @@ def cuda_ms(fn, reps: int = 10) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def graph_ms(fn, reps: int = 10) -> float:
+    """Device milliseconds of one call of ``fn``: ``reps`` calls captured in
+    one CUDA graph and replayed, so that the host's time to issue a call
+    (which exceeds a short kernel's) stays out of the number."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    del graph
+    return a.elapsed_time(b) / reps
 
 
 def compare(kernel: str, case: str, out, ref, dtype, ms: float, plain_ms: float,
@@ -491,37 +521,120 @@ def phase_train_kernels(batch: int, counted: bool = True, stages=None, levels=No
                         calls if j == 0 else 0, work if j == 0 else None, run)
 
 
-def phase_yardsticks(batch: int) -> None:
-    """Library calls at the kernels' sub-shapes, bf16, b8 inference shapes:
-    no single PyTorch call computes K1-K6 whole, so these time the parts
-    (F.linear for each GEMM launch, SDPA with an additive mask for the
-    attention core).  Used nowhere in the port."""
+def phase_yardsticks(run: str, batch: int, stages, n_frozen: int) -> None:
+    """The bf16 GEMM (every product of K1, K2, K4 and K10a) and the bf16
+    attention core (K1's and K4's) at every shape at which one ``run`` of a
+    main path launches them ("caption": a b8 forward in eval(); "train": a
+    b16 XE step, stages < ``n_frozen`` frozen; "detector": a b4 832x1344
+    step, every stage training), each against its plain version and beside
+    one PyTorch call for the same function, timed and used nowhere in the
+    port: F.linear a GEMM launch, scaled_dot_product_attention with an
+    additive mask a core launch.  Kernel and library times are device times
+    (``graph_ms``), the plain versions' eager.  At the detector's shapes also
+    the fp32 GEMM (the detector CLI's type) beside F.linear in fp32."""
     import torch.nn.functional as F
 
+    print(f"[yardsticks] the bf16 GEMM and attention core at the {run} run's shapes, b{batch}, "
+          f"beside F.linear and SDPA + mask", flush=True)
     g = torch.Generator(device=DEV).manual_seed(2)
-    dt = torch.bfloat16
+    bf = torch.bfloat16
     n = WINDOW * WINDOW
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=DEV) * scale
+
+    f32 = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "launches": 0}
     lin = sdpa = 0.0
-    for name, c, heads, _, (hp, wp), depth in STAGES:
-        rows = batch * hp * wp
-        x = torch.randn(rows, c, generator=g, device=DEV).to(dt)
-        h4 = torch.randn(rows, 4 * c, generator=g, device=DEV).to(dt)
-        t = 0.0
-        for a, (fo, fi) in ((x, (3 * c, c)), (x, (c, c)), (x, (4 * c, c)), (h4, (c, 4 * c))):
-            w = torch.randn(fo, fi, generator=g, device=DEV).to(dt)
-            b = torch.zeros(fo, device=DEV, dtype=dt)
-            t += cuda_ms(lambda: F.linear(a, w, b))
-        q, k, v = (torch.randn(rows // n, heads, n, 32, generator=g, device=DEV).to(dt)
-                   for _ in range(3))
-        mask = torch.randn(1, heads, n, n, generator=g, device=DEV).to(dt)
-        ta = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
-        print(f"  yardstick {name}: F.linear x4 {t:.3f} ms, SDPA + mask {ta:.3f} ms a block")
-        lin += t * depth
-        sdpa += ta * depth
-    YARDSTICKS.update({"linear_ms_per_b8_forward": lin, "sdpa_ms_per_b8_forward": sdpa})
-    print(f"[yardsticks] per b{batch} bf16 forward (24 blocks): F.linear {lin:.2f} ms for the "
-          f"K1 + K2 GEMMs, scaled_dot_product_attention {sdpa:.2f} ms for K1's attention core",
-          flush=True)
+    for k, (name, c, heads, real, (hp, wp), depth) in enumerate(stages):
+        frozen = k < n_frozen
+        rows_p, rows_u = batch * hp * wp, batch * real[0] * real[1]
+        rows_m = batch * ((real[0] + 1) // 2) * ((real[1] + 1) // 2)
+        n_out = stages[k + 1][1] if k + 1 < len(stages) else 1024
+        x = rnd(batch, hp, wp, c).to(bf)
+        a_p = x.reshape(-1, c)
+        a_k2 = a_p if frozen else rnd(rows_u, c).to(bf)      # K2's rows
+        h_k2 = rnd(a_k2.shape[0], 4 * c).to(bf)
+        wts = {nm: (rnd(fo, fi, scale=fi ** -0.5).to(bf), rnd(fo, scale=0.02).to(bf))
+               for nm, (fo, fi) in (("qkv", (3 * c, c)), ("proj", (c, c)), ("fc1", (4 * c, c)),
+                                    ("fc2", (c, 4 * c)))}
+        qs = dict(scale=(c // heads) ** -0.5, scale_cols=c)
+        launches = []   # (label, calls a run, A, (W, bias), gemm kwargs)
+        if frozen:      # K1 and K2 (with its residual) on the padded map
+            launches.append(("K1 qkv", depth, a_p, wts["qkv"], qs))
+            for shift in (0, WINDOW // 2):
+                launches.append((f"K1 proj shift={shift}", depth // 2, a_p, wts["proj"],
+                                 dict(epilogue="resid_map", resid=x,
+                                      geo=(hp, wp, WINDOW, shift, *real))))
+            launches.append(("K2 fc1", depth, a_k2, wts["fc1"], dict(epilogue="gelu")))
+            launches.append(("K2 fc2", depth, h_k2, wts["fc2"], dict(epilogue="resid", resid=a_k2)))
+        else:           # K4 on the padded map, K2 without its residual on the real rows
+            for shift in (0, WINDOW // 2):
+                geo = (hp, wp, WINDOW, shift, hp, wp)
+                launches.append((f"K4 qkv shift={shift}", depth // 2, x, wts["qkv"],
+                                 dict(qs, geo=geo, gather=True)))
+                launches.append((f"K4 proj shift={shift}", depth // 2, a_p, wts["proj"],
+                                 dict(epilogue="map", geo=geo)))
+            launches.append(("K2 fc1", depth, a_k2, wts["fc1"], dict(epilogue="gelu")))
+            launches.append(("K2 fc2", depth, h_k2, wts["fc2"], {}))
+        launches.append((f"K10a -> {n_out}", 1, rnd(rows_m, 4 * c).to(bf),
+                         (rnd(n_out, 4 * c, scale=(4 * c) ** -0.5).to(bf), None), {}))
+        for label, calls, a, (w, bias), kw in launches:
+            m_rows = a.numel() // w.shape[1]
+            kkw = dict(kw, rows=m_rows) if kw.get("gather") else kw
+            out = wa.gemm(a, w, bias, **kkw)
+            ref = wa.gemm_plain(a, w, bias, **kw)
+            a2 = a.reshape(m_rows, w.shape[1])
+            lib = graph_ms(lambda: F.linear(a2, w, bias))
+            # A, W and the bias read once, the output written once (the residual read once)
+            nbytes = (a2.numel() + w.numel() + m_rows * w.shape[0] + w.shape[0]) * 2
+            if "resid" in kw:
+                nbytes += m_rows * w.shape[0] * 2
+            work = (nbytes, 2.0 * m_rows * w.shape[0] * w.shape[1])
+            compare("gemm_bf16", f"bf16 {name} {label} {m_rows}x{w.shape[0]}x{w.shape[1]} b{batch}",
+                    out, ref, bf, graph_ms(lambda: wa.gemm(a, w, bias, **kkw)),
+                    cuda_ms(lambda: wa.gemm_plain(a, w, bias, **kw), reps=3), calls, work, run,
+                    library_ms=lib)
+            lin += lib * calls
+            if run == "detector":
+                a32, w32 = a.float(), w.float()
+                b32 = None if bias is None else bias.float()
+                r32 = kw.get("resid")
+                kw32 = dict(kw, rows=m_rows) if kw.get("gather") else dict(kw)
+                if r32 is not None:
+                    kw32["resid"] = r32.float()
+                a32_2 = a32.reshape(m_rows, w.shape[1])
+                f32["ms"] += graph_ms(lambda: wa.gemm(a32, w32, b32, **kw32)) * calls
+                f32["library_ms"] += graph_ms(lambda: F.linear(a32_2, w32, b32)) * calls
+                f32["bound_ms"] += max(2 * nbytes / PEAK_BYTES,
+                                       work[1] / PEAK_FLOPS[torch.float32]) * 1e3 * calls
+                f32["launches"] += calls
+        del launches, x, a_p, a_k2, h_k2
+        qkv = rnd(rows_p, 3 * c).to(bf)
+        qkv[:, :c] = (qkv[:, :c].float() * (c // heads) ** -0.5).to(bf)
+        table = rnd((2 * WINDOW - 1) ** 2, heads)
+        q, kk, v = (rnd(rows_p // n, heads, n, 32).to(bf) for _ in range(3))
+        mask = rnd(1, heads, n, n).to(bf)
+        lib = graph_ms(lambda: F.scaled_dot_product_attention(q, kk, v, attn_mask=mask))
+        for shift in (0, WINDOW // 2):
+            kw = dict(batch=batch, hp=hp, wp=wp, num_heads=heads, window=WINDOW, shift=shift)
+            work = (rows_p * 4 * c * 2 + (2 * WINDOW - 1) ** 2 * heads * 4, 4.0 * rows_p * n * c)
+            compare("win_attn", f"bf16 {name} {'K1' if frozen else 'K4'} core shift={shift} "
+                    f"b{batch}", wa.attention_core(qkv, table, **kw),
+                    wa.attention_core_plain(qkv, table, **kw), bf,
+                    graph_ms(lambda: wa.attention_core(qkv, table, **kw)),
+                    cuda_ms(lambda: wa.attention_core_plain(qkv, table, **kw), reps=3),
+                    depth // 2, work, run, library_ms=lib)
+            sdpa += lib * (depth // 2)
+        del qkv, q, kk, v
+    YARDSTICKS[run] = {"linear_ms": lin, "sdpa_ms": sdpa, "batch": batch}
+    msg = (f"[yardsticks] {run}: bf16 GEMM {RESULTS['gemm_bf16'][run]['ms']:.3f} ms a run "
+           f"(F.linear {lin:.3f}), attention core {RESULTS['win_attn'][run]['ms']:.3f} ms "
+           f"(SDPA + mask {sdpa:.3f})")
+    if run == "detector":
+        YARDSTICKS["gemm_f32_detector"] = f32
+        msg += (f"; fp32 GEMM {f32['ms']:.3f} ms in {f32['launches']} launches (F.linear fp32 "
+                f"{f32['library_ms']:.3f}, bound {f32['bound_ms']:.3f})")
+    print(msg, flush=True)
 
 
 # the caption generator's decode layer at full width, and the decode shapes
@@ -904,6 +1017,11 @@ def synthetic_batch(batch: int, offset: int = 0) -> ImageBatch:
     return ImageBatch(torch.from_numpy(imgs), torch.from_numpy(mask)).to(DEV)
 
 
+def core_launches() -> dict:
+    """Launches of the bf16 GEMM and attention core inside K1, K2, K4, K8 and K10a."""
+    return {"gemm_bf16": wa.LAUNCHES["gemm_bf16"], "win_attn": wa.LAUNCHES["win_attn_bf16"]}
+
+
 def reset_launches() -> None:
     for d in (wa.LAUNCHES, msda_ops.LAUNCHES, tail_ops.LAUNCHES, adam_ops.LAUNCHES):
         for k in d:
@@ -928,12 +1046,15 @@ def phase_slice(batch: int, card: str) -> None:
     first = time.perf_counter() - t0
     counts = {"K1": wa.LAUNCHES["block_step"], "K2": wa.LAUNCHES["mlp"],
               "K3": msda_ops.LAUNCHES["msda"], "K10a": wa.LAUNCHES["ln_linear"],
-              "K10b": wa.LAUNCHES["layernorm_rows"], "K11": tail_ops.LAUNCHES["decode_tail"]}
+              "K10b": wa.LAUNCHES["layernorm_rows"], "K11": tail_ops.LAUNCHES["decode_tail"],
+              **core_launches()}
     blocks = sum(s[-1] for s in STAGES)
     # EOS is off, so each of the generator's layers takes K11 at every step; a
-    # Swin forward makes one PatchMerging a stage and one patch-embed norm
+    # Swin forward makes one PatchMerging a stage and one patch-embed norm; K1
+    # and K2 make two GEMM launches each, K10a one
     want = {"K1": blocks, "K2": blocks, "K3": DET_LAYERS, "K10a": len(STAGES), "K10b": 1,
-            "K11": config.model.cap_generator.n_layers * STEPS}
+            "K11": config.model.cap_generator.n_layers * STEPS,
+            "gemm_bf16": 4 * blocks + len(STAGES), "win_attn": blocks}
     print(f"[slice] launches in one b{batch} caption batch: {counts} (want {want})")
     if counts != want:
         fail(f"kernel launch counts {counts} != {want}")
@@ -962,6 +1083,36 @@ def phase_slice(batch: int, card: str) -> None:
     RESULTS["slice"] = {"batch": batch, "first_s": first, "seconds": times,
                         "device_launches": total_launches, "images_per_s": batch / med,
                         "peak_gib": peak}
+
+
+def phase_slice_b128(card: str, batch: int = 128) -> None:
+    """One timed bf16 caption batch of ``batch`` images (beam 5, 20 steps, EOS
+    off): the device-bound case.  One warm-up call, then 3 timed calls."""
+    config = default_caption_config()
+    model = build_captioner(config, device=DEV, dtype=torch.bfloat16, seed=0)
+    samples = synthetic_batch(batch)
+    gen = make_caption_generator(model, beam_size=BEAM, max_len=STEPS,
+                                 bos_idx=config.model.bos_idx, eos_idx=config.model.vocab_size)
+    gen(samples, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = gen(samples, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = out.cpu()
+    if tuple(out.shape) != (batch, STEPS) or out.min() < 0 or out.max() >= config.model.vocab_size:
+        fail(f"b{batch} captions: bad tokens, shape {tuple(out.shape)}")
+    med = sorted(times)[1]
+    print(f"[slice b{batch}] b{batch} bf16 beam {BEAM} x {STEPS} steps at {HW[0]}x{HW[1]}: "
+          f"{med * 1e3:.1f} ms/batch (median of 3: {', '.join(f'{t * 1e3:.1f}' for t in times)}), "
+          f"{batch / med:.2f} images/s, peak {peak:.2f} GiB  [{card}]", flush=True)
+    RESULTS["slice_b128"] = {"batch": batch, "seconds": times, "images_per_s": batch / med,
+                             "peak_gib": peak}
+    del model, gen
 
 
 def profile_run(fn, title: str, path: str) -> None:
@@ -1204,7 +1355,7 @@ def train_launches() -> dict:
             "K3": msda_ops.LAUNCHES["msda"], "K4": wa.LAUNCHES["block_attention"],
             "K5": wa.LAUNCHES["window_attention_bwd"], "K6": msda_ops.LAUNCHES["msda_bwd"],
             "K10a": wa.LAUNCHES["ln_linear"], "K10b": wa.LAUNCHES["layernorm_rows"],
-            "K12": adam_ops.LAUNCHES["adam"]}
+            "K12": adam_ops.LAUNCHES["adam"], **core_launches()}
 
 
 def phase_train(card: str) -> None:
@@ -1222,7 +1373,10 @@ def phase_train(card: str) -> None:
     trained = sum(s[-1] for s in STAGES[FROZEN_STAGES - 1:])
     want = {"K1": frozen, "K2": frozen + trained, "K3": DET_LAYERS, "K4": trained,
             "K5": trained, "K6": DET_LAYERS, "K10a": len(STAGES), "K10b": 1,
-            "K12": 2}   # one Adam launch per parameter group
+            "K12": 2,   # one Adam launch per parameter group
+            # two GEMM launches in each of K1, K2 and K4, one in K10a
+            "gemm_bf16": 2 * (frozen + (frozen + trained) + trained) + len(STAGES),
+            "win_attn": frozen + trained}
     print(f"[train] launches in one b{batch} XE step: {counts} (want {want})")
     if counts != want:
         fail(f"training kernel launch counts {counts} != {want}")
@@ -1802,10 +1956,13 @@ def phase_detector(card: str, dtype) -> None:
     num_classes = config.model.detector.num_classes
     groups = [g["name"] for g in state.optimizer.param_groups]
     blocks = sum(s[-1] for s in DET_STAGES)
+    bf = dtype == torch.bfloat16     # the bf16 GEMM and core run only in bf16
     want_step = {"K1": 0, "K2": blocks, "K3": DET_LAYERS, "K4": blocks, "K5": blocks,
-                 "K6": DET_LAYERS, "K10a": len(DET_STAGES), "K10b": 1, "K12": len(groups)}
+                 "K6": DET_LAYERS, "K10a": len(DET_STAGES), "K10b": 1, "K12": len(groups),
+                 "gemm_bf16": bf * (4 * blocks + len(DET_STAGES)), "win_attn": bf * blocks}
     want_eval = {"K1": blocks, "K2": blocks, "K3": DET_LAYERS, "K4": 0, "K5": 0, "K6": 0,
-                 "K10a": len(DET_STAGES), "K10b": 1, "K12": 0}
+                 "K10a": len(DET_STAGES), "K10b": 1, "K12": 0,
+                 "gemm_bf16": bf * (4 * blocks + len(DET_STAGES)), "win_attn": bf * blocks}
 
     def train_batch(offset: int) -> dict:
         return {"samples": detector_images(DET_BATCH, offset),
@@ -2127,8 +2284,11 @@ def main() -> None:
     phase_dense_attention_kernel(args.batch)
     phase_decode_kernel()
     phase_adam_kernel()
-    phase_yardsticks(args.batch)
+    phase_yardsticks("caption", args.batch, STAGES, len(STAGES))
+    phase_yardsticks("train", TRAIN_BATCH, STAGES, FROZEN_STAGES - 1)
+    phase_yardsticks("detector", DET_BATCH, DET_STAGES, 0)
     phase_slice(args.batch, card)
+    phase_slice_b128(card)
     phase_parity(args.batch)
     phase_train(card)
     phase_trainer(card)
@@ -2151,7 +2311,12 @@ def main() -> None:
                "K3": (msda, jmsda + ":1018", "caption"), "K4": (swin, jwa + ":385", "train"),
                "K5": (swin, jwa + ":197", "train"), "K6": (msda, jmsda + ":633", "train"),
                "K10a": (swin, jwa + ":1985", "caption"), "K10b": (swin, jwa + ":2081", "caption"),
-               "K11": (csrc + "decode_layer.cu", "grit_tpu/ops/decode_layer.py:117", "caption")}
+               "K11": (csrc + "decode_layer.cu", "grit_tpu/ops/decode_layer.py:117", "caption"),
+               # the two kernels inside K1, K2, K4, K8 and K10a (each TPU body
+               # above holds its own products and attention)
+               "gemm_bf16": (csrc + "gemm_sm90.cu", jwa + ":1029", "caption"),
+               "win_attn": (csrc + "window_attn_mma.cu", jwa + ":1029", "caption")}
+    serves = {"gemm_bf16": "K1, K2, K4, K10a", "win_attn": "K1, K4, K8"}
     launch_key = {"caption": "launches", "train": "launches_train",
                   "detector": "launches_detector"}
     kernels = []
@@ -2176,6 +2341,8 @@ def main() -> None:
                         f"{other}_ms": o["ms"], f"{other}_plain_ms": o["plain_ms"],
                         f"{other}_bound_ms": max(o["bytes_ms"], o["ops_ms"]),
                         f"{other}_library_ms": o["library_ms"] or None})
+        if k in serves:
+            row["serves"] = serves[k]
         kernels.append(row)
     r = RESULTS["K8"]
     kernels.append({
@@ -2220,7 +2387,8 @@ def main() -> None:
         json.dump({"card": card, "torch": torch.__version__, "build_s": build_s,
                    "kernels": kernels,
                    "mapped": mapped, "yardsticks": YARDSTICKS, "cases": DETAIL,
-                   "slice": RESULTS.get("slice"), "train": RESULTS.get("train"),
+                   "slice": RESULTS.get("slice"), "slice_b128": RESULTS.get("slice_b128"),
+                   "train": RESULTS.get("train"),
                    "trainer": RESULTS.get("trainer"),
                    "detector_fp32": RESULTS.get("detector_fp32"),
                    "detector_bf16": RESULTS.get("detector_bf16"),

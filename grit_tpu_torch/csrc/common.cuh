@@ -61,4 +61,26 @@ __device__ __forceinline__ size_t win_row_to_token(const WinMap& m, int r, bool*
   return ((size_t)b * m.Hp + y) * m.Wp + x;
 }
 
+// The GEMMs' epilogues (swin_block.cu, gemm_sm90.cu): out = epilogue(A W^T).
+enum { EPI_BIAS = 0, EPI_GELU = 1, EPI_RESID = 2, EPI_RESID_MAP = 3, EPI_MAP = 4 };
+
+struct Epi {
+  const void* bias;    // storage type; [N], or null for none
+  void* out;
+  const void* resid;   // storage type; [M, N] (EPI_RESID) or the map (EPI_RESID_MAP)
+  int mode;
+  float scale;         // EPI_BIAS: multiplies columns < scale_cols
+  int scale_cols;
+  WinMap map;          // EPI_RESID_MAP, EPI_MAP, a_gather: row -> map token, pad flag
+  int a_gather;        // A's row r is read from map token win_row_to_token(r)
+};
+
+// bf16 launchers of the Hopper kernels (gemm_sm90.cu, window_attn_mma.cu);
+// each returns a cudaError_t.
+int launch_gemm_bf16(const bf16* A, const bf16* W, int M, int N, int K, const Epi& e,
+                     cudaStream_t st);
+int launch_win_attn_bf16(const bf16* q, const bf16* k, const bf16* v, size_t ld, float qscale,
+                         const float* table, const float* dense, int dense_windows, bf16* out,
+                         int num_windows, int C, int heads, WinMap m, cudaStream_t st);
+
 }  // namespace grit

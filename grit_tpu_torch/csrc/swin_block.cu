@@ -12,8 +12,9 @@
 //      the window padding folded into the load address; pad tokens are zero
 //      before the statistics and after the affine.
 //   2. gemm (EPI_BIAS): qkv = xn W^T + b, q columns scaled by d^-1/2.
-//   3. win_attn: one block per (window, head); K and V of the window in
-//      shared memory, an exact f32 row max and softmax per query row, with
+//   3. the attention core (bf16: window_attn_mma.cu, a window and two heads
+//      a block on mma.sync tiles; fp32: win_attn_f32_kernel, one block per
+//      (window, head)): an exact f32 row max and softmax per query row, with
 //      the relative-position bias read from its [(2w-1)^2, heads] table and
 //      the shifted-window region derived from token coordinates (neither
 //      [nW, h, N, N] tensor is ever materialised).
@@ -55,31 +56,18 @@
 // K10b replaces ::_ln_kernel (through fused_layernorm; the patch-embed norm):
 // ln_rows in row mode, one pass, one warp a row.  Both are memory passes.
 //
-// What bounds them on an H100: the GEMMs are tensor-core work (bf16 in, f32
-// accumulate via WMMA 16x16x16 tiles; fp32 parity runs use a SIMT FMA tile),
-// the attention core is shared-memory FMA work over 144 x 144 scores per
-// (window, head) at d = 32, and LN is a memory pass.  This first version
-// writes every intermediate (xn, qkv, the attention output, the 4C-wide MLP
-// hidden) to device memory and reads it back; keeping them on chip, as the
-// TPU kernels keep them in VMEM, is later work.
-#include <mma.h>
-
+// What bounds them on an H100: the GEMMs are tensor-core work and the
+// attention core a memory pass; in bf16 both run on kernels designed for
+// Hopper, in their own files: the GEMM on TMA + an mbarrier ring + wgmma
+// (gemm_sm90.cu), the attention core on mma.sync tiles with the softmax in
+// registers (window_attn_mma.cu).  The fp32 parity path keeps the SIMT FMA
+// GEMM tile and the SIMT attention core below.  LN is a memory pass.  Every
+// intermediate (xn, qkv, the attention output, the 4C-wide MLP hidden) goes
+// to device memory and back; keeping them on chip, as the TPU kernels keep
+// them in VMEM, is later work.
 #include "common.cuh"
 
 namespace grit {
-
-enum { EPI_BIAS = 0, EPI_GELU = 1, EPI_RESID = 2, EPI_RESID_MAP = 3, EPI_MAP = 4 };
-
-struct Epi {
-  const void* bias;    // storage type; [N], or null for none
-  void* out;
-  const void* resid;   // storage type; [M, N] (EPI_RESID) or the map (EPI_RESID_MAP)
-  int mode;
-  float scale;         // EPI_BIAS: multiplies columns < scale_cols
-  int scale_cols;
-  WinMap map;          // EPI_RESID_MAP, EPI_MAP, a_gather: row -> map token, pad flag
-  int a_gather;        // A's row r is read from map token win_row_to_token(r)
-};
 
 __device__ __forceinline__ size_t a_row(const Epi& e, int row) {
   bool pad;
@@ -188,85 +176,9 @@ __global__ void __launch_bounds__(256) ln_merge_kernel(
 
 // ---------------------------------------------------------------------------
 // out = epilogue(A W^T): A [M, K] row-major, W [N, K] (torch Linear layout).
-// bf16: 128 x 64 block tile, 8 warps of 32 x 32 (2 x 2 WMMA fragments), K
-// steps of 32 through shared memory; the f32 accumulator tile is staged in
-// shared memory (aliasing the A/B tiles) for a coalesced epilogue.
-// ---------------------------------------------------------------------------
-namespace wm = nvcuda::wmma;
-
-constexpr int GB_M = 128, GB_N = 64, GB_K = 32, GB_LD = GB_K + 8, GB_CLD = GB_N + 4;
-constexpr int GB_SMEM_AB = (GB_M + GB_N) * GB_LD * 2;
-constexpr int GB_SMEM_C = GB_M * GB_CLD * 4;
-constexpr int GB_SMEM = GB_SMEM_C > GB_SMEM_AB ? GB_SMEM_C : GB_SMEM_AB;
-
-__global__ void __launch_bounds__(256) gemm_bf16_kernel(
-    const bf16* __restrict__ A, const bf16* __restrict__ W, int M, int N, int K, Epi e) {
-  __shared__ __align__(128) unsigned char smem[GB_SMEM];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Ws = As + GB_M * GB_LD;
-  float* Cs = reinterpret_cast<float*>(smem);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wrow = (warp >> 1) * 32, wcol = (warp & 1) * 32;
-  const int m0 = blockIdx.x * GB_M, n0 = blockIdx.y * GB_N;
-
-  wm::fragment<wm::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wm::fill_fragment(acc[i][j], 0.0f);
-
-  size_t arow[GB_M * 4 / 256];  // this thread's A rows, fixed over the K loop
-#pragma unroll
-  for (int it = 0; it < GB_M * 4 / 256; ++it) {
-    const int r = (tid + it * 256) >> 2;
-    arow[it] = m0 + r < M ? a_row(e, m0 + r) : 0;
-  }
-
-  for (int k0 = 0; k0 < K; k0 += GB_K) {
-#pragma unroll
-    for (int it = 0; it < GB_M * 4 / 256; ++it) {
-      const int c = tid + it * 256;
-      const int r = c >> 2, kc = (c & 3) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M) v = *reinterpret_cast<const uint4*>(A + arow[it] * K + k0 + kc);
-      *reinterpret_cast<uint4*>(As + r * GB_LD + kc) = v;
-    }
-    for (int c = tid; c < GB_N * 4; c += 256) {
-      const int r = c >> 2, kc = (c & 3) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (n0 + r < N) v = *reinterpret_cast<const uint4*>(W + (size_t)(n0 + r) * K + k0 + kc);
-      *reinterpret_cast<uint4*>(Ws + r * GB_LD + kc) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GB_K; kk += 16) {
-      wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> a[2];
-      wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major> bfr[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wm::load_matrix_sync(a[i], As + (wrow + i * 16) * GB_LD + kk, GB_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wm::load_matrix_sync(bfr[j], Ws + (wcol + j * 16) * GB_LD + kk, GB_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wm::mma_sync(acc[i][j], a[i], bfr[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wm::store_matrix_sync(Cs + (wrow + i * 16) * GB_CLD + wcol + j * 16, acc[i][j], GB_CLD,
-                            wm::mem_row_major);
-  __syncthreads();
-  for (int idx = tid; idx < GB_M * GB_N; idx += 256) {
-    const int r = idx / GB_N, c = idx - r * GB_N;
-    if (m0 + r < M && n0 + c < N) epi_store<bf16>(e, m0 + r, n0 + c, N, Cs[r * GB_CLD + c]);
-  }
-}
-
 // fp32 (parity path): 64 x 64 block tile, 4 x 4 outputs per thread, SIMT FMA.
+// (bf16: gemm_sm90.cu.)
+// ---------------------------------------------------------------------------
 constexpr int GF_M = 64, GF_N = 64, GF_K = 16;
 
 __global__ void __launch_bounds__(256) gemm_f32_kernel(
@@ -324,9 +236,10 @@ __global__ void __launch_bounds__(256) gemm_f32_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Window attention core.  qkv: [B*nW*N, 3C] window-partitioned rows (q
-// already scaled); out: [B*nW*N, C].  One block per (window, head), 8 warps,
-// one query row per warp at a time; d = 32 = one lane per head channel.
+// Window attention core, fp32 (parity path; bf16: window_attn_mma.cu).  qkv:
+// [B*nW*N, 3C] window-partitioned rows (q already scaled); out: [B*nW*N, C].
+// One block per (window, head), 8 warps, one query row per warp at a time;
+// d = 32 = one lane per head channel.  score_row is K5's too.
 // ---------------------------------------------------------------------------
 constexpr int WA_D = 32, WA_WARPS = 8, WA_MAXT = 8;  // N <= 32 * WA_MAXT
 
@@ -365,14 +278,13 @@ __device__ __forceinline__ float score_row(
 }
 
 // q, k, v: rows of stride ld (the three column blocks of one qkv tensor, or
-// three tensors); qscale multiplies q before it is rounded to the storage
-// type (1 where the projection scaled it already); dense: null, or the K8
+// three tensors); qscale multiplies q (1 where the projection scaled it
+// already); dense: null, or the K8
 // bias f32 [dense_windows, heads, N, N], window wi reading slice wi % dense_windows.
-template <typename T>
-__global__ void __launch_bounds__(256) win_attn_kernel(
-    const T* __restrict__ qp, const T* __restrict__ kp, const T* __restrict__ vp, size_t ld,
-    float qscale, const float* __restrict__ table, const float* __restrict__ dense,
-    int dense_windows, T* __restrict__ out, int C, int heads, WinMap m) {
+__global__ void __launch_bounds__(256) win_attn_f32_kernel(
+    const float* __restrict__ qp, const float* __restrict__ kp, const float* __restrict__ vp,
+    size_t ld, float qscale, const float* __restrict__ table, const float* __restrict__ dense,
+    int dense_windows, float* __restrict__ out, int C, int heads, WinMap m) {
   extern __shared__ float sm[];
   const int win = m.win, n = win * win;
   float* Ks = sm;                       // n x (D + 1)
@@ -389,8 +301,8 @@ __global__ void __launch_bounds__(256) win_attn_kernel(
   for (int idx = tid; idx < n * WA_D; idx += blockDim.x) {
     const int j = idx / WA_D, dd = idx - (idx / WA_D) * WA_D;
     const size_t off = (row0 + j) * ld + h * WA_D + dd;
-    Ks[j * (WA_D + 1) + dd] = to_f<T>(kp[off]);
-    Vs[j * WA_D + dd] = to_f<T>(vp[off]);
+    Ks[j * (WA_D + 1) + dd] = kp[off];
+    Vs[j * WA_D + dd] = vp[off];
   }
   if (m.shift > 0) {
     // shifted-window regions on the rolled padded grid: rows [0, Hp - w),
@@ -409,7 +321,7 @@ __global__ void __launch_bounds__(256) win_attn_kernel(
   float* q = Qw + warp * WA_D;
   float* p = Pw + warp * n;
   for (int i = warp; i < n; i += WA_WARPS) {
-    q[lane] = to_f<T>(from_f<T>(to_f<T>(qp[(row0 + i) * ld + h * WA_D + lane]) * qscale));
+    q[lane] = qp[(row0 + i) * ld + h * WA_D + lane] * qscale;
     __syncwarp();
     float s[WA_MAXT];
     const float mx = score_row<WA_MAXT>(q, Ks, WA_D + 1, table, dense_w ? dense_w + i * n : nullptr,
@@ -426,12 +338,12 @@ __global__ void __launch_bounds__(256) win_attn_kernel(
 #pragma unroll
     for (int t = 0; t < WA_MAXT; ++t) {
       const int j = lane + 32 * t;
-      if (j < n) p[j] = to_f<T>(from_f<T>(s[t] / sum));  // p in the storage type, as on the TPU
+      if (j < n) p[j] = s[t] / sum;
     }
     __syncwarp();
     float o = 0.0f;
     for (int j = 0; j < n; ++j) o = fmaf(p[j], Vs[j * WA_D + lane], o);
-    out[(row0 + i) * C + h * WA_D + lane] = from_f<T>(o);
+    out[(row0 + i) * C + h * WA_D + lane] = o;
     __syncwarp();
   }
 }
@@ -447,7 +359,8 @@ __global__ void __launch_bounds__(256) win_attn_kernel(
 constexpr int WB_LD = WA_D + 1, WB_WARPS = 18;
 
 // q, k, v and their gradients dq, dk, dv: rows of stride ld (column blocks of
-// one tensor, or three tensors); qscale and dense as in win_attn_kernel.
+// one tensor, or three tensors); qscale and dense as in win_attn_f32_kernel
+// (q rounded to the storage type after the scale).
 template <typename T>
 __global__ void __launch_bounds__(32 * WB_WARPS) win_attn_bwd_kernel(
     const T* __restrict__ qp, const T* __restrict__ kp, const T* __restrict__ vp,
@@ -614,24 +527,37 @@ int launch_ln(const void* x, const void* g, const void* b, void* out, int rows, 
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_win_attn(const void* q, const void* k, const void* v, size_t ld, float qscale,
-                    const void* table, const void* dense, int dense_windows, void* out,
-                    int num_windows, int C, int heads, WinMap m, cudaStream_t st) {
+int launch_win_attn_f32(const void* q, const void* k, const void* v, size_t ld, float qscale,
+                        const void* table, const void* dense, int dense_windows, void* out,
+                        int num_windows, int C, int heads, WinMap m, cudaStream_t st) {
   const int n = m.win * m.win;
   const size_t smem = (size_t)(n * (WA_D + 1) + n * WA_D + WA_WARPS * WA_D + WA_WARPS * n) * 4 +
                       (size_t)n * 4;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        win_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        win_attn_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid(num_windows, heads);
-  win_attn_kernel<T><<<grid, 32 * WA_WARPS, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), ld, qscale,
-      static_cast<const float*>(table), static_cast<const float*>(dense), dense_windows,
-      static_cast<T*>(out), C, heads, m);
+  win_attn_f32_kernel<<<grid, 32 * WA_WARPS, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), ld,
+      qscale, static_cast<const float*>(table), static_cast<const float*>(dense), dense_windows,
+      static_cast<float*>(out), C, heads, m);
   return (int)cudaGetLastError();
+}
+
+// the attention core in the storage type of `dtype` (1: bf16, on the tensor cores)
+int launch_win_attn(int dtype, const void* q, const void* k, const void* v, size_t ld,
+                    float qscale, const void* table, const void* dense, int dense_windows,
+                    void* out, int num_windows, int C, int heads, WinMap m, cudaStream_t st) {
+  if (dtype == 1)
+    return launch_win_attn_bf16(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                static_cast<const bf16*>(v), ld, qscale,
+                                static_cast<const float*>(table), static_cast<const float*>(dense),
+                                dense_windows, static_cast<bf16*>(out), num_windows, C, heads, m,
+                                st);
+  return launch_win_attn_f32(q, k, v, ld, qscale, table, dense, dense_windows, out, num_windows, C,
+                             heads, m, st);
 }
 
 template <typename T>
@@ -667,9 +593,10 @@ int grit_ln_rows(const void* x, const void* g, const void* b, void* out, int row
 }
 
 // out = epilogue(A [M, K] @ W[N, K]^T); bias [N] in the storage type, as
-// flax's Dense casts it.  bf16 needs K % 32 == 0, fp32 K % 16 == 0; both
-// N % 64 == 0 (checked by the Python wrapper).  With a_gather, A is the map and
-// row r of the product reads map token win_row_to_token(r).
+// flax's Dense casts it.  bf16 needs N % 128 == 0 and K % 64 == 0 (gemm_sm90.cu),
+// fp32 N % 64 == 0 and K % 16 == 0 (checked by the Python wrappers).  With
+// a_gather, A is the map and row r of the product reads map token
+// win_row_to_token(r).
 int grit_gemm(const void* A, const void* W, const void* bias, void* out, const void* resid,
               int M, int N, int K, int mode, float scale, int scale_cols, int Hp, int Wp,
               int win, int shift, int real_h, int real_w, int a_gather, int dtype,
@@ -677,15 +604,12 @@ int grit_gemm(const void* A, const void* W, const void* bias, void* out, const v
   Epi e{bias, out, resid, mode, scale, scale_cols,
         WinMap{Hp, Wp, win, shift, real_h, real_w}, a_gather};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    dim3 grid((M + GB_M - 1) / GB_M, (N + GB_N - 1) / GB_N);
-    gemm_bf16_kernel<<<grid, 256, 0, st>>>(static_cast<const bf16*>(A),
-                                          static_cast<const bf16*>(W), M, N, K, e);
-  } else {
-    dim3 grid((M + GF_M - 1) / GF_M, (N + GF_N - 1) / GF_N);
-    gemm_f32_kernel<<<grid, 256, 0, st>>>(static_cast<const float*>(A),
-                                         static_cast<const float*>(W), M, N, K, e);
-  }
+  if (dtype == 1)
+    return launch_gemm_bf16(static_cast<const bf16*>(A), static_cast<const bf16*>(W), M, N, K, e,
+                            st);
+  dim3 grid((M + GF_M - 1) / GF_M, (N + GF_N - 1) / GF_N);
+  gemm_f32_kernel<<<grid, 256, 0, st>>>(static_cast<const float*>(A),
+                                       static_cast<const float*>(W), M, N, K, e);
   return (int)cudaGetLastError();
 }
 
@@ -696,10 +620,10 @@ int grit_window_attn(const void* qkv, const void* table, void* out, int num_wind
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t ld = 3 * (size_t)C;
   if (dtype == 1)
-    return launch_win_attn<bf16>(qkv, col_block<bf16>(qkv, C, 1), col_block<bf16>(qkv, C, 2), ld,
-                                 1.0f, table, nullptr, 1, out, num_windows, C, heads, m, st);
-  return launch_win_attn<float>(qkv, col_block<float>(qkv, C, 1), col_block<float>(qkv, C, 2), ld,
-                                1.0f, table, nullptr, 1, out, num_windows, C, heads, m, st);
+    return launch_win_attn(dtype, qkv, col_block<bf16>(qkv, C, 1), col_block<bf16>(qkv, C, 2), ld,
+                           1.0f, table, nullptr, 1, out, num_windows, C, heads, m, st);
+  return launch_win_attn(dtype, qkv, col_block<float>(qkv, C, 1), col_block<float>(qkv, C, 2), ld,
+                         1.0f, table, nullptr, 1, out, num_windows, C, heads, m, st);
 }
 
 // K5 (see win_attn_bwd_kernel): qkv, dqkv [batch * nW * win^2, 3C]; dout [.., C];
@@ -727,12 +651,8 @@ int grit_window_attn_dense(const void* q, const void* k, const void* v, const vo
                            void* out, int batch, int nW, int win, int C, int heads,
                            int bias_windows, float scale, int dtype, void* stream) {
   WinMap m{win, win * nW, win, 0, win, win * nW};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_win_attn<bf16>(q, k, v, (size_t)C, scale, nullptr, bias, bias_windows, out,
-                                 batch * nW, C, heads, m, st);
-  return launch_win_attn<float>(q, k, v, (size_t)C, scale, nullptr, bias, bias_windows, out,
-                                batch * nW, C, heads, m, st);
+  return launch_win_attn(dtype, q, k, v, (size_t)C, scale, nullptr, bias, bias_windows, out,
+                         batch * nW, C, heads, m, static_cast<cudaStream_t>(stream));
 }
 
 // K8 backward: dq, dk, dv as q; dbias f32 [nW, heads, win^2, win^2], dS summed
@@ -753,7 +673,7 @@ int grit_window_attn_dense_bwd(const void* q, const void* k, const void* v, cons
 // K10a: out [rows, N] = LN(rows of x) W^T, W [N, K] in the storage type, g, b f32
 // [K]; xn [rows, K] is scratch.  merge = 1: x is the map [B, H, W, K / 4] and
 // row (b, y2, x2) its 2x2 neighbourhood (rows = B ceil(H/2) ceil(W/2)); merge = 0:
-// x is [rows, K].  bf16 needs K % 32 == 0, fp32 K % 16 == 0; both N % 64 == 0.
+// x is [rows, K].  The GEMM's shape rules hold (grit_gemm).
 int grit_ln_linear(const void* x, const void* g, const void* b, const void* w, void* xn,
                    void* out, int rows, int N, int K, int merge, int H, int W, float eps,
                    int dtype, void* stream) {

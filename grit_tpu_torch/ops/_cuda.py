@@ -1,8 +1,8 @@
 """Build and load the hand-written Hopper kernels (``grit_tpu_torch/csrc``).
 
-The CUDA sources compile with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded through ``ctypes`` (``--threads 0``
-lets nvcc compile the sources side by side).  The build runs at first use,
+The CUDA sources compile with ``nvcc`` for ``sm_90a``, one ``nvcc`` a source,
+all started together, and link into one shared library with a plain C
+interface, loaded through ``ctypes``.  The build runs at first use,
 from the package's own sources, into ``grit_tpu_torch/_build/`` (git-ignored),
 keyed by a hash of the sources and flags, so a fresh checkout builds itself
 and an edited source rebuilds.  Nothing here runs at import time: the CPU
@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--threads", "0", "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -64,6 +64,40 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the Hopper kernels need the CUDA toolkit")
 
 
+def _build(srcs: list[Path], out: Path) -> None:
+    """Compile each ``.cu`` to an object in its own ``nvcc`` (all at once),
+    then link them.  Each compiler's messages go to ``<source>.log`` beside
+    the library."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in (p for p in srcs if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        log = open(BUILD_DIR / f"{src.stem}.log", "w")
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                                stdout=log, stderr=subprocess.STDOUT)
+        jobs.append((src, obj, log, proc))
+    failed = []
+    for src, _, log, proc in jobs:
+        proc.wait()
+        log.close()
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n"
+                          f"{(BUILD_DIR / f'{src.stem}.log').read_text()}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                               *[str(obj) for _, obj, _, _ in jobs]],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n{link.stderr}")
+    for _, obj, _, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    os.replace(tmp, out)
+
+
 def library() -> ctypes.CDLL:
     """The kernel library, built on first call."""
     global _lib
@@ -76,14 +110,7 @@ def library() -> ctypes.CDLL:
         h.update(p.read_bytes())
     out = BUILD_DIR / f"libgrit_kernels_{h.hexdigest()[:16]}.so"
     if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(p) for p in srcs if p.suffix == ".cu"]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, out)
+        _build(srcs, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

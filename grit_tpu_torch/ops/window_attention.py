@@ -16,6 +16,12 @@ accumulation, q scaled before rounding to the storage type, softmax
 probabilities rounded to the storage type before the value product,
 exact-erf GELU, residuals added in f32.
 
+Two kernels do most of the work inside them, each launched by one helper
+here: ``gemm`` (every product of K1, K2, K4 and K10a; bf16 on
+``csrc/gemm_sm90.cu``) and ``attention_core`` (the attention core of K1 and
+K4, and K8's forward; bf16 on ``csrc/window_attn_mma.cu``); ``gemm_plain``
+and ``attention_core_plain`` are their plain versions.
+
 ``window_attention`` replaces its ``_kernel`` and, for the gradient, its
 ``_bwd_kernel`` on a dense bias (via ``fused_window_attention``);
 ``ln_linear`` / ``patch_merge`` its ``_lnlin_kernel`` (via ``fused_ln_linear``)
@@ -45,14 +51,36 @@ from grit_tpu_torch.ops.window import (relative_position_index,
 
 LN_EPS = 1e-5
 
-#: Kernel launches per wrapper (one per call that reached the CUDA kernels).
+#: Kernel launches per wrapper (one per call that reached the CUDA kernels),
+#: and of the GEMM and the attention core inside them, by storage type.
 LAUNCHES = {"block_step": 0, "mlp": 0, "block_attention": 0, "window_attention_bwd": 0,
             "window_attention": 0, "window_attention_grad": 0, "ln_linear": 0,
-            "layernorm_rows": 0}
+            "layernorm_rows": 0, "gemm_bf16": 0, "gemm_f32": 0, "win_attn_bf16": 0,
+            "win_attn_f32": 0}
 
-_EPI_BIAS, _EPI_GELU, _EPI_RESID, _EPI_RESID_MAP, _EPI_MAP = 0, 1, 2, 3, 4
+#: the GEMM's epilogues (csrc/common.cuh)
+EPILOGUES = {"bias": 0, "gelu": 1, "resid": 2, "resid_map": 3, "map": 4}
+#: (N, K) multiples that the GEMM kernels tile: bf16's wgmma kernel takes
+#: 128-column output tiles and 64-deep K steps, fp32's SIMT tile 64 and 16
+GEMM_TILES = {torch.bfloat16: (128, 64), torch.float32: (64, 16)}
 #: K5 keeps Q, K, V, dO and an N x N matrix in shared memory (227 KB a block)
 _MAX_BWD_WINDOW = 13
+
+
+def _dtype_name(dt) -> str:
+    return "bf16" if dt == torch.bfloat16 else "f32"
+
+
+def check_gemm_shape(n_out: int, k_in: int, dtype, what: str = "gemm") -> None:
+    """Raise ``ValueError`` unless a product [M, k_in] x [n_out, k_in]^T in
+    ``dtype`` tiles the GEMM kernels (``GEMM_TILES``).  Every wrapper checks
+    each product it launches with this before it launches."""
+    if dtype not in GEMM_TILES:
+        raise ValueError(f"{what}: unsupported dtype {dtype}")
+    tn, tk = GEMM_TILES[dtype]
+    if n_out % tn or k_in % tk:
+        raise ValueError(f"{what}: a product of {k_in} -> {n_out} columns does not tile the "
+                         f"{_dtype_name(dtype)} GEMM (out % {tn}, in % {tk})")
 
 
 def _ln_fast(xf: torch.Tensor, w, b, eps: float) -> torch.Tensor:
@@ -101,6 +129,122 @@ def attention_core_plain(qkv, table, *, batch: int, hp: int, wp: int, num_heads:
         s = (s.reshape(batch, -1, num_heads, n, n) + mask[None, :, None]).reshape(s.shape)
     p = torch.softmax(s, dim=-1).to(dt).float()
     return (p @ heads(qkv[:, 2 * c:])).transpose(1, 2).reshape(-1, c).to(dt)
+
+
+def attention_core(qkv, table, *, batch: int, hp: int, wp: int, num_heads: int, window: int,
+                   shift: int = 0, out=None) -> torch.Tensor:
+    """One launch of the window-attention core (see ``attention_core_plain``)
+    on qkv [B*nW*N, 3C] in window order; ``out`` [B*nW*N, C] may be given.
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if qkv.device.type == "cpu":
+        return attention_core_plain(qkv, table, batch=batch, hp=hp, wp=wp,
+                                    num_heads=num_heads, window=window, shift=shift)
+    rows, c3 = qkv.shape
+    c = c3 // 3
+    dt = qkv.dtype
+    if dt not in _cuda.DTYPE_CODE:
+        raise ValueError(f"attention_core: unsupported dtype {dt}")
+    if c != 32 * num_heads:
+        raise ValueError(f"attention_core: head dim must be 32, got {c}/{num_heads}")
+    if hp % window or wp % window or window * window > 256 or rows != batch * hp * wp:
+        raise ValueError(f"attention_core: {rows} rows for {batch} maps of {hp}x{wp} in "
+                         f"windows of {window}")
+    _cuda.require(qkv, "qkv", dt, (rows, 3 * c))
+    _cuda.require(table, "table", torch.float32, ((2 * window - 1) ** 2, num_heads))
+    if out is None:
+        out = torch.empty((rows, c), dtype=dt, device=qkv.device)
+    _cuda.require(out, "out", dt, (rows, c))
+    _cuda.check(_cuda.library().grit_window_attn(
+        qkv.data_ptr(), table.data_ptr(), out.data_ptr(), rows // (window * window), c,
+        num_heads, hp, wp, window, shift, _cuda.DTYPE_CODE[dt], _cuda.stream()),
+        "attention_core")
+    LAUNCHES["win_attn_" + _dtype_name(dt)] += 1
+    return out
+
+
+def _window_tokens(rows: int, geo) -> torch.Tensor:
+    """The flat index in the unshifted map of the token of each window-order
+    row, for ``rows`` map tokens of geometry ``geo`` = (Hp, Wp, window,
+    shift, real_h, real_w)."""
+    hp, wp, window, shift = geo[:4]
+    return _to_windows(torch.arange(rows).reshape(-1, hp, wp, 1), window, shift).reshape(-1)
+
+
+def gemm_plain(a, w, bias=None, *, epilogue: str = "bias", scale: float = 1.0,
+               scale_cols: int = 0, resid=None, geo=None, gather: bool = False) -> torch.Tensor:
+    """Plain version of the Swin GEMM: out = epilogue(a w^T + bias), f32
+    accumulation and epilogue, one rounding to a's dtype.
+
+    a: rows [M, K], or with ``gather`` the map [B, Hp, Wp, K] read in window
+    order (row r from the token of window-order row r); w: [N, K]; bias: [N]
+    or None.  ``epilogue``: "bias" (columns < ``scale_cols`` times
+    ``scale``), "gelu" (exact erf), "resid" (+ ``resid`` [M, N]),
+    "resid_map" (window-order rows stored at their tokens of the map, + the
+    map ``resid`` at tokens that are not window padding) or "map" (stored at
+    their tokens).  ``geo``: (Hp, Wp, window, shift, real_h, real_w) of the
+    map for ``gather`` and the map epilogues, which return [B*Hp*Wp, N]."""
+    dt = a.dtype
+    if gather:
+        a = _to_windows(a, geo[2], geo[3])
+    y = F.linear(a.float(), w.float(), None if bias is None else bias.float())
+    if epilogue == "bias":
+        if scale_cols:
+            y[:, :scale_cols] *= scale
+    elif epilogue == "gelu":
+        y = y * 0.5 * (1.0 + torch.erf(y * 0.7071067811865476))
+    elif epilogue == "resid":
+        y = y + resid.float()
+    elif epilogue in ("resid_map", "map"):
+        y = torch.empty_like(y).index_copy_(0, _window_tokens(y.shape[0], geo).to(y.device), y)
+        if epilogue == "resid_map":
+            hp, wp, _, _, real_h, real_w = geo
+            t = torch.arange(y.shape[0], device=y.device)
+            pad = ((t // wp) % hp >= real_h) | (t % wp >= real_w)
+            y = y + resid.reshape(y.shape).float().masked_fill(pad[:, None], 0.0)
+    else:
+        raise ValueError(f"gemm: unknown epilogue {epilogue!r}")
+    return y.to(dt)
+
+
+def gemm(a, w, bias=None, *, epilogue: str = "bias", scale: float = 1.0, scale_cols: int = 0,
+         resid=None, geo=None, gather: bool = False, rows=None, out=None) -> torch.Tensor:
+    """One launch of the Swin GEMM (see ``gemm_plain``); ``rows``: M when
+    ``gather`` reads a map (its token count); ``out`` may be given.  CPU
+    tensors run the plain version; CUDA tensors launch the kernel or raise."""
+    if a.device.type == "cpu":
+        return gemm_plain(a, w, bias, epilogue=epilogue, scale=scale, scale_cols=scale_cols,
+                          resid=resid, geo=geo, gather=gather)
+    dt = a.dtype
+    n_out, k_in = w.shape
+    check_gemm_shape(n_out, k_in, dt)
+    m = a.numel() // k_in if rows is None else rows
+    if a.shape[-1] != k_in or a.numel() != m * k_in:
+        raise ValueError(f"gemm: A of shape {tuple(a.shape)} for {m} rows of {k_in}")
+    if (gather or epilogue in ("resid_map", "map")) and geo is None:
+        raise ValueError(f"gemm: {epilogue} / gather needs the map's geometry")
+    _cuda.require(a, "a", dt)
+    _cuda.require(w, "w", dt, (n_out, k_in))
+    if bias is not None:
+        _cuda.require(bias, "bias", dt, (n_out,))
+    if resid is not None:
+        _cuda.require(resid, "resid", dt)
+        if resid.numel() != m * n_out:
+            raise ValueError(f"gemm: residual of {resid.numel()} elements for {m} x {n_out}")
+    elif epilogue in ("resid", "resid_map"):
+        raise ValueError(f"gemm: epilogue {epilogue} needs a residual")
+    if out is None:
+        out = torch.empty((m, n_out), dtype=dt, device=a.device)
+    _cuda.require(out, "out", dt)
+    if out.numel() != m * n_out:
+        raise ValueError(f"gemm: output of {out.numel()} elements for {m} x {n_out}")
+    _cuda.check(_cuda.library().grit_gemm(
+        a.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
+        None if resid is None else resid.data_ptr(), m, n_out, k_in, EPILOGUES[epilogue],
+        scale, scale_cols, *(geo or (1, 1, 1, 0, 1, 1)), int(gather), _cuda.DTYPE_CODE[dt],
+        _cuda.stream()), f"gemm ({epilogue})")
+    LAUNCHES["gemm_" + _dtype_name(dt)] += 1
+    return out
 
 
 def block_step_plain(x, norm_w, norm_b, qkv_w, qkv_b, proj_w, proj_b, table, *,
@@ -156,8 +300,8 @@ def block_step(x, norm_w, norm_b, qkv_w, qkv_b, proj_w, proj_b, table, *,
         raise ValueError(f"block_step: head dim must be 32, got {c}/{num_heads}")
     if hp % window or wp % window or window * window > 256:
         raise ValueError(f"block_step: map {hp}x{wp} does not tile windows of {window}")
-    if c % 64:  # the GEMM tiles: N % 64, K % 32
-        raise ValueError(f"block_step: channels {c} not a multiple of 64")
+    check_gemm_shape(3 * c, c, dt, "block_step qkv")
+    check_gemm_shape(c, c, dt, "block_step proj")
     for t, name, t_dt, shape in (
             (x, "x", dt, None), (qkv_w, "qkv_w", dt, (3 * c, c)), (qkv_b, "qkv_b", dt, (3 * c,)),
             (proj_w, "proj_w", dt, (c, c)), (proj_b, "proj_b", dt, (c,)),
@@ -174,21 +318,12 @@ def block_step(x, norm_w, norm_b, qkv_w, qkv_b, proj_w, proj_b, table, *,
     _cuda.check(lib.grit_ln_rows(x.data_ptr(), norm_w.data_ptr(), norm_b.data_ptr(),
                                  xn.data_ptr(), rows, c, 1, *geo, eps, code, st),
                 "block_step ln1")
-    qkv = torch.empty((rows, 3 * c), dtype=dt, device=x.device)
-    _cuda.check(lib.grit_gemm(xn.data_ptr(), qkv_w.data_ptr(), qkv_b.data_ptr(),
-                              qkv.data_ptr(), None, rows, 3 * c, c, _EPI_BIAS,
-                              (c // num_heads) ** -0.5, c, *geo, 0, code, st),
-                "block_step qkv")
-    ao = xn  # same shape; xn is dead once qkv exists
-    _cuda.check(lib.grit_window_attn(qkv.data_ptr(), table.data_ptr(), ao.data_ptr(),
-                                     rows // (window * window), c, num_heads,
-                                     hp, wp, window, shift, code, st),
-                "block_step attention")
-    out = torch.empty_like(x)
-    _cuda.check(lib.grit_gemm(ao.data_ptr(), proj_w.data_ptr(), proj_b.data_ptr(),
-                              out.data_ptr(), x.data_ptr(), rows, c, c, _EPI_RESID_MAP,
-                              1.0, 0, *geo, 0, code, st),
-                "block_step proj")
+    qkv = gemm(xn, qkv_w, qkv_b, scale=(c // num_heads) ** -0.5, scale_cols=c)
+    # xn is dead once qkv exists: the attention output takes its place
+    ao = attention_core(qkv, table, batch=b, hp=hp, wp=wp, num_heads=num_heads,
+                        window=window, shift=shift, out=xn)
+    out = gemm(ao, proj_w, proj_b, epilogue="resid_map", resid=x, geo=geo,
+               out=torch.empty_like(x))
     LAUNCHES["block_step"] += 1
     return out
 
@@ -236,34 +371,20 @@ def _block_attention(x, qkv_w, qkv_b, proj_w, proj_b, table, *, num_heads: int, 
         raise ValueError(f"block_attention: head dim must be 32, got {c}/{num_heads}")
     if hp % window or wp % window or window * window > 256:
         raise ValueError(f"block_attention: map {hp}x{wp} does not tile windows of {window}")
-    if c % 64:  # the GEMM tiles: N % 64, K % 32
-        raise ValueError(f"block_attention: channels {c} not a multiple of 64")
+    check_gemm_shape(3 * c, c, dt, "block_attention qkv")
+    check_gemm_shape(c, c, dt, "block_attention proj")
     for t, name, t_dt, shape in (
             (x, "x", dt, None), (qkv_w, "qkv_w", dt, (3 * c, c)), (qkv_b, "qkv_b", dt, (3 * c,)),
             (proj_w, "proj_w", dt, (c, c)), (proj_b, "proj_b", dt, (c,)),
             (table, "table", torch.float32, ((2 * window - 1) ** 2, num_heads))):
         _cuda.require(t, name, t_dt, shape)
-    lib = _cuda.library()
-    code = _cuda.DTYPE_CODE[dt]
-    st = _cuda.stream()
     rows = b * hp * wp
     geo = (hp, wp, window, shift, hp, wp)   # no token is padding to this kernel
-
-    qkv = torch.empty((rows, 3 * c), dtype=dt, device=x.device)
-    _cuda.check(lib.grit_gemm(x.data_ptr(), qkv_w.data_ptr(), qkv_b.data_ptr(),
-                              qkv.data_ptr(), None, rows, 3 * c, c, _EPI_BIAS,
-                              (c // num_heads) ** -0.5, c, *geo, 1, code, st),
-                "block_attention qkv")
-    ao = torch.empty((rows, c), dtype=dt, device=x.device)
-    _cuda.check(lib.grit_window_attn(qkv.data_ptr(), table.data_ptr(), ao.data_ptr(),
-                                     rows // (window * window), c, num_heads,
-                                     hp, wp, window, shift, code, st),
-                "block_attention attention")
-    out = torch.empty_like(x)
-    _cuda.check(lib.grit_gemm(ao.data_ptr(), proj_w.data_ptr(), proj_b.data_ptr(),
-                              out.data_ptr(), None, rows, c, c, _EPI_MAP,
-                              1.0, 0, *geo, 0, code, st),
-                "block_attention proj")
+    qkv = gemm(x, qkv_w, qkv_b, scale=(c // num_heads) ** -0.5, scale_cols=c, geo=geo,
+               gather=True, rows=rows)
+    ao = attention_core(qkv, table, batch=b, hp=hp, wp=wp, num_heads=num_heads,
+                        window=window, shift=shift)
+    out = gemm(ao, proj_w, proj_b, epilogue="map", geo=geo, out=torch.empty_like(x))
     LAUNCHES["block_attention"] += 1
     return out, ao, qkv
 
@@ -423,8 +544,8 @@ def _mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, eps: float, residual: bo
     dt = x.dtype
     if dt not in _cuda.DTYPE_CODE:
         raise ValueError(f"mlp: unsupported dtype {dt}")
-    if c % 64 or hid % 64:
-        raise ValueError(f"mlp: widths {c}/{hid} not multiples of 64")
+    check_gemm_shape(hid, c, dt, "mlp fc1")
+    check_gemm_shape(c, hid, dt, "mlp fc2")
     for t, name, t_dt, shape in (
             (x, "x", dt, None), (fc1_w, "fc1_w", dt, (hid, c)), (fc1_b, "fc1_b", dt, (hid,)),
             (fc2_w, "fc2_w", dt, (c, hid)), (fc2_b, "fc2_b", dt, (c,)),
@@ -438,16 +559,9 @@ def _mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, eps: float, residual: bo
     _cuda.check(lib.grit_ln_rows(x.data_ptr(), norm_w.data_ptr(), norm_b.data_ptr(),
                                  xn.data_ptr(), rows, c, 0, *geo, eps, code, st),
                 "mlp ln2")
-    h = torch.empty((rows, hid), dtype=dt, device=x.device)
-    _cuda.check(lib.grit_gemm(xn.data_ptr(), fc1_w.data_ptr(), fc1_b.data_ptr(),
-                              h.data_ptr(), None, rows, hid, c, _EPI_GELU, 1.0, 0,
-                              *geo, 0, code, st),
-                "mlp fc1")
-    out = torch.empty_like(x)
-    _cuda.check(lib.grit_gemm(h.data_ptr(), fc2_w.data_ptr(), fc2_b.data_ptr(),
-                              out.data_ptr(), x.data_ptr() if residual else None, rows, c, hid,
-                              _EPI_RESID if residual else _EPI_BIAS, 1.0, 0, *geo, 0, code, st),
-                "mlp fc2")
+    h = gemm(xn, fc1_w, fc1_b, epilogue="gelu")
+    out = gemm(h, fc2_w, fc2_b, epilogue="resid" if residual else "bias",
+               resid=x if residual else None)
     LAUNCHES["mlp"] += 1
     return out
 
@@ -542,6 +656,7 @@ class _WindowAttentionFn(torch.autograd.Function):
             b, nw, win, c, num_heads, bias.shape[0], scale, _cuda.DTYPE_CODE[q.dtype],
             _cuda.stream()), "window_attention")
         LAUNCHES["window_attention"] += 1
+        LAUNCHES["win_attn_" + _dtype_name(q.dtype)] += 1
         return out
 
     @staticmethod
@@ -629,8 +744,7 @@ def _ln_linear(x, norm_w, norm_b, w, eps: float, merge: bool) -> torch.Tensor:
     n_out, k_in = w.shape
     if dt not in _cuda.DTYPE_CODE:
         raise ValueError(f"ln_linear: unsupported dtype {dt}")
-    if n_out % 64 or k_in % 32:   # the GEMM tiles
-        raise ValueError(f"ln_linear: widths {k_in} -> {n_out} do not tile (in % 32, out % 64)")
+    check_gemm_shape(n_out, k_in, dt, "ln_linear")
     if merge:
         b, h, wd, c = x.shape
         if 4 * c != k_in:
@@ -654,6 +768,7 @@ def _ln_linear(x, norm_w, norm_b, w, eps: float, merge: bool) -> torch.Tensor:
         out.data_ptr(), rows, n_out, k_in, int(merge), *hw, eps, _cuda.DTYPE_CODE[dt],
         _cuda.stream()), "ln_linear")
     LAUNCHES["ln_linear"] += 1
+    LAUNCHES["gemm_" + _dtype_name(dt)] += 1   # the product inside grit_ln_linear
     return out
 
 

@@ -15,7 +15,18 @@ chip_smoke.py.
 
 Tolerances: fp32 on both sides; the differences are summation order and
 LN's rsqrt, so 1e-5 absolute on O(1) values (2e-5 for MSDA, whose reference
-sums corners and points in another order).
+sums corners and points in another order).  The bf16 cases of the attention
+core pin its rounding points (q after the scale, P before the value
+product), which the Hopper kernel keeps: at most 1% of the outputs may differ
+from the Pallas body, each by at most one bf16 ulp (only an f32 summation
+order can flip a rounding), where dropping either rounding point changes
+~40% of them.
+
+The one-launch helpers that chip_smoke.py times on the card (``gemm``,
+``attention_core``) run their plain versions here, and those compose to
+K1's, K2's and K4's plain versions exactly; every GEMM shape of the shipped
+Swin-B configurations passes the shape guard the wrappers check before a
+launch.
 """
 
 from unittest import mock
@@ -27,6 +38,8 @@ import torch
 from jax.experimental import pallas as pl
 
 from grit_tpu.models import swin as jswin
+from grit_tpu_torch.config import default_caption_config, default_detection_config
+from grit_tpu_torch.models.swin import BACKBONES
 from grit_tpu.ops import msda_pallas as jmp
 
 from grit_tpu.ops import msda as jmsda
@@ -281,3 +294,143 @@ def test_msda_serves_the_first_generation_kernels(body, monkeypatch):
             ref = jmp.ms_deform_attn_pallas(jnp.asarray(value), shapes, loc, attn)
     out = tmsda.msda(_t(value.reshape(n, s, m * d)), shapes, _t(loc), _t(attn), _t(real_hw))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 attention core's rounding points; the GEMM's shape guard; the
+# one-launch helpers' plain versions
+# ---------------------------------------------------------------------------
+
+def _bf16(a):
+    """numpy f32 -> (the same values rounded to bf16 as jnp, as torch)."""
+    j = jnp.asarray(a, jnp.bfloat16)
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("bias_kind", ["dense bias (K8)", "table and shift (K1, K4)"])
+def test_attention_core_plain_bf16_matches_jax_kernel(bias_kind):
+    """bf16: the core's plain version against the Pallas ``_kernel`` in
+    interpret mode, which rounds q after its scale and P before the value
+    product as the Hopper kernel does.  K8's ``window_attention_plain`` on a
+    dense bias; ``attention_core_plain`` (q pre-scaled, the bias from its
+    table and the shifted-window mask) against the body fed that bias as a
+    dense tensor and scale 1."""
+    rng = np.random.default_rng(10)
+    b, hp, wp, heads, d, win, shift = 2, 12, 18, 2, 16, 6, 3
+    n, nw, c = win * win, (hp // win) * (wp // win), heads * d
+    f = _f(rng)
+    if bias_kind.startswith("dense"):
+        q, k, v = (f(b, nw, n, c) for _ in range(3))
+        bias, scale = f(nw, heads, n, n), 0.3
+        (jq, tq), (jk, tk), (jv, tv) = _bf16(q), _bf16(k), _bf16(v)
+        out = twa.window_attention_plain(tq, tk, tv, _t(bias), scale, heads).float().numpy()
+    else:
+        qkv = f(b * nw * n, 3 * c)
+        qkv[:, :c] *= d ** -0.5
+        table = f((2 * win - 1) ** 2, heads)
+        jqkv, tqkv = _bf16(qkv)
+        out = twa.attention_core_plain(tqkv, _t(table), batch=b, hp=hp, wp=wp, num_heads=heads,
+                                       window=win, shift=shift).float().numpy()
+        out = out.reshape(b, nw, n, c)
+        jq, jk, jv = (jqkv[:, i * c:(i + 1) * c].reshape(b, nw, n, c) for i in range(3))
+        bias = table[jwin.relative_position_index((win, win)).reshape(-1)]
+        bias = bias.reshape(n, n, heads).transpose(2, 0, 1)[None]
+        bias = bias + jwin.shifted_window_mask(hp, wp, win, shift)[:, None]
+        scale = 1.0
+    with interpret(jwa):
+        ref = jwa.fused_window_attention(jq, jk, jv, jnp.asarray(bias), scale, heads)
+    ref = np.asarray(ref.astype(jnp.float32)).reshape(out.shape)
+    ulp = 2.0 ** -7 * np.abs(ref).max()          # one bf16 ulp at the largest output
+    assert np.mean(out != ref) <= 0.01
+    np.testing.assert_allclose(out, ref, atol=ulp, rtol=0)
+
+
+def _swin_products(config) -> list[tuple[str, int, int]]:
+    """(name, N, K) of every product of the config's Swin backbone: qkv,
+    proj, fc1 and fc2 of each stage's blocks and its PatchMerging reduction."""
+    bb = BACKBONES[config.model.backbone]
+    depths, c0 = bb["depths"], bb["embed_dim"]
+    outs = [c0 * 2 ** i for i in range(1, len(depths))] + [bb["pos_dim"]]
+    prods = []
+    for i in range(len(depths)):
+        c = c0 * 2 ** i
+        prods += [(f"stage{i + 1} qkv", 3 * c, c), (f"stage{i + 1} proj", c, c),
+                  (f"stage{i + 1} fc1", 4 * c, c), (f"stage{i + 1} fc2", c, 4 * c),
+                  (f"stage{i + 1} merge", outs[i], 4 * c)]
+    return prods
+
+
+@pytest.mark.parametrize("which", ["caption 384x640", "detection 832x1344"])
+def test_every_shipped_swin_product_passes_the_gemm_guard(which):
+    """Every GEMM that the shipped Swin-B configurations give (at their own
+    image sizes) tiles the bf16 wgmma kernel and the fp32 one, so no
+    main-path shape first meets the guard on the card."""
+    if which.startswith("caption"):
+        config = default_caption_config()
+        hw = tuple(config.dataset.transform_cfg.size)
+    else:
+        config = default_detection_config()
+        hw = tuple(config.dataset.fixed_bucket)
+    assert f"{hw[0]}x{hw[1]}" in which
+    prods = _swin_products(config)
+    assert len(prods) == 5 * len(BACKBONES[config.model.backbone]["depths"])
+    for name, n_out, k_in in prods:
+        for dtype in (torch.bfloat16, torch.float32):
+            twa.check_gemm_shape(n_out, k_in, dtype, name)
+
+
+@pytest.mark.parametrize("n_out,k_in,dtype", [(96, 128, torch.bfloat16), (384, 96, torch.bfloat16),
+                                              (200, 64, torch.float32),
+                                              (128, 128, torch.float16)])
+def test_gemm_guard_refuses_shapes_that_do_not_tile(n_out, k_in, dtype):
+    with pytest.raises(ValueError):
+        twa.check_gemm_shape(n_out, k_in, dtype)
+
+
+@pytest.mark.parametrize("case", ["K1 shift=0", "K1 shift=3", "K4 shift=0", "K4 shift=3",
+                                  "K2 residual", "K2 branch"])
+def test_one_launch_helpers_compose_to_the_block_plain_versions(case):
+    """``gemm`` and ``attention_core`` (their plain versions on the CPU),
+    launched as the CUDA paths of K1, K4 and K2 launch them, give the whole
+    functions' plain versions exactly."""
+    f = _f(np.random.default_rng(11))
+    if case.startswith("K2"):
+        residual = case.endswith("residual")
+        rows, c = 50, 32
+        x, lw, lb = _t(f(rows, c)), _t(1 + f(c, sc=0.1)), _t(f(c, sc=0.1))
+        w1, b1, w2, b2 = (_t(f(4 * c, c, sc=c ** -0.5)), _t(f(4 * c, sc=0.1)),
+                          _t(f(c, 4 * c, sc=0.5 / c)), _t(f(c)))
+        h = twa.gemm(twa._ln_fast(x, lw, lb, 1e-5), w1, b1, epilogue="gelu")
+        out = twa.gemm(h, w2, b2, epilogue="resid" if residual else "bias",
+                       resid=x if residual else None)
+        ref = twa.mlp_plain(x, lw, lb, w1, b1, w2, b2, residual=residual)
+        np.testing.assert_array_equal(out.numpy(), ref.numpy())
+        return
+    shift = int(case.split("=")[1])
+    b, hp, wp, c, heads, win, real = 2, 12, 18, 16, 2, 6, (10, 14)
+    p = {k: _t(v) for k, v in _block_inputs(12, b, hp, wp, c, heads, win, real).items()}
+    qs = dict(scale=(c // heads) ** -0.5, scale_cols=c)
+    core = dict(batch=b, hp=hp, wp=wp, num_heads=heads, window=win, shift=shift)
+    if case.startswith("K1"):
+        xs = torch.roll(p["x"], (-shift, -shift), (1, 2)) if shift else p["x"]
+        pad = twa._pad_mask(hp, wp, real, shift, "cpu")
+        xn = twa._ln_fast(xs.masked_fill(pad, 0.0), p["norm_w"], p["norm_b"], 1e-5)
+        xn = twin.window_partition(xn.masked_fill(pad, 0.0), win).reshape(-1, c)
+        ao = twa.attention_core(twa.gemm(xn, p["qkv_w"], p["qkv_b"], **qs), p["table"], **core)
+        out = twa.gemm(ao, p["proj_w"], p["proj_b"], epilogue="resid_map", resid=p["x"],
+                       geo=(hp, wp, win, shift, *real)).reshape(b, hp, wp, c)
+        ref = twa.block_step_plain(*[p[k] for k in ("x", "norm_w", "norm_b", "qkv_w", "qkv_b",
+                                                     "proj_w", "proj_b", "table")],
+                                   num_heads=heads, window=win, real_hw=real, shift=shift)
+        h, w = real
+        np.testing.assert_array_equal(out.numpy()[:, :h, :w], ref.numpy()[:, :h, :w])
+        return
+    geo = (hp, wp, win, shift, hp, wp)
+    qkv = twa.gemm(p["x"], p["qkv_w"], p["qkv_b"], geo=geo, gather=True, **qs)
+    ao = twa.attention_core(qkv, p["table"], **core)
+    out = twa.gemm(ao, p["proj_w"], p["proj_b"], epilogue="map", geo=geo).reshape(b, hp, wp, c)
+    ref, ref_ao, ref_qkv = twa.block_attention_plain(
+        *[p[k] for k in ("x", "qkv_w", "qkv_b", "proj_w", "proj_b", "table")],
+        num_heads=heads, window=win, shift=shift)
+    for a, r in ((qkv, ref_qkv), (ao, ref_ao), (out, ref)):
+        np.testing.assert_array_equal(a.numpy(), r.numpy())
