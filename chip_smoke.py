@@ -580,8 +580,7 @@ def phase_yardsticks(run: str, batch: int, stages, n_frozen: int) -> None:
                          (rnd(n_out, 4 * c, scale=(4 * c) ** -0.5).to(bf), None), {}))
         for label, calls, a, (w, bias), kw in launches:
             m_rows = a.numel() // w.shape[1]
-            kkw = dict(kw, rows=m_rows) if kw.get("gather") else kw
-            out = wa.gemm(a, w, bias, **kkw)
+            out = wa.gemm(a, w, bias, **kw)
             ref = wa.gemm_plain(a, w, bias, **kw)
             a2 = a.reshape(m_rows, w.shape[1])
             lib = graph_ms(lambda: F.linear(a2, w, bias))
@@ -591,7 +590,7 @@ def phase_yardsticks(run: str, batch: int, stages, n_frozen: int) -> None:
                 nbytes += m_rows * w.shape[0] * 2
             work = (nbytes, 2.0 * m_rows * w.shape[0] * w.shape[1])
             compare("gemm_bf16", f"bf16 {name} {label} {m_rows}x{w.shape[0]}x{w.shape[1]} b{batch}",
-                    out, ref, bf, graph_ms(lambda: wa.gemm(a, w, bias, **kkw)),
+                    out, ref, bf, graph_ms(lambda: wa.gemm(a, w, bias, **kw)),
                     cuda_ms(lambda: wa.gemm_plain(a, w, bias, **kw), reps=3), calls, work, run,
                     library_ms=lib)
             lin += lib * calls
@@ -599,7 +598,7 @@ def phase_yardsticks(run: str, batch: int, stages, n_frozen: int) -> None:
                 a32, w32 = a.float(), w.float()
                 b32 = None if bias is None else bias.float()
                 r32 = kw.get("resid")
-                kw32 = dict(kw, rows=m_rows) if kw.get("gather") else dict(kw)
+                kw32 = dict(kw)
                 if r32 is not None:
                     kw32["resid"] = r32.float()
                 a32_2 = a32.reshape(m_rows, w.shape[1])

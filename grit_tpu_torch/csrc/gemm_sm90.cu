@@ -29,7 +29,7 @@
 //   same swizzled layout (zero-filled beyond M) for the stage it has just
 //   released, and signals the stage's barrier with
 //   cp.async.mbarrier.arrive.noinc (one producer warp issuing all 1024 copies
-//   a stage made this product 3x slower than F.linear);
+//   of a stage could not keep the consumers fed);
 // - the epilogue, its mode a template parameter, goes through the spent ring:
 //   bias and column scale run in registers and the bf16 tile leaves by TMA
 //   store; for exact-erf GELU, the row residual, and the residual and store
@@ -38,8 +38,7 @@
 //   warp;
 // - one tile a block, two blocks an SM (288 threads and ~98 KB of shared
 //   memory each), so that one block's epilogue overlaps the other's main
-//   loop.  Walking tiles persistently did not pay: stage 1 of a b8 forward
-//   ran 0.118 -> 0.157 ms, the other shapes within 5%.
+//   loop (walking the tiles persistently was slower on an H100).
 // Needs N % 128 == 0 and K % 64 == 0 (the Python wrappers check it; every
 // Swin-B product meets it).
 #include <cuda.h>
@@ -290,10 +289,10 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_bf16_sm90_kernel(
   wgmma_wait<0>();
   fence_acc(acc);
 
-  // Epilogue.  Stores of the accumulator layout (a bf16 pair a thread, 8 rows
-  // a warp instruction) took half the kernel's time, so the tile goes through
-  // the ring, which both warpgroups and the producer are done with after this
-  // barrier of the consumers.
+  // Epilogue.  Stores from the accumulator layout (a bf16 pair a thread, 8
+  // rows a warp instruction) cost as much as the main loop on an H100, so the
+  // tile goes through the ring, which both warpgroups and the producer are
+  // done with after this barrier of the consumers.
   asm volatile("bar.sync 1, 256;" ::: "memory");
   const int g = lane >> 2, q = lane & 3;
   const bf16* __restrict__ bias = static_cast<const bf16*>(e.bias);
@@ -336,7 +335,7 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_bf16_sm90_kernel(
     }
     return;
   }
-  // GELU (whose erff in the accumulator layout ran slower than here), a
+  // GELU (its erff in the accumulator layout ran slower than here), a
   // residual, or rows stored through the window map: the f32 tile through the
   // ring, then a lane takes 8 neighbouring columns of a row: 16-byte residual
   // and output accesses, two whole 256-byte rows a warp instruction

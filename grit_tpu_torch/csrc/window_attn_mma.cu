@@ -263,8 +263,8 @@ __global__ void __launch_bounds__(32 * NS, NS <= 9 ? 2 : 1) win_attn_mma_kernel(
     sumb += __shfl_xor_sync(0xffffffffu, sumb, 2);
 
     // P in bf16 as the A fragments of P V: k-step kb is score tiles 2 kb, 2 kb + 1.
-    // One IEEE reciprocal a row, then products: 72 IEEE divisions a thread
-    // (and their slow-path call) took three quarters of the kernel's time
+    // One IEEE reciprocal a row, then products: an IEEE division for each of a
+    // thread's 72 probabilities tripled the kernel's time on an H100
     const float ra = 1.0f / suma, rb = 1.0f / sumb;
     uint32_t pa[NS][4];
 #pragma unroll

@@ -208,19 +208,19 @@ def gemm_plain(a, w, bias=None, *, epilogue: str = "bias", scale: float = 1.0,
 
 
 def gemm(a, w, bias=None, *, epilogue: str = "bias", scale: float = 1.0, scale_cols: int = 0,
-         resid=None, geo=None, gather: bool = False, rows=None, out=None) -> torch.Tensor:
-    """One launch of the Swin GEMM (see ``gemm_plain``); ``rows``: M when
-    ``gather`` reads a map (its token count); ``out`` may be given.  CPU
-    tensors run the plain version; CUDA tensors launch the kernel or raise."""
+         resid=None, geo=None, gather: bool = False) -> torch.Tensor:
+    """One launch of the Swin GEMM (see ``gemm_plain``), [M, N] with M =
+    a.numel() / K.  CPU tensors run the plain version; CUDA tensors launch
+    the kernel or raise."""
     if a.device.type == "cpu":
         return gemm_plain(a, w, bias, epilogue=epilogue, scale=scale, scale_cols=scale_cols,
                           resid=resid, geo=geo, gather=gather)
     dt = a.dtype
     n_out, k_in = w.shape
     check_gemm_shape(n_out, k_in, dt)
-    m = a.numel() // k_in if rows is None else rows
-    if a.shape[-1] != k_in or a.numel() != m * k_in:
-        raise ValueError(f"gemm: A of shape {tuple(a.shape)} for {m} rows of {k_in}")
+    m = a.numel() // k_in
+    if a.shape[-1] != k_in:
+        raise ValueError(f"gemm: A of shape {tuple(a.shape)} for a weight over {k_in}")
     if (gather or epilogue in ("resid_map", "map")) and geo is None:
         raise ValueError(f"gemm: {epilogue} / gather needs the map's geometry")
     _cuda.require(a, "a", dt)
@@ -233,11 +233,7 @@ def gemm(a, w, bias=None, *, epilogue: str = "bias", scale: float = 1.0, scale_c
             raise ValueError(f"gemm: residual of {resid.numel()} elements for {m} x {n_out}")
     elif epilogue in ("resid", "resid_map"):
         raise ValueError(f"gemm: epilogue {epilogue} needs a residual")
-    if out is None:
-        out = torch.empty((m, n_out), dtype=dt, device=a.device)
-    _cuda.require(out, "out", dt)
-    if out.numel() != m * n_out:
-        raise ValueError(f"gemm: output of {out.numel()} elements for {m} x {n_out}")
+    out = torch.empty((m, n_out), dtype=dt, device=a.device)
     _cuda.check(_cuda.library().grit_gemm(
         a.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
         None if resid is None else resid.data_ptr(), m, n_out, k_in, EPILOGUES[epilogue],
@@ -322,8 +318,7 @@ def block_step(x, norm_w, norm_b, qkv_w, qkv_b, proj_w, proj_b, table, *,
     # xn is dead once qkv exists: the attention output takes its place
     ao = attention_core(qkv, table, batch=b, hp=hp, wp=wp, num_heads=num_heads,
                         window=window, shift=shift, out=xn)
-    out = gemm(ao, proj_w, proj_b, epilogue="resid_map", resid=x, geo=geo,
-               out=torch.empty_like(x))
+    out = gemm(ao, proj_w, proj_b, epilogue="resid_map", resid=x, geo=geo).reshape(x.shape)
     LAUNCHES["block_step"] += 1
     return out
 
@@ -381,10 +376,10 @@ def _block_attention(x, qkv_w, qkv_b, proj_w, proj_b, table, *, num_heads: int, 
     rows = b * hp * wp
     geo = (hp, wp, window, shift, hp, wp)   # no token is padding to this kernel
     qkv = gemm(x, qkv_w, qkv_b, scale=(c // num_heads) ** -0.5, scale_cols=c, geo=geo,
-               gather=True, rows=rows)
+               gather=True)
     ao = attention_core(qkv, table, batch=b, hp=hp, wp=wp, num_heads=num_heads,
                         window=window, shift=shift)
-    out = gemm(ao, proj_w, proj_b, epilogue="map", geo=geo, out=torch.empty_like(x))
+    out = gemm(ao, proj_w, proj_b, epilogue="map", geo=geo).reshape(x.shape)
     LAUNCHES["block_attention"] += 1
     return out, ao, qkv
 

@@ -1,0 +1,194 @@
+"""Time variants of the bf16 Swin kernels' sources side by side on one card.
+
+  python3 kernel_variants.py
+
+A tool for finding where a Hopper kernel's time goes: each variant is a
+source under grit_tpu_torch/csrc with text substitutions, compiled by its own
+nvcc (all at once) into a library with a small C entry point, and timed as
+device time by CUDA-graph replay beside the source as it is and the PyTorch
+call for the same function, at the shapes of a b8 384x640 caption forward
+(each shape's time weighted by its launches in the forward).  The variants:
+
+  gemm_sm90.cu, every product in its bias epilogue: as it is; the main loop
+    alone (the tile is never stored); beside F.linear.
+  window_attn_mma.cu, K1's core: as it is; with an IEEE division for each
+    probability in place of one reciprocal a row; beside
+    scaled_dot_product_attention with an additive mask.
+
+Prints one line per kernel and writes chiprun_out/kernel_variants.json.
+Needs a card and nvcc; exits non-zero without them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from grit_tpu_torch.ops import _cuda
+
+OUT = Path("chiprun_out") / "kernel_variants"
+# the b8 384x640 Swin-B stages: (C, heads, padded map (Hp, Wp), blocks)
+STAGES = ((128, 4, (96, 168), 2), (256, 8, (48, 84), 2), (512, 16, (24, 48), 18),
+          (1024, 32, (12, 24), 2))
+BATCH, WINDOW = 8, 12
+SHIMS = {
+    "gemm_sm90.cu": r'''
+#include "common.cuh"
+extern "C" int variant_entry(const void* A, const void* W, const void* bias, void* out, int M,
+                             int N, int K, void* st) {
+  grit::Epi e{bias, out, nullptr, grit::EPI_BIAS, 1.0f, 0, grit::WinMap{1, 1, 1, 0, 1, 1}, 0};
+  return grit::launch_gemm_bf16((const grit::bf16*)A, (const grit::bf16*)W, M, N, K, e,
+                                (cudaStream_t)st);
+}
+''',
+    "window_attn_mma.cu": r'''
+#include "common.cuh"
+extern "C" int variant_entry(const void* qkv, const void* table, void* out, int nw, int C,
+                             int heads, int Hp, int Wp, int win, int shift, void* st) {
+  grit::WinMap m{Hp, Wp, win, shift, Hp, Wp};
+  const grit::bf16* q = (const grit::bf16*)qkv;
+  return grit::launch_win_attn_bf16(q, q + C, q + 2 * C, 3 * (size_t)C, 1.0f,
+                                    (const float*)table, nullptr, 1, (grit::bf16*)out, nw, C,
+                                    heads, m, (cudaStream_t)st);
+}
+''',
+}
+# (source, variant name, [(text, replacement), ...])
+VARIANTS = [
+    ("gemm_sm90.cu", "as is", []),
+    ("gemm_sm90.cu", "main loop alone", [
+        ("  wgmma_wait<0>();\n  fence_acc(acc);\n",
+         "  wgmma_wait<0>();\n  fence_acc(acc);\n  if (M > 0) return;\n")]),
+    ("window_attn_mma.cu", "as is", []),
+    ("window_attn_mma.cu", "a division per probability", [
+        (" * ra,", " / suma,"), (" * ra);", " / suma);"), (" * rb,", " / sumb,"),
+        (" * rb);", " / sumb);")]),
+]
+
+
+def graph_ms(fn, reps: int = 10) -> float:
+    """Device milliseconds of one call of ``fn`` (CUDA-graph replay)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def build() -> list:
+    """Compile every variant; returns [(source, name, library)]."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    csrc = _cuda.CSRC
+    jobs = []
+    for i, (src, name, subs) in enumerate(VARIANTS):
+        text = (csrc / src).read_text()
+        for old, new in subs:
+            if text.count(old) < 1:
+                raise RuntimeError(f"{src} / {name}: {old!r} not in the source")
+            text = text.replace(old, new)
+        cu, shim, lib = OUT / f"v{i}.cu", OUT / f"v{i}_entry.cu", OUT / f"v{i}.so"
+        cu.write_text(text)
+        shim.write_text(SHIMS[src])
+        cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-I", str(csrc), "-o", str(lib),
+               str(cu), str(shim)]
+        jobs.append((src, name, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                      stderr=subprocess.STDOUT, text=True)))
+    built = []
+    for src, name, lib, proc in jobs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src} / {name}:\n{log[-4000:]}")
+        built.append((src, name, ctypes.CDLL(str(lib))))
+    for src, _, lib in built:
+        n_ptr = 4 if src == "gemm_sm90.cu" else 3
+        lib.variant_entry.argtypes = ([ctypes.c_void_p] * n_ptr
+                                      + [ctypes.c_int] * (3 if n_ptr == 4 else 7)
+                                      + [ctypes.c_void_p])
+        lib.variant_entry.restype = ctypes.c_int
+    return built
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        print("kernel_variants: FAIL: needs a CUDA device", file=sys.stderr)
+        sys.exit(1)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(card, flush=True)
+    built = build()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bf = torch.bfloat16
+    totals: dict[str, float] = {}
+    for c, heads, (hp, wp), depth in STAGES:
+        rows = BATCH * hp * wp
+        a = torch.randn(rows, c, generator=g, device="cuda").to(bf)
+        h4 = torch.randn(rows, 4 * c, generator=g, device="cuda").to(bf)
+        for x, (n, k) in ((a, (3 * c, c)), (a, (c, c)), (a, (4 * c, c)), (h4, (c, 4 * c))):
+            w = (torch.randn(n, k, generator=g, device="cuda") * k ** -0.5).to(bf)
+            bias = torch.randn(n, generator=g, device="cuda").to(bf)
+            out = torch.empty(rows, n, device="cuda", dtype=bf)
+            for src, name, lib in built:
+                if src != "gemm_sm90.cu":
+                    continue
+
+                def call(lib=lib):
+                    err = lib.variant_entry(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                                            out.data_ptr(), rows, n, k, stream())
+                    if err:
+                        raise RuntimeError(f"gemm variant {name}: CUDA error {err}")
+
+                key = f"gemm_bf16: {name}"
+                totals[key] = totals.get(key, 0.0) + graph_ms(call) * depth
+            key = "gemm_bf16: F.linear"
+            totals[key] = totals.get(key, 0.0) + graph_ms(lambda: F.linear(x, w, bias)) * depth
+        qkv = torch.randn(rows, 3 * c, generator=g, device="cuda").to(bf)
+        table = torch.randn((2 * WINDOW - 1) ** 2, heads, generator=g, device="cuda")
+        out = torch.empty(rows, c, device="cuda", dtype=bf)
+        for src, name, lib in built:
+            if src != "window_attn_mma.cu":
+                continue
+
+            def call(lib=lib):
+                err = lib.variant_entry(qkv.data_ptr(), table.data_ptr(), out.data_ptr(),
+                                        rows // (WINDOW * WINDOW), c, heads, hp, wp, WINDOW,
+                                        WINDOW // 2, stream())
+                if err:
+                    raise RuntimeError(f"core variant {name}: CUDA error {err}")
+
+            key = f"win_attn: {name}"
+            totals[key] = totals.get(key, 0.0) + graph_ms(call) * depth
+        q, kk, v = (torch.randn(rows // WINDOW ** 2, heads, WINDOW ** 2, 32, generator=g,
+                                device="cuda").to(bf) for _ in range(3))
+        mask = torch.randn(1, heads, WINDOW ** 2, WINDOW ** 2, generator=g, device="cuda").to(bf)
+        key = "win_attn: SDPA + mask"
+        totals[key] = totals.get(key, 0.0) + graph_ms(
+            lambda: F.scaled_dot_product_attention(q, kk, v, attn_mask=mask)) * depth
+    for key, ms in totals.items():
+        print(f"{key:<45} {ms:.3f} ms a b{BATCH} forward  [{card}]")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "kernel_variants.json"), "w") as f:
+        json.dump({"card": card, "ms_per_forward": totals}, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()
