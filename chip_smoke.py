@@ -22,15 +22,21 @@ Phases, each of which must pass:
      a b8 and a b128 caption batch, beside the module path for the same tail;
      K12 (the multi-tensor Adam update) for three steps on the captioner's
      own trainable leaves, beside torch.optim.Adam(fused=True);
-  3. the two kernels that do most of K1, K2, K4 and K10a's work, the bf16
-     GEMM (csrc/gemm_sm90.cu: TMA, an mbarrier ring, wgmma) and the bf16
-     window-attention core (csrc/window_attn_mma.cu: mma.sync tiles), each at
-     every shape at which a b8 caption forward, a b16 XE step and a b4
-     832x1344 detector step launch it, against its plain version and beside
-     one PyTorch call for the same function (F.linear a GEMM launch,
-     scaled_dot_product_attention with an additive mask a core launch; also
-     F.linear in fp32 beside the fp32 GEMM at the detector's shapes), timed
-     as device time by CUDA-graph replay and used nowhere in the port;
+  3. the kernels that do most of K1, K2, K4, K5 and K10a's work: the GEMM
+     in bf16 (csrc/gemm_sm90.cu: TMA, an mbarrier ring, wgmma) and in fp32
+     (swin_block.cu: a register-blocked, pipelined SIMT tile), the bf16
+     window-attention core (csrc/window_attn_mma.cu: mma.sync tiles) and the
+     bf16 attention backward (csrc/win_attn_bwd_mma.cu: mma.sync tiles, the
+     batch split over blocks), each at every shape at which a b8 caption
+     forward, a b16 XE step and a b4 832x1344 detector step launch it
+     (the backward at the two training runs; the fp32 core and backward at
+     the detector's, fp32 being its CLI's type), against its plain version
+     and beside one PyTorch call for the same function (F.linear a GEMM
+     launch; scaled_dot_product_attention with an additive mask a core
+     launch; its backward with the mask requiring grad a backward launch,
+     net of the forward), timed as device time by CUDA-graph replay and used
+     nowhere in the port; the backward's bias gradient must be the same bit
+     for bit over two calls;
   4. the inference path: batch caption inference at the full width of the
      shipped GRIT model on random weights (seed 0), bf16, beam 5, 20 steps,
      through grit_tpu_torch.engine.evaluator.make_caption_generator, with
@@ -90,8 +96,9 @@ Phases, each of which must pass:
 
 Prints the card's name and power limit as nvidia-smi reports them, a JSON
 line of per-kernel results (all 18 TPU kernel bodies: the eleven ported
-kernels, and the seven bodies that one of them serves; and the two kernels
-inside K1, K2, K4, K8 and K10a, gemm_bf16 and win_attn), and last {"ok": true, "device": {...}}; the
+kernels, and the seven bodies that one of them serves; and the kernels
+inside K1, K2, K4, K5, K8 and K10a: gemm_bf16, win_attn and win_attn_bwd, and
+gemm_f32, win_attn_f32 and win_attn_bwd_f32), and last {"ok": true, "device": {...}}; the
 per-shape results go to chiprun_out/chip_smoke.json.  Exits non-zero, without
 that last line, when there is no CUDA device or any phase fails.
 """
@@ -254,8 +261,14 @@ def cuda_ms(fn, reps: int = 10) -> float:
 def graph_ms(fn, reps: int = 10) -> float:
     """Device milliseconds of one call of ``fn``: ``reps`` calls captured in
     one CUDA graph and replayed, so that the host's time to issue a call
-    (which exceeds a short kernel's) stays out of the number."""
-    fn()
+    (which exceeds a short kernel's) stays out of the number.  The warm-up
+    call runs on a side stream, as a capture that holds an autograd backward
+    needs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -275,13 +288,16 @@ def graph_ms(fn, reps: int = 10) -> float:
 
 def compare(kernel: str, case: str, out, ref, dtype, ms: float, plain_ms: float,
             calls: int, work: tuple[float, float] | None = None, run: str = "caption",
-            tol: float | None = None, library_ms: float = 0.0) -> None:
+            tol: float | None = None, library_ms: float = 0.0,
+            per_run: bool | None = None) -> None:
     """Hold one kernel output against the plain version's.  ``calls``: how
     often one ``run`` of a main path ("caption": a b8 caption forward,
     "train": a b16 XE training step, "detector": a b4 832x1344 detector
     training step) makes this call (0: a check only); ``work``: (bytes moved
     once each, operations) of the call, for the bound; ``library_ms``: one
-    PyTorch call for the same function, where there is one."""
+    PyTorch call for the same function, where there is one.  ``per_run``:
+    whether the times add up to the kernel's per-run numbers (by default the
+    bf16 calls do; the fp32 kernels' rows pass True)."""
     if not torch.isfinite(out).all():
         fail(f"{kernel} {case}: non-finite output")
     err = (out.float() - ref.float()).abs().max().item()
@@ -303,7 +319,9 @@ def compare(kernel: str, case: str, out, ref, dtype, ms: float, plain_ms: float,
     if library_ms:
         row["library_ms"] = library_ms
     DETAIL.append(row)
-    if dtype == torch.bfloat16 and calls and work is not None:
+    if per_run is None:
+        per_run = dtype == torch.bfloat16
+    if per_run and calls and work is not None:
         # the main path's time in this kernel per run: each shape's median
         # time, and its least possible time, times the calls one run makes at
         # that shape
@@ -521,30 +539,53 @@ def phase_train_kernels(batch: int, counted: bool = True, stages=None, levels=No
                         calls if j == 0 else 0, work if j == 0 else None, run)
 
 
-def phase_yardsticks(run: str, batch: int, stages, n_frozen: int) -> None:
-    """The bf16 GEMM (every product of K1, K2, K4 and K10a) and the bf16
-    attention core (K1's and K4's) at every shape at which one ``run`` of a
-    main path launches them ("caption": a b8 forward in eval(); "train": a
-    b16 XE step, stages < ``n_frozen`` frozen; "detector": a b4 832x1344
-    step, every stage training), each against its plain version and beside
-    one PyTorch call for the same function, timed and used nowhere in the
-    port: F.linear a GEMM launch, scaled_dot_product_attention with an
-    additive mask a core launch.  Kernel and library times are device times
-    (``graph_ms``), the plain versions' eager.  At the detector's shapes also
-    the fp32 GEMM (the detector CLI's type) beside F.linear in fp32."""
+def sdpa_bwd_ms(q, k, v, bias, gout, batch: int) -> float:
+    """Device ms of one PyTorch call for the window-attention backward, the
+    yardstick of K5: the backward of F.scaled_dot_product_attention(q, k, v,
+    attn_mask=mask) with the mask requiring grad (dq, dk, dv and the mask's
+    gradient), the mask the [nW, heads, N, N] bias broadcast over the batch,
+    so that its gradient is summed over images per window as K5's is.  Timed
+    as device time (graph_ms) of the forward and backward together, less the
+    forward alone; the scatter into the table's rows is not included."""
     import torch.nn.functional as F
 
-    print(f"[yardsticks] the bf16 GEMM and attention core at the {run} run's shapes, b{batch}, "
-          f"beside F.linear and SDPA + mask", flush=True)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+
+    def forward():
+        mask = leaves[3].unsqueeze(0).expand(batch, *bias.shape).reshape(-1, *bias.shape[1:])
+        return F.scaled_dot_product_attention(*leaves[:3], attn_mask=mask)
+
+    return graph_ms(lambda: torch.autograd.grad(forward(), leaves, gout)) - graph_ms(forward)
+
+
+def phase_yardsticks(run: str, batch: int, stages, n_frozen: int) -> None:
+    """The kernels that do the work of K1, K2, K4, K5 and K10a at every shape
+    at which one ``run`` of a main path launches them ("caption": a b8
+    forward in eval(); "train": a b16 XE step, stages < ``n_frozen`` frozen;
+    "detector": a b4 832x1344 step, every stage training), each against its
+    plain version and beside one PyTorch call for the same function, timed
+    and used nowhere in the port: the GEMM (bf16 and fp32) beside F.linear, a
+    GEMM launch; the bf16 attention core beside scaled_dot_product_attention
+    with an additive mask, a core launch; at the training runs the bf16
+    attention backward (K5's launch) beside SDPA's backward with the mask
+    requiring grad (``sdpa_bwd_ms``), its bias gradient checked to be the same
+    bit for bit over two calls; at the detector's shapes also the fp32 core
+    and backward (the detector CLI's type) beside SDPA and its backward in
+    fp32.  Kernel and library times are device times (``graph_ms``), the plain
+    versions' eager."""
+    import torch.nn.functional as F
+
+    print(f"[yardsticks] the GEMM, attention core and backward at the {run} run's shapes, "
+          f"b{batch}, beside F.linear, SDPA + mask and its backward", flush=True)
     g = torch.Generator(device=DEV).manual_seed(2)
-    bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
     n = WINDOW * WINDOW
+    training = run != "caption"
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=DEV) * scale
 
-    f32 = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "launches": 0}
-    lin = sdpa = 0.0
+    lin = lin32 = sdpa = 0.0
     for k, (name, c, heads, real, (hp, wp), depth) in enumerate(stages):
         frozen = k < n_frozen
         rows_p, rows_u = batch * hp * wp, batch * real[0] * real[1]
@@ -580,59 +621,103 @@ def phase_yardsticks(run: str, batch: int, stages, n_frozen: int) -> None:
                          (rnd(n_out, 4 * c, scale=(4 * c) ** -0.5).to(bf), None), {}))
         for label, calls, a, (w, bias), kw in launches:
             m_rows = a.numel() // w.shape[1]
-            out = wa.gemm(a, w, bias, **kw)
-            ref = wa.gemm_plain(a, w, bias, **kw)
-            a2 = a.reshape(m_rows, w.shape[1])
-            lib = graph_ms(lambda: F.linear(a2, w, bias))
             # A, W and the bias read once, the output written once (the residual read once)
-            nbytes = (a2.numel() + w.numel() + m_rows * w.shape[0] + w.shape[0]) * 2
+            nbytes = (a.numel() + w.numel() + m_rows * w.shape[0] + w.shape[0]) * 2
             if "resid" in kw:
                 nbytes += m_rows * w.shape[0] * 2
-            work = (nbytes, 2.0 * m_rows * w.shape[0] * w.shape[1])
-            compare("gemm_bf16", f"bf16 {name} {label} {m_rows}x{w.shape[0]}x{w.shape[1]} b{batch}",
-                    out, ref, bf, graph_ms(lambda: wa.gemm(a, w, bias, **kw)),
-                    cuda_ms(lambda: wa.gemm_plain(a, w, bias, **kw), reps=3), calls, work, run,
-                    library_ms=lib)
-            lin += lib * calls
-            if run == "detector":
-                a32, w32 = a.float(), w.float()
-                b32 = None if bias is None else bias.float()
-                r32 = kw.get("resid")
-                kw32 = dict(kw)
-                if r32 is not None:
-                    kw32["resid"] = r32.float()
-                a32_2 = a32.reshape(m_rows, w.shape[1])
-                f32["ms"] += graph_ms(lambda: wa.gemm(a32, w32, b32, **kw32)) * calls
-                f32["library_ms"] += graph_ms(lambda: F.linear(a32_2, w32, b32)) * calls
-                f32["bound_ms"] += max(2 * nbytes / PEAK_BYTES,
-                                       work[1] / PEAK_FLOPS[torch.float32]) * 1e3 * calls
-                f32["launches"] += calls
+            flops = 2.0 * m_rows * w.shape[0] * w.shape[1]
+            shape = f"{name} {label} {m_rows}x{w.shape[0]}x{w.shape[1]} b{batch}"
+            for dt in (bf, f32):
+                a_d, w_d = a.to(dt), w.to(dt)
+                b_d = None if bias is None else bias.to(dt)
+                kw_d = dict(kw, resid=kw["resid"].to(dt)) if "resid" in kw else kw
+                a2 = a_d.reshape(m_rows, w.shape[1])
+                lib = graph_ms(lambda: F.linear(a2, w_d, b_d))
+                compare("gemm_bf16" if dt == bf else "gemm_f32",
+                        f"{'bf16' if dt == bf else 'fp32'} {shape}",
+                        wa.gemm(a_d, w_d, b_d, **kw_d), wa.gemm_plain(a_d, w_d, b_d, **kw_d), dt,
+                        graph_ms(lambda: wa.gemm(a_d, w_d, b_d, **kw_d)),
+                        cuda_ms(lambda: wa.gemm_plain(a_d, w_d, b_d, **kw_d), reps=3), calls,
+                        (nbytes * esize(dt) // 2, flops), run, library_ms=lib, per_run=True)
+                if dt == bf:
+                    lin += lib * calls
+                else:
+                    lin32 += lib * calls
         del launches, x, a_p, a_k2, h_k2
         qkv = rnd(rows_p, 3 * c).to(bf)
         qkv[:, :c] = (qkv[:, :c].float() * (c // heads) ** -0.5).to(bf)
+        d_ao = rnd(rows_p, c).to(bf)
         table = rnd((2 * WINDOW - 1) ** 2, heads)
+        nw = (hp // WINDOW) * (wp // WINDOW)
         q, kk, v = (rnd(rows_p // n, heads, n, 32).to(bf) for _ in range(3))
+        gout = rnd(rows_p // n, heads, n, 32).to(bf)
         mask = rnd(1, heads, n, n).to(bf)
+        bias_w = rnd(nw, heads, n, n).to(bf)
         lib = graph_ms(lambda: F.scaled_dot_product_attention(q, kk, v, attn_mask=mask))
+        lib_bwd = sdpa_bwd_ms(q, kk, v, bias_w, gout, batch) if training else 0.0
+        dtypes = (bf, f32) if run == "detector" else (bf,)
+        lib32 = lib32_bwd = 0.0
+        if run == "detector":
+            q32, k32, v32, g32 = (t.float() for t in (q, kk, v, gout))
+            lib32 = graph_ms(lambda: F.scaled_dot_product_attention(q32, k32, v32,
+                                                                     attn_mask=mask.float()))
+            lib32_bwd = sdpa_bwd_ms(q32, k32, v32, bias_w.float(), g32, batch)
         for shift in (0, WINDOW // 2):
             kw = dict(batch=batch, hp=hp, wp=wp, num_heads=heads, window=WINDOW, shift=shift)
-            work = (rows_p * 4 * c * 2 + (2 * WINDOW - 1) ** 2 * heads * 4, 4.0 * rows_p * n * c)
-            compare("win_attn", f"bf16 {name} {'K1' if frozen else 'K4'} core shift={shift} "
-                    f"b{batch}", wa.attention_core(qkv, table, **kw),
-                    wa.attention_core_plain(qkv, table, **kw), bf,
-                    graph_ms(lambda: wa.attention_core(qkv, table, **kw)),
-                    cuda_ms(lambda: wa.attention_core_plain(qkv, table, **kw), reps=3),
-                    depth // 2, work, run, library_ms=lib)
-            sdpa += lib * (depth // 2)
-        del qkv, q, kk, v
-    YARDSTICKS[run] = {"linear_ms": lin, "sdpa_ms": sdpa, "batch": batch}
+            tag = f"{name} {'K1' if frozen else 'K4'} core shift={shift} b{batch}"
+            for dt in dtypes:
+                es = esize(dt)
+                qkv_d, d_ao_d = qkv.to(dt), d_ao.to(dt)
+                work = (rows_p * 4 * c * es + (2 * WINDOW - 1) ** 2 * heads * 4,
+                        4.0 * rows_p * n * c)
+                compare("win_attn" if dt == bf else "win_attn_f32",
+                        f"{'bf16' if dt == bf else 'fp32'} {tag}",
+                        wa.attention_core(qkv_d, table, **kw),
+                        wa.attention_core_plain(qkv_d, table, **kw), dt,
+                        graph_ms(lambda: wa.attention_core(qkv_d, table, **kw)),
+                        cuda_ms(lambda: wa.attention_core_plain(qkv_d, table, **kw), reps=3),
+                        depth // 2, work, run, library_ms=lib if dt == bf else lib32,
+                        per_run=True)
+                if dt == bf:
+                    sdpa += lib * (depth // 2)
+                if frozen:
+                    continue
+                # K5: one launch of the backward (its wrapper: the kernel, the sum of the
+                # partial bias gradient and its scatter into the table)
+                out = wa.window_attention_bwd(qkv_d, d_ao_d, table, **kw)
+                again = wa.window_attention_bwd(qkv_d, d_ao_d, table, **kw)
+                if not torch.equal(out[1], again[1]) or not torch.equal(out[0], again[0]):
+                    fail(f"K5 {tag} {dt}: two calls on the same inputs differ")
+                ref = wa.window_attention_bwd_plain(qkv_d, d_ao_d, table, **kw)
+                bwd = "win_attn_bwd" if dt == bf else "win_attn_bwd_f32"
+                work = (7 * rows_p * c * es + (nw * heads * n * n + (2 * WINDOW - 1) ** 2 * heads)
+                        * 4, 10.0 * rows_p * n * c)
+                compare(bwd, f"{'bf16' if dt == bf else 'fp32'} {tag} backward dqkv", out[0],
+                        ref[0], dt, graph_ms(lambda: wa.window_attention_bwd(qkv_d, d_ao_d, table,
+                                                                              **kw)),
+                        cuda_ms(lambda: wa.window_attention_bwd_plain(qkv_d, d_ao_d, table, **kw),
+                                reps=3),
+                        depth // 2, work, run, library_ms=lib_bwd if dt == bf else lib32_bwd,
+                        per_run=True)
+                compare(bwd, f"{'bf16' if dt == bf else 'fp32'} {tag} backward dtable", out[1],
+                        ref[1], dt, 0.0, 0.0, 0)
+                del out, again, ref
+        del qkv, d_ao, q, kk, v, gout, bias_w
+    YARDSTICKS[run] = {"linear_ms": lin, "linear_f32_ms": lin32, "sdpa_ms": sdpa, "batch": batch}
     msg = (f"[yardsticks] {run}: bf16 GEMM {RESULTS['gemm_bf16'][run]['ms']:.3f} ms a run "
-           f"(F.linear {lin:.3f}), attention core {RESULTS['win_attn'][run]['ms']:.3f} ms "
-           f"(SDPA + mask {sdpa:.3f})")
+           f"(F.linear {lin:.3f}), fp32 GEMM {RESULTS['gemm_f32'][run]['ms']:.3f} ms "
+           f"(F.linear fp32 {lin32:.3f}, bound "
+           f"{max(RESULTS['gemm_f32'][run]['bytes_ms'], RESULTS['gemm_f32'][run]['ops_ms']):.3f}), "
+           f"attention core {RESULTS['win_attn'][run]['ms']:.3f} ms (SDPA + mask {sdpa:.3f})")
+    if training:
+        r = RESULTS["win_attn_bwd"][run]
+        msg += (f", bf16 attention backward {r['ms']:.3f} ms (SDPA backward {r['library_ms']:.3f}, "
+                f"bound {max(r['bytes_ms'], r['ops_ms']):.3f})")
     if run == "detector":
-        YARDSTICKS["gemm_f32_detector"] = f32
-        msg += (f"; fp32 GEMM {f32['ms']:.3f} ms in {f32['launches']} launches (F.linear fp32 "
-                f"{f32['library_ms']:.3f}, bound {f32['bound_ms']:.3f})")
+        for key in ("win_attn_f32", "win_attn_bwd_f32"):
+            r = RESULTS[key][run]
+            msg += (f"; {key} {r['ms']:.3f} ms (library {r['library_ms']:.3f}, bound "
+                    f"{max(r['bytes_ms'], r['ops_ms']):.3f})")
     print(msg, flush=True)
 
 
@@ -999,7 +1084,9 @@ def phase_dense_attention_kernel(batch: int) -> None:
                           f"SDPA + mask forward {lib:.3f} ms", flush=True)
     rec["kernel_phase_launches"] = {
         "forward": wa.LAUNCHES["window_attention"] - before["window_attention"],
-        "backward": wa.LAUNCHES["window_attention_grad"] - before["window_attention_grad"]}
+        "backward": wa.LAUNCHES["window_attention_grad"] - before["window_attention_grad"],
+        **{f"backward kernel {dt}": wa.LAUNCHES[f"win_attn_bwd_{dt}"]
+           - before[f"win_attn_bwd_{dt}"] for dt in ("bf16", "f32")}}
     if not all(rec["kernel_phase_launches"].values()):
         fail(f"K8: the phase launched no kernel: {rec['kernel_phase_launches']}")
 
@@ -1017,8 +1104,15 @@ def synthetic_batch(batch: int, offset: int = 0) -> ImageBatch:
 
 
 def core_launches() -> dict:
-    """Launches of the bf16 GEMM and attention core inside K1, K2, K4, K8 and K10a."""
-    return {"gemm_bf16": wa.LAUNCHES["gemm_bf16"], "win_attn": wa.LAUNCHES["win_attn_bf16"]}
+    """Launches of the bf16 GEMM, attention core and attention backward inside
+    K1, K2, K4, K5, K8 and K10a."""
+    return {"gemm_bf16": wa.LAUNCHES["gemm_bf16"], "win_attn": wa.LAUNCHES["win_attn_bf16"],
+            "win_attn_bwd": wa.LAUNCHES["win_attn_bwd_bf16"]}
+
+
+def f32_launches() -> dict:
+    """Launches of the fp32 GEMM, attention core and attention backward."""
+    return {k: wa.LAUNCHES[k] for k in ("gemm_f32", "win_attn_f32", "win_attn_bwd_f32")}
 
 
 def reset_launches() -> None:
@@ -1053,7 +1147,7 @@ def phase_slice(batch: int, card: str) -> None:
     # and K2 make two GEMM launches each, K10a one
     want = {"K1": blocks, "K2": blocks, "K3": DET_LAYERS, "K10a": len(STAGES), "K10b": 1,
             "K11": config.model.cap_generator.n_layers * STEPS,
-            "gemm_bf16": 4 * blocks + len(STAGES), "win_attn": blocks}
+            "gemm_bf16": 4 * blocks + len(STAGES), "win_attn": blocks, "win_attn_bwd": 0}
     print(f"[slice] launches in one b{batch} caption batch: {counts} (want {want})")
     if counts != want:
         fail(f"kernel launch counts {counts} != {want}")
@@ -1375,10 +1469,11 @@ def phase_train(card: str) -> None:
             "K12": 2,   # one Adam launch per parameter group
             # two GEMM launches in each of K1, K2 and K4, one in K10a
             "gemm_bf16": 2 * (frozen + (frozen + trained) + trained) + len(STAGES),
-            "win_attn": frozen + trained}
-    print(f"[train] launches in one b{batch} XE step: {counts} (want {want})")
-    if counts != want:
-        fail(f"training kernel launch counts {counts} != {want}")
+            "win_attn": frozen + trained, "win_attn_bwd": trained}
+    print(f"[train] launches in one b{batch} XE step: {counts} (want {want}); of the fp32 "
+          f"kernels {f32_launches()} (want none)")
+    if counts != want or any(f32_launches().values()):
+        fail(f"training kernel launch counts {counts} != {want}, fp32 {f32_launches()}")
     for k, n in counts.items():
         RESULTS[k]["launches_train"] = n
     times = []
@@ -1955,13 +2050,21 @@ def phase_detector(card: str, dtype) -> None:
     num_classes = config.model.detector.num_classes
     groups = [g["name"] for g in state.optimizer.param_groups]
     blocks = sum(s[-1] for s in DET_STAGES)
-    bf = dtype == torch.bfloat16     # the bf16 GEMM and core run only in bf16
+    bf = dtype == torch.bfloat16     # the GEMM, core and backward of the step's type
+    gemms = 4 * blocks + len(DET_STAGES)
     want_step = {"K1": 0, "K2": blocks, "K3": DET_LAYERS, "K4": blocks, "K5": blocks,
                  "K6": DET_LAYERS, "K10a": len(DET_STAGES), "K10b": 1, "K12": len(groups),
-                 "gemm_bf16": bf * (4 * blocks + len(DET_STAGES)), "win_attn": bf * blocks}
+                 "gemm_bf16": bf * gemms, "win_attn": bf * blocks, "win_attn_bwd": bf * blocks,
+                 "gemm_f32": (1 - bf) * gemms, "win_attn_f32": (1 - bf) * blocks,
+                 "win_attn_bwd_f32": (1 - bf) * blocks}
     want_eval = {"K1": blocks, "K2": blocks, "K3": DET_LAYERS, "K4": 0, "K5": 0, "K6": 0,
                  "K10a": len(DET_STAGES), "K10b": 1, "K12": 0,
-                 "gemm_bf16": bf * (4 * blocks + len(DET_STAGES)), "win_attn": bf * blocks}
+                 "gemm_bf16": bf * gemms, "win_attn": bf * blocks, "win_attn_bwd": 0,
+                 "gemm_f32": (1 - bf) * gemms, "win_attn_f32": (1 - bf) * blocks,
+                 "win_attn_bwd_f32": 0}
+
+    def launches() -> dict:
+        return {**train_launches(), **f32_launches()}
 
     def train_batch(offset: int) -> dict:
         return {"samples": detector_images(DET_BATCH, offset),
@@ -1982,9 +2085,9 @@ def phase_detector(card: str, dtype) -> None:
     spans, per_step, per_eval, eval_s, metrics_seen = [], [], [], [], []
 
     def counted_step(*args, **kw):
-        before = train_launches()
+        before = launches()
         out = timed(*args, **kw)
-        after = train_launches()
+        after = launches()
         per_step.append({k: after[k] - before[k] for k in after})
         metrics_seen.append(out[1])
         return out
@@ -1995,14 +2098,14 @@ def phase_detector(card: str, dtype) -> None:
         """Kernel launches of one validation epoch (attached to the valider)."""
 
         def before_epoch(self, solver):
-            self.before = train_launches()
+            self.before = launches()
             torch.cuda.synchronize()
             self.t0 = time.perf_counter()
 
         def after_epoch(self, solver):
             torch.cuda.synchronize()
             eval_s.append(time.perf_counter() - self.t0)
-            after = train_launches()
+            after = launches()
             per_eval.append({k: after[k] - self.before[k] for k in after})
 
     with tempfile.TemporaryDirectory() as workdir:
@@ -2030,7 +2133,7 @@ def phase_detector(card: str, dtype) -> None:
         torch.cuda.synchronize()
         epoch_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        counts = train_launches()
+        counts = launches()
         step_ms, host_ms = span_ms(spans)
         losses = [{k: float(v) for k, v in m.items()} for m in metrics_seen]
         size_mb = os.path.getsize(os.path.join(workdir, "checkpoints", "detector_last",
@@ -2090,9 +2193,10 @@ def phase_detector(card: str, dtype) -> None:
           f"the host in the call), {DET_BATCH / med * 1e3:.2f} images/s, {device_launches} device "
           f"kernels a step, peak {peak:.2f} GiB; the epoch of {DET_STEPS} steps and a validation "
           f"of 2 batches {epoch_s:.2f} s  [{card}]", flush=True)
-    if dtype == torch.bfloat16:
-        for k, n in per_step[0].items():
-            RESULTS[k]["launches_detector"] = n
+    # the detector row of each kernel is of the step in its own type
+    for k, n in per_step[0].items():
+        if bf != (k in f32_launches()):
+            RESULTS.setdefault(k, {})["launches_detector"] = n
     RESULTS[f"detector_{dn}"] = {
         "batch": DET_BATCH, "step_ms": step_ms, "host_ms": host_ms, "epoch_s": epoch_s,
         "images_per_s": DET_BATCH / med * 1e3, "device_launches": device_launches,
@@ -2247,6 +2351,40 @@ def phase_detector_parity(batch: int) -> None:
         fail("detector parity: " + "; ".join(failures[:10]))
 
 
+def ptxas_report() -> dict:
+    """{kernel instance: (registers a thread, spilled bytes)} from the
+    ``-Xptxas -v`` lines of each source's build log; an instance is named by
+    its kernel's name and its template arguments as mangled (e.g.
+    ``gemm_f32_kernel<Li128ELi2ELi8E>``)."""
+    import re
+
+    out = {}
+    for log in sorted(_cuda.BUILD_DIR.glob("*.log")):
+        name = spill = None
+        for line in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                mangled, name = m.group(1), m.group(1)
+                # the length-prefixed identifier that ends in _kernel, and its
+                # template arguments (I ... E) where it has them
+                for d in re.finditer(r"\d+", mangled):
+                    ident = mangled[d.end():d.end() + int(d.group())]
+                    if ident.endswith("_kernel"):
+                        rest = mangled[d.end() + len(ident):]
+                        targs = re.match(r"I(\w*?E)E", rest)
+                        name = f"{ident}<{targs.group(1)}>" if targs else ident
+                        break
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and name:
+                spill = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                out[name] = (int(m.group(1)), spill or 0)
+                name = spill = None
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=8)
@@ -2267,10 +2405,15 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    # the compiler's register and spill report goes into _build/<source>.log
+    _cuda.NVCC_FLAGS = _cuda.NVCC_FLAGS + ["-Xptxas", "-v"]
     t0 = time.perf_counter()
     _cuda.library()
     build_s = time.perf_counter() - t0
     print(f"[build] kernel library ready in {build_s:.1f} s", flush=True)
+    resources = ptxas_report()
+    print("[build] registers a thread, spilled bytes (stores + loads) by kernel instance: "
+          + "; ".join(f"{k} {r} / {sp}" for k, (r, sp) in resources.items()), flush=True)
 
     det = dict(stages=DET_STAGES, levels=DET_LEVELS, hw=DET_HW)
     phase_kernels(args.batch)
@@ -2305,6 +2448,7 @@ def main() -> None:
     per = {"caption": f"b{args.batch} bf16 caption forward",
            "train": f"b{TRAIN_BATCH} bf16 XE training step",
            "detector": f"b{DET_BATCH} bf16 detector training step at {DET_HW[0]}x{DET_HW[1]}"}
+    fp32_kernels = ("gemm_f32", "win_attn_f32", "win_attn_bwd_f32")
     # name: (source, TPU kernel it replaces, the run its launches, ms and bound are of)
     sources = {"K1": (swin, jwa + ":1029", "caption"), "K2": (swin, jwa + ":1819", "caption"),
                "K3": (msda, jmsda + ":1018", "caption"), "K4": (swin, jwa + ":385", "train"),
@@ -2314,8 +2458,16 @@ def main() -> None:
                # the two kernels inside K1, K2, K4, K8 and K10a (each TPU body
                # above holds its own products and attention)
                "gemm_bf16": (csrc + "gemm_sm90.cu", jwa + ":1029", "caption"),
-               "win_attn": (csrc + "window_attn_mma.cu", jwa + ":1029", "caption")}
-    serves = {"gemm_bf16": "K1, K2, K4, K10a", "win_attn": "K1, K4, K8"}
+               "win_attn": (csrc + "window_attn_mma.cu", jwa + ":1029", "caption"),
+               # the attention backward inside K5 and K8's gradient
+               "win_attn_bwd": (csrc + "win_attn_bwd_mma.cu", jwa + ":197", "train"),
+               # the fp32 kernels, of the detector step in fp32 (the CLI's type)
+               "gemm_f32": (swin, jwa + ":1029", "detector"),
+               "win_attn_f32": (swin, jwa + ":1029", "detector"),
+               "win_attn_bwd_f32": (swin, jwa + ":197", "detector")}
+    serves = {"gemm_bf16": "K1, K2, K4, K10a", "win_attn": "K1, K4, K8",
+              "win_attn_bwd": "K5, K8", "gemm_f32": "K1, K2, K4, K10a (fp32)",
+              "win_attn_f32": "K1, K4, K8 (fp32)", "win_attn_bwd_f32": "K5, K8 (fp32)"}
     launch_key = {"caption": "launches", "train": "launches_train",
                   "detector": "launches_detector"}
     kernels = []
@@ -2331,8 +2483,9 @@ def main() -> None:
                # after the gather) and K10b (F.layer_norm); none computes the
                # others whole: their parts' yardsticks (and the module path of
                # K11's tail) are in chip_smoke.json
-               "library_ms": acc["library_ms"] or None, "per": per[run],
-               "launches_trainer": r["launches_trainer"]}
+               "library_ms": acc["library_ms"] or None,
+               "per": per[run].replace("bf16", "fp32") if k in fp32_kernels else per[run],
+               "launches_trainer": r.get("launches_trainer", 0)}
         # the same numbers for each of the three runs, whichever the keys above are of
         for other in RUNS:
             o = r[other]
@@ -2384,6 +2537,7 @@ def main() -> None:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "build_s": build_s,
+                   "ptxas": resources,
                    "kernels": kernels,
                    "mapped": mapped, "yardsticks": YARDSTICKS, "cases": DETAIL,
                    "slice": RESULTS.get("slice"), "slice_b128": RESULTS.get("slice_b128"),

@@ -75,12 +75,17 @@ struct Epi {
   int a_gather;        // A's row r is read from map token win_row_to_token(r)
 };
 
-// bf16 launchers of the Hopper kernels (gemm_sm90.cu, window_attn_mma.cu);
-// each returns a cudaError_t.
+// bf16 launchers of the Hopper kernels (gemm_sm90.cu, window_attn_mma.cu,
+// win_attn_bwd_mma.cu); each returns a cudaError_t.
 int launch_gemm_bf16(const bf16* A, const bf16* W, int M, int N, int K, const Epi& e,
                      cudaStream_t st);
 int launch_win_attn_bf16(const bf16* q, const bf16* k, const bf16* v, size_t ld, float qscale,
                          const float* table, const float* dense, int dense_windows, bf16* out,
                          int num_windows, int C, int heads, WinMap m, cudaStream_t st);
+int launch_win_attn_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+                             size_t ld, float qscale, float scale, const float* table,
+                             const float* dense, int dense_windows, bf16* dq, bf16* dk, bf16* dv,
+                             float* dbias, int batch, int chunks, int C, int heads, WinMap m,
+                             cudaStream_t st);
 
 }  // namespace grit

@@ -31,7 +31,9 @@
 // pre-projection attention output that the backward wants, and the proj GEMM
 // stores through the window-reverse + unshift address (EPI_MAP).
 //
-// K5 replaces ::_bwd_kernel (through _backward): one block per (window of the
+// K5 replaces ::_bwd_kernel (through _backward).  In bf16 it runs on
+// win_attn_bwd_mma.cu (mma.sync tiles, the batch split over blocks).  The fp32
+// parity path keeps win_attn_bwd_kernel below: one block per (window of the
 // image, head) that loops over the batch, so the bias gradient of a window
 // kind is summed over images in a fixed order by the one block that owns it
 // (the TPU kernel revisits its dbias block across the batch grid axis); no
@@ -60,11 +62,15 @@
 // attention core a memory pass; in bf16 both run on kernels designed for
 // Hopper, in their own files: the GEMM on TMA + an mbarrier ring + wgmma
 // (gemm_sm90.cu), the attention core on mma.sync tiles with the softmax in
-// registers (window_attn_mma.cu).  The fp32 parity path keeps the SIMT FMA
-// GEMM tile and the SIMT attention core below.  LN is a memory pass.  Every
-// intermediate (xn, qkv, the attention output, the 4C-wide MLP hidden) goes
-// to device memory and back; keeping them on chip, as the TPU kernels keep
-// them in VMEM, is later work.
+// registers (window_attn_mma.cu).  The fp32 parity path keeps the SIMT
+// attention core below and a SIMT GEMM (no TF32: the parity runs compare with
+// the plain path in full f32), bound by operations at 67 TFLOP/s, the card's
+// f32 rate outside the tensor cores.  It is built to reach that rate (see
+// gemm_f32_kernel): 8 x 8 outputs a thread for four 16-byte shared-memory
+// reads a k, and the next k step's global loads in flight during this one's
+// FMAs.  LN is a memory pass.  Every intermediate (xn, qkv, the
+// attention output, the 4C-wide MLP hidden) goes to device memory and back;
+// keeping them on chip, as the TPU kernels keep them in VMEM, is later work.
 #include "common.cuh"
 
 namespace grit {
@@ -74,22 +80,37 @@ __device__ __forceinline__ size_t a_row(const Epi& e, int row) {
   return e.a_gather ? win_row_to_token(e.map, row, &pad) : (size_t)row;
 }
 
-template <typename T>
-__device__ __forceinline__ void epi_store(const Epi& e, int row, int col, int N, float acc) {
-  float v = e.bias ? acc + to_f<T>(static_cast<const T*>(e.bias)[col]) : acc;
-  size_t orow = (size_t)row;
-  if (e.mode == EPI_BIAS) {
-    if (col < e.scale_cols) v *= e.scale;
-  } else if (e.mode == EPI_GELU) {
-    v = 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
-  } else if (e.mode == EPI_RESID) {
-    v += to_f<T>(static_cast<const T*>(e.resid)[orow * N + col]);
-  } else {
-    bool pad;
-    orow = win_row_to_token(e.map, row, &pad);
-    if (e.mode == EPI_RESID_MAP && !pad) v += to_f<T>(static_cast<const T*>(e.resid)[orow * N + col]);
+// the fp32 GEMM's epilogue on four neighbouring columns col.. of one row
+// (the map modes remap only the row): v = epilogue(acc) per column, one
+// 16-byte store
+__device__ __forceinline__ void epi_store4(const Epi& e, int row, int col, int N, float (&v)[4]) {
+  if (e.bias) {
+    const float4 b = *reinterpret_cast<const float4*>(static_cast<const float*>(e.bias) + col);
+    v[0] = v[0] + b.x;
+    v[1] = v[1] + b.y;
+    v[2] = v[2] + b.z;
+    v[3] = v[3] + b.w;
   }
-  static_cast<T*>(e.out)[orow * N + col] = from_f<T>(v);
+  size_t orow = (size_t)row;
+  bool pad = false;
+  if (e.mode == EPI_RESID_MAP || e.mode == EPI_MAP) orow = win_row_to_token(e.map, row, &pad);
+  if (e.mode == EPI_BIAS) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (col + j < e.scale_cols) v[j] *= e.scale;
+  } else if (e.mode == EPI_GELU) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = 0.5f * v[j] * (1.0f + erff(v[j] * 0.7071067811865476f));
+  } else if (e.mode == EPI_RESID || (e.mode == EPI_RESID_MAP && !pad)) {
+    const float4 r = *reinterpret_cast<const float4*>(static_cast<const float*>(e.resid) +
+                                                      orow * N + col);
+    v[0] += r.x;
+    v[1] += r.y;
+    v[2] += r.z;
+    v[3] += r.w;
+  }
+  *reinterpret_cast<float4*>(static_cast<float*>(e.out) + orow * N + col) =
+      make_float4(v[0], v[1], v[2], v[3]);
 }
 
 // ---------------------------------------------------------------------------
@@ -176,63 +197,151 @@ __global__ void __launch_bounds__(256) ln_merge_kernel(
 
 // ---------------------------------------------------------------------------
 // out = epilogue(A W^T): A [M, K] row-major, W [N, K] (torch Linear layout).
-// fp32 (parity path): 64 x 64 block tile, 4 x 4 outputs per thread, SIMT FMA.
-// (bf16: gemm_sm90.cu.)
+// fp32 (the parity path; bf16: gemm_sm90.cu): SIMT FMA, no TF32, bound by
+// operations at 67 TFLOP/s.  A 128 x BN block tile (BN = 128, or 64 where the
+// product has too few 128-wide tiles to fill the SMs) over 16-deep k steps,
+// 256 threads, two blocks an SM.  Each thread holds 8 x (BN / 16) outputs as
+// 4 x 4 sub-tiles 64 rows and 64 columns apart, so that every operand read
+// from shared memory is a float4; a warp's threads read 4 neighbouring A and
+// 8 neighbouring W float4s (one bank wavefront each) for 64 FMAs a thread.
+// A and W tiles are stored k-major, transposed on the store (rows padded to
+// 132 floats), in two buffers: the next k step's 16-byte global loads are
+// issued before this step's FMAs and stored after them, one barrier a step.
+// K4's window gather keeps the source rows a thread loads, computed once.
+// Each output is one fmaf chain over k = 0 .. K-1 in order from 0, as in the
+// 64 x 64 tile this replaces, so fp32 results are bit-identical to it; no
+// split-K.  The epilogue stores 4 neighbouring columns at once.  Tried and
+// slower at the detector step's shapes (kernel_variants.py): 8-deep k steps,
+// 8 x 16 outputs a thread, one block an SM, 4-byte cp.async copies into the
+// transposed tiles with 2-4 steps in flight, 256 x 128 tiles.
 // ---------------------------------------------------------------------------
-constexpr int GF_M = 64, GF_N = 64, GF_K = 16;
+constexpr int GF_BM = 128, GF_BK = 16, GF_LDA = GF_BM + 4;
 
-__global__ void __launch_bounds__(256) gemm_f32_kernel(
+// BN: the tile's columns, 128 or 64; a thread holds TQ = BN / 64 groups of 4
+// columns 64 apart (256 threads: a warp is 4 rows of threads by 8 columns)
+template <int BN>
+__global__ void __launch_bounds__(256, 2) gemm_f32_kernel(
     const float* __restrict__ A, const float* __restrict__ W, int M, int N, int K, Epi e) {
-  __shared__ float As[GF_K][GF_M + 4];
-  __shared__ float Ws[GF_K][GF_N + 4];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.x * GF_M, n0 = blockIdx.y * GF_N;
-  float acc[4][4];
+  constexpr int NT = 256, TQ = BN / 64, CS = 64, WX = 2, LDW = BN + 4, BK = GF_BK, RQ = BK / 4;
+  constexpr int LA = GF_BM * RQ / NT, LW = (BN * RQ + NT - 1) / NT;  // float4 loads a thread
+  __shared__ __align__(16) float As[2][BK][GF_LDA];
+  __shared__ __align__(16) float Ws[2][BK][LDW];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ty = (warp / WX) * 4 + (lane >> 3), tx = (warp % WX) * 8 + (lane & 7);
+  const int m0 = blockIdx.x * GF_BM, n0 = blockIdx.y * BN;
+  // load l = tid + NT it: row l / RQ, k (l % RQ) * 4 .. + 3 of the tile
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float* ap[LA];
+  const float* wp[LW];
+  bool a_ok[LA], w_ok[LW];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  size_t arow[GF_M * GF_K / 256];  // this thread's A rows, fixed over the K loop
-#pragma unroll
-  for (int it = 0; it < GF_M * GF_K / 256; ++it) {
-    const int r = (tid + it * 256) / GF_K;
-    arow[it] = m0 + r < M ? a_row(e, m0 + r) : 0;
-  }
-
-  for (int k0 = 0; k0 < K; k0 += GF_K) {
-#pragma unroll
-    for (int it = 0; it < GF_M * GF_K / 256; ++it) {
-      const int c = tid + it * 256;
-      const int r = c / GF_K, kk = c - r * GF_K;
-      As[kk][r] = (m0 + r < M) ? A[arow[it] * K + k0 + kk] : 0.0f;
-      Ws[kk][r] = (n0 + r < N) ? W[(size_t)(n0 + r) * K + k0 + kk] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GF_K; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Ws[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int it = 0; it < LA; ++it) {
+    const int l = tid + NT * it, r = m0 + l / RQ;
+    a_ok[it] = r < M;
+    ap[it] = A + (a_ok[it] ? a_row(e, r) : 0) * K + (l % RQ) * 4;
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty * 4 + i;
+  for (int it = 0; it < LW; ++it) {
+    const int l = tid + NT * it, r = n0 + l / RQ;
+    w_ok[it] = l < BN * RQ && r < N;
+    wp[it] = W + (w_ok[it] ? (size_t)r : 0) * K + (l % RQ) * 4;
+  }
+
+  float acc[8][4 * TQ];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * TQ; ++j) acc[i][j] = 0.0f;
+
+  float4 ra[LA], rw[LW];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int it = 0; it < LA; ++it)
+      ra[it] = a_ok[it] ? *reinterpret_cast<const float4*>(ap[it] + k0) : zero;
+#pragma unroll
+    for (int it = 0; it < LW; ++it)
+      rw[it] = w_ok[it] ? *reinterpret_cast<const float4*>(wp[it] + k0) : zero;
+  };
+  // the fetched float4s, stored transposed (k-major) into buffer buf
+  auto stage = [&](int buf) {
+#pragma unroll
+    for (int it = 0; it < LA; ++it) {
+      const int l = tid + NT * it, r = l / RQ, k = (l % RQ) * 4;
+      As[buf][k][r] = ra[it].x;
+      As[buf][k + 1][r] = ra[it].y;
+      As[buf][k + 2][r] = ra[it].z;
+      As[buf][k + 3][r] = ra[it].w;
+    }
+#pragma unroll
+    for (int it = 0; it < LW; ++it) {
+      const int l = tid + NT * it, r = l / RQ, k = (l % RQ) * 4;
+      if (l < BN * RQ) {
+        Ws[buf][k][r] = rw[it].x;
+        Ws[buf][k + 1][r] = rw[it].y;
+        Ws[buf][k + 2][r] = rw[it].z;
+        Ws[buf][k + 3][r] = rw[it].w;
+      }
+    }
+  };
+  fetch(0);
+  stage(0);
+  __syncthreads();
+  const int kt_n = K / BK;
+  for (int kt = 0; kt < kt_n; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < kt_n) fetch((kt + 1) * BK);  // in flight during this step's FMAs
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][kk][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][kk][64 + ty * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      float b[4 * TQ];
+#pragma unroll
+      for (int q = 0; q < TQ; ++q) {
+        const float4 bv = *reinterpret_cast<const float4*>(&Ws[cur][kk][q * CS + tx * 4]);
+        b[4 * q] = bv.x, b[4 * q + 1] = bv.y, b[4 * q + 2] = bv.z, b[4 * q + 3] = bv.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4 * TQ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (kt + 1 < kt_n) stage(cur ^ 1);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + (i >> 2) * 64 + ty * 4 + (i & 3);
     if (row >= M) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col < N) epi_store<float>(e, row, col, N, acc[i][j]);
+    for (int q = 0; q < TQ; ++q) {
+      const int col = n0 + q * CS + tx * 4;  // N % 4 == 0: the four columns are all in or out
+      if (col >= N) continue;
+      float v[4] = {acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2], acc[i][4 * q + 3]};
+      epi_store4(e, row, col, N, v);
     }
   }
+}
+
+// the fp32 GEMM's launch: 128-wide tiles where they give two blocks for every SM
+int launch_gemm_f32(const float* A, const float* W, int M, int N, int K, const Epi& e,
+                    cudaStream_t st) {
+  if (N % 4 || K % GF_BK) return (int)cudaErrorInvalidValue;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int mt = (M + GF_BM - 1) / GF_BM;
+  if ((long long)mt * ((N + 127) / 128) >= 2LL * sms) {
+    gemm_f32_kernel<128><<<dim3(mt, (N + 127) / 128), 256, 0, st>>>(A, W, M, N, K, e);
+  } else {
+    gemm_f32_kernel<64><<<dim3(mt, (N + 63) / 64), 256, 0, st>>>(A, W, M, N, K, e);
+  }
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -349,7 +458,8 @@ __global__ void __launch_bounds__(256) win_attn_f32_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K5: window attention backward.  qkv: [B*nW*N, 3C] as the forward stored it
+// K5 in fp32 (the parity path; bf16: win_attn_bwd_mma.cu): window attention
+// backward.  qkv: [B*nW*N, 3C] as the forward stored it
 // (q pre-scaled); dout: [B*nW*N, C], the gradient of the attention core's
 // output; dqkv: [B*nW*N, 3C], gradients of the qkv projection's output (dq
 // carries the q scale); dbias: f32 [nW, heads, N, N], dS summed over images.
@@ -594,9 +704,9 @@ int grit_ln_rows(const void* x, const void* g, const void* b, void* out, int row
 
 // out = epilogue(A [M, K] @ W[N, K]^T); bias [N] in the storage type, as
 // flax's Dense casts it.  bf16 needs N % 128 == 0 and K % 64 == 0 (gemm_sm90.cu),
-// fp32 N % 64 == 0 and K % 16 == 0 (checked by the Python wrappers).  With
-// a_gather, A is the map and row r of the product reads map token
-// win_row_to_token(r).
+// fp32 N % 4 == 0 and K % 8 == 0 (the Python wrappers check the stricter
+// GEMM_TILES).  With a_gather, A is the map and row r of the product reads map
+// token win_row_to_token(r).
 int grit_gemm(const void* A, const void* W, const void* bias, void* out, const void* resid,
               int M, int N, int K, int mode, float scale, int scale_cols, int Hp, int Wp,
               int win, int shift, int real_h, int real_w, int a_gather, int dtype,
@@ -607,10 +717,8 @@ int grit_gemm(const void* A, const void* W, const void* bias, void* out, const v
   if (dtype == 1)
     return launch_gemm_bf16(static_cast<const bf16*>(A), static_cast<const bf16*>(W), M, N, K, e,
                             st);
-  dim3 grid((M + GF_M - 1) / GF_M, (N + GF_N - 1) / GF_N);
-  gemm_f32_kernel<<<grid, 256, 0, st>>>(static_cast<const float*>(A),
-                                       static_cast<const float*>(W), M, N, K, e);
-  return (int)cudaGetLastError();
+  return launch_gemm_f32(static_cast<const float*>(A), static_cast<const float*>(W), M, N, K, e,
+                         st);
 }
 
 // qkv: [num_windows * win^2, 3C]; table f32 [(2win-1)^2, heads]; out [.., C].
@@ -626,19 +734,25 @@ int grit_window_attn(const void* qkv, const void* table, void* out, int num_wind
                          1.0f, table, nullptr, 1, out, num_windows, C, heads, m, st);
 }
 
-// K5 (see win_attn_bwd_kernel): qkv, dqkv [batch * nW * win^2, 3C]; dout [.., C];
-// table f32 [(2win-1)^2, heads]; dbias f32 [nW, heads, win^2, win^2].
+// K5 (bf16: win_attn_bwd_mma.cu; fp32: win_attn_bwd_kernel): qkv, dqkv
+// [batch * nW * win^2, 3C]; dout [.., C]; table f32 [(2win-1)^2, heads]; dbias
+// f32 [chunks, nW, heads, win^2, win^2], dS summed over each of `chunks`
+// balanced chunks of the batch (fp32: chunks = 1).
 int grit_window_attn_bwd(const void* qkv, const void* dout, const void* table, void* dqkv,
-                         void* dbias, int batch, int C, int heads, float scale, int Hp, int Wp,
-                         int win, int shift, int dtype, void* stream) {
+                         void* dbias, int batch, int chunks, int C, int heads, float scale,
+                         int Hp, int Wp, int win, int shift, int dtype, void* stream) {
   WinMap m{Hp, Wp, win, shift, Hp, Wp};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t ld = 3 * (size_t)C;
-  if (dtype == 1)
-    return launch_win_attn_bwd<bf16>(
-        qkv, col_block<bf16>(qkv, C, 1), col_block<bf16>(qkv, C, 2), dout, ld, 1.0f, table,
-        nullptr, 1, dqkv, col_block<bf16>(dqkv, C, 1), col_block<bf16>(dqkv, C, 2), dbias, batch,
-        C, heads, scale, m, st);
+  if (dtype == 1) {
+    const bf16* q = static_cast<const bf16*>(qkv);
+    bf16* dq = static_cast<bf16*>(dqkv);
+    return launch_win_attn_bwd_bf16(q, q + C, q + 2 * C, static_cast<const bf16*>(dout), ld, 1.0f,
+                                    scale, static_cast<const float*>(table), nullptr, 1, dq,
+                                    dq + C, dq + 2 * C, static_cast<float*>(dbias), batch, chunks,
+                                    C, heads, m, st);
+  }
+  if (chunks != 1) return (int)cudaErrorInvalidValue;
   return launch_win_attn_bwd<float>(
       qkv, col_block<float>(qkv, C, 1), col_block<float>(qkv, C, 2), dout, ld, 1.0f, table,
       nullptr, 1, dqkv, col_block<float>(dqkv, C, 1), col_block<float>(dqkv, C, 2), dbias, batch,
@@ -655,17 +769,23 @@ int grit_window_attn_dense(const void* q, const void* k, const void* v, const vo
                          batch * nW, C, heads, m, static_cast<cudaStream_t>(stream));
 }
 
-// K8 backward: dq, dk, dv as q; dbias f32 [nW, heads, win^2, win^2], dS summed
-// over the batch (the sum over windows for a one-window bias is the caller's).
+// K8 backward: dq, dk, dv as q; dbias f32 [chunks, nW, heads, win^2, win^2], dS
+// summed over each chunk of the batch (the sums over chunks, and over windows
+// for a one-window bias, are the caller's; fp32: chunks = 1).
 int grit_window_attn_dense_bwd(const void* q, const void* k, const void* v, const void* dout,
                                const void* bias, void* dq, void* dk, void* dv, void* dbias,
-                               int batch, int nW, int win, int C, int heads, int bias_windows,
-                               float scale, int dtype, void* stream) {
+                               int batch, int chunks, int nW, int win, int C, int heads,
+                               int bias_windows, float scale, int dtype, void* stream) {
   WinMap m{win, win * nW, win, 0, win, win * nW};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_win_attn_bwd<bf16>(q, k, v, dout, (size_t)C, scale, nullptr, bias, bias_windows,
-                                     dq, dk, dv, dbias, batch, C, heads, scale, m, st);
+    return launch_win_attn_bwd_bf16(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), (size_t)C, scale, scale, nullptr,
+        static_cast<const float*>(bias), bias_windows, static_cast<bf16*>(dq),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float*>(dbias), batch, chunks,
+        C, heads, m, st);
+  if (chunks != 1) return (int)cudaErrorInvalidValue;
   return launch_win_attn_bwd<float>(q, k, v, dout, (size_t)C, scale, nullptr, bias, bias_windows,
                                     dq, dk, dv, dbias, batch, C, heads, scale, m, st);
 }

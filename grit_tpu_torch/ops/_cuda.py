@@ -35,9 +35,9 @@ _SIGNATURES = {
     "grit_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
                   _I, _I, _I, _I, _P],
     "grit_window_attn": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "grit_window_attn_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
+    "grit_window_attn_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     "grit_window_attn_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    "grit_window_attn_dense_bwd": [_P] * 9 + [_I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "grit_window_attn_dense_bwd": [_P] * 9 + [_I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "grit_ln_linear": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "grit_msda": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "grit_msda_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -37,6 +37,23 @@ def relative_position_index(window: int, device=None) -> torch.Tensor:
     return torch.as_tensor(idx, dtype=torch.long, device=device)
 
 
+def relative_position_gather(window: int, device=None) -> torch.Tensor:
+    """[(2w-1)^2, N] long, N = window^2: for each row r of the relative-bias
+    table, the flat positions i N + j of the [N, N] bias that read row r
+    (``relative_position_index`` is r there), in increasing order, padded
+    with N^2.  With a zero appended to a flattened [.., N^2] gradient, a
+    gather by this index and a sum over its last axis scatter the gradient
+    into the table in a fixed order (no atomics)."""
+    n = window * window
+    idx = relative_position_index(window).numpy().reshape(-1)
+    rows = (2 * window - 1) ** 2
+    out = np.full((rows, n), n * n, np.int64)
+    for r in range(rows):
+        pos = np.flatnonzero(idx == r)
+        out[r, :len(pos)] = pos
+    return torch.as_tensor(out, device=device)
+
+
 def shifted_window_mask(hp: int, wp: int, window: int, shift: int,
                         device=None) -> torch.Tensor:
     """Additive mask [nW, window^2, window^2] for SW-MSA on the padded grid:

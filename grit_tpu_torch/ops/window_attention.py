@@ -8,13 +8,15 @@ reduction) and K10b (the patch-embed LayerNorm).
 ``mlp`` its ``_mlp_kernel`` (via ``fused_mlp``), ``block_attention`` its
 ``_block_kernel`` (via ``fused_block_attention``, with ``save_attn`` the
 differentiating forward) and ``window_attention_bwd`` its ``_bwd_kernel``
-(via ``_backward``).  On a CUDA tensor each launches the hand-written kernels
-in ``csrc/swin_block.cu`` (design notes there) or raises; on a CPU tensor each
-runs its plain version (``*_plain``), which defines the dtype semantics the
-kernels reproduce: f32 LN statistics with var = E[x^2] - mu^2, f32 matmul
-accumulation, q scaled before rounding to the storage type, softmax
-probabilities rounded to the storage type before the value product,
-exact-erf GELU, residuals added in f32.
+(via ``_backward``; bf16 on ``csrc/win_attn_bwd_mma.cu``).  On a CUDA tensor
+each launches the hand-written kernels in ``csrc/swin_block.cu`` (design notes
+there) or raises; on a CPU tensor each runs its plain version (``*_plain``),
+which defines the dtype semantics the kernels reproduce: f32 LN statistics
+with var = E[x^2] - mu^2, f32 matmul accumulation, q scaled before rounding
+to the storage type, softmax probabilities rounded to the storage type before
+the value product (and, in the backward, the score gradient times the scale
+rounded before the q and k products), exact-erf GELU, residuals added in
+f32.
 
 Two kernels do most of the work inside them, each launched by one helper
 here: ``gemm`` (every product of K1, K2, K4 and K10a; bf16 on
@@ -41,30 +43,42 @@ shift into their addresses.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from grit_tpu_torch.ops import _cuda
-from grit_tpu_torch.ops.window import (relative_position_index,
+from grit_tpu_torch.ops.window import (relative_position_gather, relative_position_index,
                                        shifted_window_mask, window_partition,
                                        window_reverse)
 
 LN_EPS = 1e-5
 
 #: Kernel launches per wrapper (one per call that reached the CUDA kernels),
-#: and of the GEMM and the attention core inside them, by storage type.
+#: and of the GEMM, the attention core and its backward inside them, by
+#: storage type.
 LAUNCHES = {"block_step": 0, "mlp": 0, "block_attention": 0, "window_attention_bwd": 0,
             "window_attention": 0, "window_attention_grad": 0, "ln_linear": 0,
             "layernorm_rows": 0, "gemm_bf16": 0, "gemm_f32": 0, "win_attn_bf16": 0,
-            "win_attn_f32": 0}
+            "win_attn_f32": 0, "win_attn_bwd_bf16": 0, "win_attn_bwd_f32": 0}
 
 #: the GEMM's epilogues (csrc/common.cuh)
 EPILOGUES = {"bias": 0, "gelu": 1, "resid": 2, "resid_map": 3, "map": 4}
 #: (N, K) multiples that the GEMM kernels tile: bf16's wgmma kernel takes
-#: 128-column output tiles and 64-deep K steps, fp32's SIMT tile 64 and 16
+#: 128-column output tiles and 64-deep K steps; fp32's SIMT kernel masks its
+#: 128- or 64-column tiles in whole float4s over 8-deep K steps, and is held
+#: to the 64 and 16 its earlier tile needed until the other Swin presets
+#: bring K tails
 GEMM_TILES = {torch.bfloat16: (128, 64), torch.float32: (64, 16)}
-#: K5 keeps Q, K, V, dO and an N x N matrix in shared memory (227 KB a block)
-_MAX_BWD_WINDOW = 13
+#: K5 and K8's backward take even windows up to 12 (N <= 144): the bf16
+#: kernel's two N x N bf16 tiles and its double-buffered rows, and the fp32
+#: kernel's Q, K, V, dO and N x N matrix, fill a block's 227 KB of shared
+#: memory; both read bias pairs (or fours) of columns
+_MAX_BWD_WINDOW = 12
+#: the bf16 backward kernel runs one block an SM; it splits the batch into
+#: chunks (one block each) until a launch has about this many waves of blocks
+_BWD_WAVES = 2
 
 
 def _dtype_name(dt) -> str:
@@ -107,6 +121,24 @@ def _qkv_plain(xw, qkv_w, qkv_b, num_heads: int) -> torch.Tensor:
     return (qkv * scale).to(xw.dtype)
 
 
+def _heads(t: torch.Tensor, n: int, num_heads: int) -> torch.Tensor:
+    """Window-order rows [B*nW*N, C] -> f32 [B*nW, heads, N, C / heads]."""
+    return t.float().reshape(-1, n, num_heads, t.shape[-1] // num_heads).transpose(1, 2)
+
+
+def _scores(q, k, table, *, batch: int, hp: int, wp: int, window: int, shift: int):
+    """S = q k^T + the relative-position bias (+ the shifted-window mask), f32
+    [B*nW, heads, N, N] from q, k [B*nW, heads, N, d]."""
+    n, num_heads = window * window, q.shape[1]
+    s = q @ k.transpose(-1, -2)
+    idx = relative_position_index(window, q.device)
+    s = s + table.float()[idx.reshape(-1)].reshape(n, n, num_heads).permute(2, 0, 1)
+    if shift:
+        mask = shifted_window_mask(hp, wp, window, shift, q.device)  # [nW, N, N]
+        s = (s.reshape(batch, -1, num_heads, n, n) + mask[None, :, None]).reshape(s.shape)
+    return s
+
+
 def attention_core_plain(qkv, table, *, batch: int, hp: int, wp: int, num_heads: int,
                            window: int, shift: int = 0) -> torch.Tensor:
     """Plain version of the window-attention core: qkv [B*nW*N, 3C] in
@@ -115,20 +147,10 @@ def attention_core_plain(qkv, table, *, batch: int, hp: int, wp: int, num_heads:
     shifted-window mask from the padded grid."""
     c = qkv.shape[-1] // 3
     n = window * window
-    d = c // num_heads
-    dt = qkv.dtype
-
-    def heads(t):
-        return t.float().reshape(-1, n, num_heads, d).transpose(1, 2)
-
-    s = heads(qkv[:, :c]) @ heads(qkv[:, c:2 * c]).transpose(-1, -2)   # [BW, h, N, N]
-    idx = relative_position_index(window, qkv.device)
-    s = s + table.float()[idx.reshape(-1)].reshape(n, n, num_heads).permute(2, 0, 1)
-    if shift:
-        mask = shifted_window_mask(hp, wp, window, shift, qkv.device)  # [nW, N, N]
-        s = (s.reshape(batch, -1, num_heads, n, n) + mask[None, :, None]).reshape(s.shape)
-    p = torch.softmax(s, dim=-1).to(dt).float()
-    return (p @ heads(qkv[:, 2 * c:])).transpose(1, 2).reshape(-1, c).to(dt)
+    q, k, v = (_heads(qkv[:, i * c:(i + 1) * c], n, num_heads) for i in range(3))
+    s = _scores(q, k, table, batch=batch, hp=hp, wp=wp, window=window, shift=shift)
+    p = torch.softmax(s, dim=-1).to(qkv.dtype).float()
+    return (p @ v).transpose(1, 2).reshape(-1, c).to(qkv.dtype)
 
 
 def attention_core(qkv, table, *, batch: int, hp: int, wp: int, num_heads: int, window: int,
@@ -399,30 +421,88 @@ def block_attention(x, qkv_w, qkv_b, proj_w, proj_b, table, *, num_heads: int, w
 
 def window_attention_bwd_plain(qkv, d_ao, table, *, batch: int, hp: int, wp: int,
                                num_heads: int, window: int, shift: int = 0):
-    """Plain version of K5, by autograd of ``attention_core_plain``: from qkv
-    [B*nW*N, 3C] (q pre-scaled) and the gradient of the attention output,
-    (dqkv [B*nW*N, 3C] in qkv's dtype, the gradients of the qkv projection's
-    output, so dq carries the q scale; dtable f32 [(2w-1)^2, heads])."""
+    """Plain version of K5: from qkv [B*nW*N, 3C] (q pre-scaled by s = d^-1/2)
+    and the gradient of the attention output, (dqkv [B*nW*N, 3C] in qkv's
+    dtype, the gradients of the qkv projection's output, so dq carries the q
+    scale; dtable f32 [(2w-1)^2, heads]).
+
+    The TPU body's formulas and rounding points (``_bwd_kernel``): P
+    recomputed in f32; dV = P^T dO with P rounded to the storage type; dP =
+    dO V^T; dS = P (dP - rowsum(dP P)); dS s rounded to the storage type, then
+    dQ = (dS s) K and dK = (dS s)^T Q / s (Q holds q s); the bias gradient is
+    the f32 dS summed over images and windows, scattered into the table's
+    rows.  Products accumulate in f32; each output is rounded once."""
     c = qkv.shape[-1] // 3
-    with torch.enable_grad():
-        qkv_l = qkv.detach().requires_grad_()
-        table_l = table.detach().requires_grad_()
-        ao = attention_core_plain(qkv_l, table_l, batch=batch, hp=hp, wp=wp,
-                                    num_heads=num_heads, window=window, shift=shift)
-        dqkv, dtable = torch.autograd.grad(ao, (qkv_l, table_l), d_ao)
-    scale = torch.ones(3 * c, device=qkv.device)
-    scale[:c] = (c // num_heads) ** -0.5
-    return (dqkv.float() * scale).to(qkv.dtype), dtable
+    n = window * window
+    dt = qkv.dtype
+    scale = (c // num_heads) ** -0.5
+    q, k, v = (_heads(qkv[:, i * c:(i + 1) * c], n, num_heads) for i in range(3))
+    do = _heads(d_ao, n, num_heads)
+    p = torch.softmax(_scores(q, k, table, batch=batch, hp=hp, wp=wp, window=window,
+                              shift=shift), dim=-1)
+    dv = p.to(dt).float().transpose(-1, -2) @ do
+    dp = do @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    ds_s = (ds * scale).to(dt).float()
+    dq = ds_s @ k
+    dk = ds_s.transpose(-1, -2) @ q / scale
+
+    def rows(t):
+        return t.transpose(1, 2).reshape(-1, c)
+
+    dqkv = torch.cat([rows(dq), rows(dk), rows(dv)], 1).to(dt)
+    return dqkv, _table_grad(ds.sum(0), window)
+
+
+@functools.lru_cache(maxsize=None)
+def _table_gather(window: int, device: torch.device) -> torch.Tensor:
+    return relative_position_gather(window, device)
+
+
+def _table_grad(dbias: torch.Tensor, window: int) -> torch.Tensor:
+    """The bias gradient [heads, N, N] (f32, summed over windows) scattered
+    into the table's rows, [(2w-1)^2, heads]: each row's sum in a fixed order
+    (``relative_position_gather``), so the result is the same bit for bit
+    from call to call."""
+    h = dbias.shape[0]
+    flat = torch.cat([dbias.reshape(h, -1), dbias.new_zeros(h, 1)], 1)
+    return flat[:, _table_gather(window, dbias.device)].sum(-1).t().contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def bwd_batch_chunks(batch: int, blocks_per_image: int, sms: int) -> int:
+    """Into how many chunks the bf16 backward kernel (K5, K8's backward)
+    splits the batch: one block per (window, head, chunk), each walking its
+    chunk's images in order.  Enough chunks for about ``_BWD_WAVES`` waves of
+    blocks over ``sms`` SMs, one where the windows and heads alone fill them,
+    at most one per image.  Each chunk adds a [nW, heads, N, N] f32 slice to
+    the partial bias gradient."""
+    return max(1, min(batch, -(-_BWD_WAVES * sms // blocks_per_image)))
+
+
+def _bwd_chunks(t: torch.Tensor, batch: int, blocks_per_image: int) -> int:
+    """``bwd_batch_chunks`` on ``t``'s card in bf16; the fp32 kernel takes one."""
+    if t.dtype != torch.bfloat16:
+        return 1
+    index = t.device.index if t.device.index is not None else torch.cuda.current_device()
+    return bwd_batch_chunks(batch, blocks_per_image, _sm_count(index))
 
 
 def window_attention_bwd(qkv, d_ao, table, *, batch: int, hp: int, wp: int, num_heads: int,
                          window: int, shift: int = 0):
     """K5: window-attention backward with the probabilities recomputed (see
-    ``window_attention_bwd_plain``).  The kernel sums the bias gradient over
-    the batch per window of the image, [nW, heads, N, N] f32; the sum over
-    windows and the scatter into the table's rows are plain torch, as the
-    table gather is outside the TPU kernel too.  CPU tensors run the plain
-    version; CUDA tensors launch the kernel or raise."""
+    ``window_attention_bwd_plain``).  One kernel launch (bf16:
+    ``csrc/win_attn_bwd_mma.cu``, the batch split into ``bwd_batch_chunks``
+    chunks; fp32: ``swin_block.cu::win_attn_bwd_kernel``) sums the bias
+    gradient over each chunk's images per window of the image, [chunks, nW,
+    heads, N, N] f32; the sum over chunks and windows and the scatter into
+    the table's rows are plain torch in a fixed order, as the table gather is
+    outside the TPU kernel too.  CPU tensors run the plain version; CUDA
+    tensors launch the kernel or raise."""
     if qkv.device.type == "cpu":
         return window_attention_bwd_plain(qkv, d_ao, table, batch=batch, hp=hp, wp=wp,
                                           num_heads=num_heads, window=window, shift=shift)
@@ -437,24 +517,23 @@ def window_attention_bwd(qkv, d_ao, table, *, batch: int, hp: int, wp: int, num_
         raise ValueError(f"window_attention_bwd: head dim must be 32, got {c}/{num_heads}")
     if window > _MAX_BWD_WINDOW or window % 2:
         raise ValueError(f"window_attention_bwd: window {window} is odd or exceeds "
-                         f"{_MAX_BWD_WINDOW} (the block's shared memory, read 4 columns wide)")
+                         f"{_MAX_BWD_WINDOW} (the block's shared memory; bias columns in pairs)")
     if hp % window or wp % window or rows != batch * nw * n:
         raise ValueError(f"window_attention_bwd: {rows} rows for {batch} maps of {hp}x{wp}")
     _cuda.require(qkv, "qkv", dt, (rows, 3 * c))
     _cuda.require(d_ao, "d_ao", dt, (rows, c))
     _cuda.require(table, "table", torch.float32, ((2 * window - 1) ** 2, num_heads))
     lib = _cuda.library()
+    chunks = _bwd_chunks(qkv, batch, nw * num_heads)
     dqkv = torch.empty_like(qkv)
-    dbias = torch.empty((nw, num_heads, n, n), dtype=torch.float32, device=qkv.device)
+    dbias = torch.empty((chunks, nw, num_heads, n, n), dtype=torch.float32, device=qkv.device)
     _cuda.check(lib.grit_window_attn_bwd(
         qkv.data_ptr(), d_ao.data_ptr(), table.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(),
-        batch, c, num_heads, (c // num_heads) ** -0.5, hp, wp, window, shift,
+        batch, chunks, c, num_heads, (c // num_heads) ** -0.5, hp, wp, window, shift,
         _cuda.DTYPE_CODE[dt], _cuda.stream()), "window_attention_bwd")
     LAUNCHES["window_attention_bwd"] += 1
-    idx = relative_position_index(window, qkv.device).reshape(-1)
-    dtable = torch.zeros_like(table).index_add_(
-        0, idx, dbias.sum(0).reshape(num_heads, n * n).t())
-    return dqkv, dtable
+    LAUNCHES["win_attn_bwd_" + _dtype_name(dt)] += 1
+    return dqkv, _table_grad(dbias.sum((0, 1)), window)
 
 
 class _BlockAttentionFn(torch.autograd.Function):
@@ -670,13 +749,16 @@ class _WindowAttentionFn(torch.autograd.Function):
         dout = dout.to(q.dtype).contiguous()
         _cuda.require(dout, "dout", q.dtype, (b, nw, n, c))
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        dbias = torch.empty((nw, num_heads, n, n), dtype=torch.float32, device=q.device)
+        chunks = _bwd_chunks(q, b, nw * num_heads)
+        dbias = torch.empty((chunks, nw, num_heads, n, n), dtype=torch.float32, device=q.device)
         _cuda.check(_cuda.library().grit_window_attn_dense_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), bias_f.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), b, nw, win, c,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), b, chunks, nw, win, c,
             num_heads, bias.shape[0], scale, _cuda.DTYPE_CODE[q.dtype], _cuda.stream()),
             "window_attention backward")
         LAUNCHES["window_attention_grad"] += 1
+        LAUNCHES["win_attn_bwd_" + _dtype_name(q.dtype)] += 1
+        dbias = dbias.sum(0)
         if bias.shape[0] == 1:
             dbias = dbias.sum(0, keepdim=True)
         return dq, dk, dv, dbias.to(bias.dtype), None, None

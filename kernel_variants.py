@@ -1,6 +1,7 @@
-"""Time variants of the bf16 Swin kernels' sources side by side on one card.
+"""Time variants of the Swin kernels' sources side by side on one card.
 
-  python3 kernel_variants.py
+  python3 kernel_variants.py                  # every variant
+  python3 kernel_variants.py swin_block.cu    # the variants of the named sources
 
 A tool for finding where a Hopper kernel's time goes: each variant is a
 source under grit_tpu_torch/csrc with text substitutions, compiled by its own
@@ -14,6 +15,11 @@ call for the same function, at the shapes of a b8 384x640 caption forward
   window_attn_mma.cu, K1's core: as it is; with an IEEE division for each
     probability in place of one reciprocal a row; beside
     scaled_dot_product_attention with an additive mask.
+  swin_block.cu's fp32 GEMM, every product in its bias epilogue at the shapes
+    of a b4 832x1344 detector step (the fp32 CLI's): as it is; with 8-deep
+    k steps; one block an SM; the main loop alone; beside F.linear in fp32;
+    each variant's outputs checked equal to the first's bit for bit (every
+    variant keeps the fmaf chain of each output).
 
 Prints one line per kernel and writes chiprun_out/kernel_variants.json.
 Needs a card and nvcc; exits non-zero without them.
@@ -38,6 +44,10 @@ OUT = Path("chiprun_out") / "kernel_variants"
 STAGES = ((128, 4, (96, 168), 2), (256, 8, (48, 84), 2), (512, 16, (24, 48), 18),
           (1024, 32, (12, 24), 2))
 BATCH, WINDOW = 8, 12
+# the b4 832x1344 detector step's stages, every one training
+DET_STAGES = ((128, 4, (216, 336), 2), (256, 8, (108, 168), 2), (512, 16, (60, 84), 18),
+              (1024, 32, (36, 48), 2))
+DET_BATCH = 4
 SHIMS = {
     "gemm_sm90.cu": r'''
 #include "common.cuh"
@@ -46,6 +56,30 @@ extern "C" int variant_entry(const void* A, const void* W, const void* bias, voi
   grit::Epi e{bias, out, nullptr, grit::EPI_BIAS, 1.0f, 0, grit::WinMap{1, 1, 1, 0, 1, 1}, 0};
   return grit::launch_gemm_bf16((const grit::bf16*)A, (const grit::bf16*)W, M, N, K, e,
                                 (cudaStream_t)st);
+}
+''',
+    "swin_block.cu": r'''
+#include "common.cuh"
+namespace grit {  // the other sources' launchers, not built into the variant
+int launch_gemm_bf16(const bf16*, const bf16*, int, int, int, const Epi&, cudaStream_t) {
+  return 1;
+}
+int launch_win_attn_bf16(const bf16*, const bf16*, const bf16*, size_t, float, const float*,
+                         const float*, int, bf16*, int, int, int, WinMap, cudaStream_t) {
+  return 1;
+}
+int launch_win_attn_bwd_bf16(const bf16*, const bf16*, const bf16*, const bf16*, size_t, float,
+                             float, const float*, const float*, int, bf16*, bf16*, bf16*, float*,
+                             int, int, int, int, WinMap, cudaStream_t) {
+  return 1;
+}
+}  // namespace grit
+extern "C" int grit_gemm(const void*, const void*, const void*, void*, const void*, int, int,
+                         int, int, float, int, int, int, int, int, int, int, int, int, void*);
+extern "C" int variant_entry(const void* A, const void* W, const void* bias, void* out, int M,
+                             int N, int K, void* st) {
+  return grit_gemm(A, W, bias, out, nullptr, M, N, K, grit::EPI_BIAS, 1.0f, 0, 1, 1, 1, 0, 1, 1,
+                   0, 0, st);
 }
 ''',
     "window_attn_mma.cu": r'''
@@ -70,7 +104,15 @@ VARIANTS = [
     ("window_attn_mma.cu", "a division per probability", [
         (" * ra,", " / suma,"), (" * ra);", " / suma);"), (" * rb,", " / sumb,"),
         (" * rb);", " / sumb);")]),
+    ("swin_block.cu", "as is", []),
+    ("swin_block.cu", "k step 8", [("GF_BK = 16", "GF_BK = 8")]),
+    ("swin_block.cu", "one block an SM", [
+        ("__launch_bounds__(256, 2) gemm_f32_kernel", "__launch_bounds__(256, 1) gemm_f32_kernel")]),
+    ("swin_block.cu", "main loop alone", [
+        ("    if (row >= M) continue;\n#pragma unroll\n    for (int q = 0; q < TQ; ++q) {",
+         "    if (row >= M || K > 0) continue;\n#pragma unroll\n    for (int q = 0; q < TQ; ++q) {")]),
 ]
+SELECTED = set(sys.argv[1:])
 
 
 def graph_ms(fn, reps: int = 10) -> float:
@@ -97,6 +139,8 @@ def build() -> list:
     csrc = _cuda.CSRC
     jobs = []
     for i, (src, name, subs) in enumerate(VARIANTS):
+        if SELECTED and src not in SELECTED:
+            continue
         text = (csrc / src).read_text()
         for old, new in subs:
             if text.count(old) < 1:
@@ -116,7 +160,7 @@ def build() -> list:
             raise RuntimeError(f"nvcc failed for {src} / {name}:\n{log[-4000:]}")
         built.append((src, name, ctypes.CDLL(str(lib))))
     for src, _, lib in built:
-        n_ptr = 4 if src == "gemm_sm90.cu" else 3
+        n_ptr = 4 if src in ("gemm_sm90.cu", "swin_block.cu") else 3
         lib.variant_entry.argtypes = ([ctypes.c_void_p] * n_ptr
                                       + [ctypes.c_int] * (3 if n_ptr == 4 else 7)
                                       + [ctypes.c_void_p])
@@ -183,11 +227,47 @@ def main() -> None:
         key = "win_attn: SDPA + mask"
         totals[key] = totals.get(key, 0.0) + graph_ms(
             lambda: F.scaled_dot_product_attention(q, kk, v, attn_mask=mask)) * depth
+    f32 = torch.float32
+    same: dict[str, bool] = {}   # an fp32 GEMM variant's outputs equal to the first's
+    for c, heads, (hp, wp), depth in DET_STAGES:
+        if not any(src == "swin_block.cu" for src, _, _ in built):
+            break
+        rows = DET_BATCH * hp * wp
+        a = torch.randn(rows, c, generator=g, device="cuda")
+        h4 = torch.randn(rows, 4 * c, generator=g, device="cuda")
+        for x, (n, k) in ((a, (3 * c, c)), (a, (c, c)), (a, (4 * c, c)), (h4, (c, 4 * c))):
+            w = torch.randn(n, k, generator=g, device="cuda") * k ** -0.5
+            bias = torch.randn(n, generator=g, device="cuda")
+            out = torch.empty(rows, n, device="cuda", dtype=f32)
+            first = None
+            for src, name, lib in built:
+                if src != "swin_block.cu":
+                    continue
+
+                def call(lib=lib):
+                    err = lib.variant_entry(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                                            out.data_ptr(), rows, n, k, stream())
+                    if err:
+                        raise RuntimeError(f"fp32 gemm variant {name}: CUDA error {err}")
+
+                # every variant keeps each output's fmaf chain: the same bits as the first
+                out.fill_(float("nan"))
+                call()
+                if first is None:
+                    first = out.clone()
+                key = f"gemm_f32: {name}"
+                same[key] = same.get(key, True) and torch.equal(out, first)
+                totals[key] = totals.get(key, 0.0) + graph_ms(call) * depth
+            key = "gemm_f32: F.linear"
+            totals[key] = totals.get(key, 0.0) + graph_ms(lambda: F.linear(x, w, bias)) * depth
     for key, ms in totals.items():
-        print(f"{key:<45} {ms:.3f} ms a b{BATCH} forward  [{card}]")
+        per = (f"b{DET_BATCH} 832x1344 detector step" if key.startswith("gemm_f32")
+               else f"b{BATCH} forward")
+        bits = f", bit-equal to the first: {same[key]}" if key in same else ""
+        print(f"{key:<45} {ms:.3f} ms a {per}{bits}  [{card}]")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "kernel_variants.json"), "w") as f:
-        json.dump({"card": card, "ms_per_forward": totals}, f, indent=1)
+        json.dump({"card": card, "ms_per_run": totals, "bit_equal_to_first": same}, f, indent=1)
 
 
 if __name__ == "__main__":

@@ -20,7 +20,9 @@ core pin its rounding points (q after the scale, P before the value
 product), which the Hopper kernel keeps: at most 1% of the outputs may differ
 from the Pallas body, each by at most one bf16 ulp (only an f32 summation
 order can flip a rounding), where dropping either rounding point changes
-~40% of them.
+~40% of them.  The same holds the bf16 backward's plain version (K5) to the
+Pallas ``_bwd_kernel``: P rounded before dV, the score gradient times the
+scale rounded before dQ and dK.
 
 The one-launch helpers that chip_smoke.py times on the card (``gemm``,
 ``attention_core``) run their plain versions here, and those compose to
@@ -343,6 +345,48 @@ def test_attention_core_plain_bf16_matches_jax_kernel(bias_kind):
     ulp = 2.0 ** -7 * np.abs(ref).max()          # one bf16 ulp at the largest output
     assert np.mean(out != ref) <= 0.01
     np.testing.assert_allclose(out, ref, atol=ulp, rtol=0)
+
+
+@pytest.mark.parametrize("shift", [0, 3])
+def test_window_attention_bwd_plain_bf16_matches_jax_kernel(shift):
+    """bf16: K5's plain version against the Pallas ``_bwd_kernel`` in
+    interpret mode (``_backward``), fed the same bf16 qkv (q pre-scaled), the
+    gradient of the output, and the table and shift mask as a dense bias with
+    scale 1.  Head dim 16 makes the port's scale 0.25, a power of two, so the
+    body's rounding of dS and the port's of dS * 0.25 round alike and the
+    port's dq is the body's times 0.25 exactly.  dq, dk, dv: at most 1% of the
+    outputs one bf16 ulp apart (dropping the dS rounding, or P's before dV,
+    moves ~40%); dtable (f32) against the body's per-window bias gradient
+    scattered into the table, 1e-5 of its max."""
+    rng = np.random.default_rng(12 + shift)
+    b, hp, wp, heads, d, win = 2, 12, 18, 2, 16, 6
+    n, nw, c = win * win, (hp // win) * (wp // win), heads * d
+    f = _f(rng)
+    qkv = f(b * nw * n, 3 * c)
+    qkv[:, :c] *= d ** -0.5
+    table = f((2 * win - 1) ** 2, heads)
+    (jqkv, tqkv), (jdo, tdo) = _bf16(qkv), _bf16(f(b * nw * n, c))
+    dqkv, dtable = twa.window_attention_bwd_plain(tqkv, tdo, _t(table), batch=b, hp=hp, wp=wp,
+                                                  num_heads=heads, window=win, shift=shift)
+    dqkv = dqkv.float().numpy().reshape(b, nw, n, 3 * c)
+    jq, jk, jv = (jqkv[:, i * c:(i + 1) * c].reshape(b, nw, n, c) for i in range(3))
+    idx = jwin.relative_position_index((win, win)).reshape(-1)
+    bias = table[idx].reshape(n, n, heads).transpose(2, 0, 1)[None]
+    if shift:
+        bias = bias + jwin.shifted_window_mask(hp, wp, win, shift)[:, None]
+    with interpret(jwa):
+        *grads, dbias = jwa._backward(jq, jk, jv, jnp.asarray(bias, jnp.float32), 1.0, heads,
+                                      jdo.reshape(b, nw, n, c))
+    for i, (name, g, factor) in enumerate(zip(("dq", "dk", "dv"), grads, (d ** -0.5, 1.0, 1.0))):
+        ref = np.asarray(g.astype(jnp.float32)) * factor
+        out = dqkv[..., i * c:(i + 1) * c]
+        ulp = 2.0 ** -7 * np.abs(ref).max()
+        assert np.mean(out != ref) <= 0.01, name
+        np.testing.assert_allclose(out, ref, atol=ulp, rtol=0, err_msg=name)
+    ref_table = np.zeros_like(table)
+    np.add.at(ref_table, idx, np.asarray(dbias).sum(0).reshape(heads, n * n).T)
+    np.testing.assert_allclose(dtable.numpy(), ref_table, atol=1e-5 * np.abs(ref_table).max(),
+                               rtol=0)
 
 
 def _swin_products(config) -> list[tuple[str, int, int]]:

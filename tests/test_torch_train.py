@@ -140,6 +140,83 @@ def test_window_attention_bwd_plain_matches_manual_formula():
     assert _rel(dtable.numpy(), want_table.numpy()) <= 1e-5
 
 
+def _stage_shapes(config, hw):
+    """(padded map (Hp, Wp), heads) of each Swin-B stage at image size ``hw``:
+    the map at H/4 .. H/32 (each merge rounds up), padded to the window."""
+    from grit_tpu_torch.models.swin import BACKBONES
+    bb = BACKBONES[config.model.backbone]
+    win = bb["window"]
+    out = []
+    for i in range(len(bb["depths"])):
+        h, w = (-(-s // (4 * 2 ** i)) for s in hw)
+        out.append(((-(-h // win) * win, -(-w // win) * win), bb["num_heads"][i], win))
+    return out
+
+
+@pytest.mark.parametrize("run,stage", [("XE b16", 2), ("XE b16", 3), ("XE b16", 4),
+                                       ("detector b4", 1), ("detector b4", 2),
+                                       ("detector b4", 3), ("detector b4", 4)])
+def test_bwd_batch_chunks_fill_the_card(run, stage):
+    """The bf16 backward kernel's batch split at the stages that train in the
+    b16 384x640 XE step and the b4 832x1344 detector step, on an H100's 132
+    SMs: every launch has about two waves of blocks (or a block per window,
+    head and image), and the partial bias gradient, a [nW, heads, N, N] slice
+    a chunk, stays one slice a (window, head) where those fill the card and
+    under one wave's worth more elsewhere."""
+    from grit_tpu_torch.config import default_caption_config, default_detection_config
+    sms = 132
+    if run.startswith("XE"):
+        config, batch = default_caption_config(), 16
+        hw = tuple(config.dataset.transform_cfg.size)
+    else:
+        config, batch = default_detection_config(), 4
+        hw = tuple(config.dataset.fixed_bucket)
+    (hp, wp), heads, win = _stage_shapes(config, hw)[stage - 1]
+    per_image = (hp // win) * (wp // win) * heads
+    chunks = twa.bwd_batch_chunks(batch, per_image, sms)
+    assert 1 <= chunks <= batch
+    assert chunks * per_image >= min(batch * per_image, twa._BWD_WAVES * sms)
+    if per_image >= twa._BWD_WAVES * sms:
+        assert chunks == 1
+    assert chunks * per_image < per_image + twa._BWD_WAVES * sms
+
+
+def test_backward_kernels_have_launch_counters():
+    """``LAUNCHES`` counts the fp32 GEMM and each instantiation of the
+    attention backward apart, and a CPU call (the plain version) counts no
+    launch."""
+    for key in ("gemm_f32", "gemm_bf16", "win_attn_bwd_bf16", "win_attn_bwd_f32"):
+        assert twa.LAUNCHES[key] >= 0
+    before = dict(twa.LAUNCHES)
+    b, hp, wp, c, heads, win = 1, 6, 6, 64, 2, 6
+    qkv = torch.randn(b * hp * wp, 3 * c)
+    twa.window_attention_bwd(qkv, torch.randn(b * hp * wp, c),
+                             torch.randn((2 * win - 1) ** 2, heads), batch=b, hp=hp, wp=wp,
+                             num_heads=heads, window=win)
+    assert twa.LAUNCHES == before
+
+
+@pytest.mark.parametrize("window", [6, 12])
+def test_table_grad_is_the_scatter_sum_in_a_fixed_order(window):
+    """The bias gradient's scatter into the relative-position table (a gather
+    by ``relative_position_gather`` and a sum) equals ``index_add_`` of the
+    same values, every position of the N x N bias counted once, and is the
+    same bit for bit on a second call."""
+    from grit_tpu_torch.ops.window import relative_position_gather, relative_position_index
+    n, heads = window * window, 3
+    gather = relative_position_gather(window)
+    pos = gather[gather < n * n]
+    assert sorted(pos.tolist()) == list(range(n * n))
+    ds = torch.from_numpy(np.random.default_rng(25).standard_normal((heads, n, n))
+                          .astype(np.float32))
+    idx = relative_position_index(window).reshape(-1)
+    want = torch.zeros((2 * window - 1) ** 2, heads).index_add_(0, idx,
+                                                                ds.reshape(heads, -1).t())
+    got = twa._table_grad(ds, window)
+    assert _rel(got.numpy(), want.numpy()) <= 1e-6
+    assert torch.equal(got, twa._table_grad(ds, window))
+
+
 # ---------------------------------------------------------------------------
 # (b) K2: mlp gradients
 # ---------------------------------------------------------------------------
