@@ -29,8 +29,10 @@ Phases, each of which must pass:
      bf16 attention backward (csrc/win_attn_bwd_mma.cu: mma.sync tiles, the
      batch split over blocks), each at every shape at which a b8 caption
      forward, a b16 XE step and a b4 832x1344 detector step launch it
-     (the backward at the two training runs; the fp32 core and backward at
-     the detector's, fp32 being its CLI's type), against its plain version
+     (the backward at the two training runs; the fp32 core and backward,
+     csrc/win_attn_f32.cu's register micro-tiles, the backward's batch split
+     over blocks, at the two training runs, fp32 being both training CLIs'
+     default), against its plain version
      and beside one PyTorch call for the same function (F.linear a GEMM
      launch; scaled_dot_product_attention with an additive mask a core
      launch; its backward with the mask requiring grad a backward launch,
@@ -569,10 +571,11 @@ def phase_yardsticks(run: str, batch: int, stages, n_frozen: int) -> None:
     with an additive mask, a core launch; at the training runs the bf16
     attention backward (K5's launch) beside SDPA's backward with the mask
     requiring grad (``sdpa_bwd_ms``), its bias gradient checked to be the same
-    bit for bit over two calls; at the detector's shapes also the fp32 core
-    and backward (the detector CLI's type) beside SDPA and its backward in
-    fp32.  Kernel and library times are device times (``graph_ms``), the plain
-    versions' eager."""
+    bit for bit over two calls; at the training runs' shapes also the fp32
+    core and backward (the type both training CLIs default to) beside SDPA and
+    its backward in fp32, the backward's two calls bit-equal too.  Kernel and
+    library times are device times (``graph_ms``), the plain versions'
+    eager."""
     import torch.nn.functional as F
 
     print(f"[yardsticks] the GEMM, attention core and backward at the {run} run's shapes, "
@@ -655,9 +658,9 @@ def phase_yardsticks(run: str, batch: int, stages, n_frozen: int) -> None:
         bias_w = rnd(nw, heads, n, n).to(bf)
         lib = graph_ms(lambda: F.scaled_dot_product_attention(q, kk, v, attn_mask=mask))
         lib_bwd = sdpa_bwd_ms(q, kk, v, bias_w, gout, batch) if training else 0.0
-        dtypes = (bf, f32) if run == "detector" else (bf,)
+        dtypes = (bf, f32) if training else (bf,)
         lib32 = lib32_bwd = 0.0
-        if run == "detector":
+        if training:
             q32, k32, v32, g32 = (t.float() for t in (q, kk, v, gout))
             lib32 = graph_ms(lambda: F.scaled_dot_product_attention(q32, k32, v32,
                                                                      attn_mask=mask.float()))
@@ -713,7 +716,7 @@ def phase_yardsticks(run: str, batch: int, stages, n_frozen: int) -> None:
         r = RESULTS["win_attn_bwd"][run]
         msg += (f", bf16 attention backward {r['ms']:.3f} ms (SDPA backward {r['library_ms']:.3f}, "
                 f"bound {max(r['bytes_ms'], r['ops_ms']):.3f})")
-    if run == "detector":
+    if training:
         for key in ("win_attn_f32", "win_attn_bwd_f32"):
             r = RESULTS[key][run]
             msg += (f"; {key} {r['ms']:.3f} ms (library {r['library_ms']:.3f}, bound "
@@ -2365,13 +2368,16 @@ def ptxas_report() -> dict:
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 mangled, name = m.group(1), m.group(1)
-                # the length-prefixed identifier that ends in _kernel, and its
-                # template arguments (I ... E) where it has them
-                for d in re.finditer(r"\d+", mangled):
-                    ident = mangled[d.end():d.end() + int(d.group())]
+                # walk the length-prefixed identifiers of the (nested) name to
+                # the one that ends in _kernel, then its template arguments
+                # (I ... E) where it has them
+                pos = 3 if mangled.startswith("_ZN") else 2
+                while (d := re.match(r"\d+", mangled[pos:])):
+                    start = pos + d.end()
+                    ident = mangled[start:start + int(d.group())]
+                    pos = start + len(ident)
                     if ident.endswith("_kernel"):
-                        rest = mangled[d.end() + len(ident):]
-                        targs = re.match(r"I(\w*?E)E", rest)
+                        targs = re.match(r"I(\w*?E)E", mangled[pos:])
                         name = f"{ident}<{targs.group(1)}>" if targs else ident
                         break
                 continue
@@ -2463,8 +2469,8 @@ def main() -> None:
                "win_attn_bwd": (csrc + "win_attn_bwd_mma.cu", jwa + ":197", "train"),
                # the fp32 kernels, of the detector step in fp32 (the CLI's type)
                "gemm_f32": (swin, jwa + ":1029", "detector"),
-               "win_attn_f32": (swin, jwa + ":1029", "detector"),
-               "win_attn_bwd_f32": (swin, jwa + ":197", "detector")}
+               "win_attn_f32": (csrc + "win_attn_f32.cu", jwa + ":1029", "detector"),
+               "win_attn_bwd_f32": (csrc + "win_attn_f32.cu", jwa + ":197", "detector")}
     serves = {"gemm_bf16": "K1, K2, K4, K10a", "win_attn": "K1, K4, K8",
               "win_attn_bwd": "K5, K8", "gemm_f32": "K1, K2, K4, K10a (fp32)",
               "win_attn_f32": "K1, K4, K8 (fp32)", "win_attn_bwd_f32": "K5, K8 (fp32)"}

@@ -75,8 +75,9 @@ struct Epi {
   int a_gather;        // A's row r is read from map token win_row_to_token(r)
 };
 
-// bf16 launchers of the Hopper kernels (gemm_sm90.cu, window_attn_mma.cu,
-// win_attn_bwd_mma.cu); each returns a cudaError_t.
+// Launchers of the Hopper kernels in their own files (bf16: gemm_sm90.cu,
+// window_attn_mma.cu, win_attn_bwd_mma.cu; fp32: win_attn_f32.cu); each
+// returns a cudaError_t.
 int launch_gemm_bf16(const bf16* A, const bf16* W, int M, int N, int K, const Epi& e,
                      cudaStream_t st);
 int launch_win_attn_bf16(const bf16* q, const bf16* k, const bf16* v, size_t ld, float qscale,
@@ -87,5 +88,13 @@ int launch_win_attn_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const 
                              const float* dense, int dense_windows, bf16* dq, bf16* dk, bf16* dv,
                              float* dbias, int batch, int chunks, int C, int heads, WinMap m,
                              cudaStream_t st);
+int launch_win_attn_f32(const float* q, const float* k, const float* v, size_t ld, float qscale,
+                        const float* table, const float* dense, int dense_windows, float* out,
+                        int num_windows, int C, int heads, WinMap m, cudaStream_t st);
+int launch_win_attn_bwd_f32(const float* q, const float* k, const float* v, const float* dout,
+                            size_t ld, float qscale, float scale, const float* table,
+                            const float* dense, int dense_windows, float* dq, float* dk, float* dv,
+                            float* dbias, int batch, int chunks, int C, int heads, WinMap m,
+                            cudaStream_t st);
 
 }  // namespace grit

@@ -13,8 +13,9 @@
 //      before the statistics and after the affine.
 //   2. gemm (EPI_BIAS): qkv = xn W^T + b, q columns scaled by d^-1/2.
 //   3. the attention core (bf16: window_attn_mma.cu, a window and two heads
-//      a block on mma.sync tiles; fp32: win_attn_f32_kernel, one block per
-//      (window, head)): an exact f32 row max and softmax per query row, with
+//      a block on mma.sync tiles; fp32: win_attn_f32.cu, one (window, head)
+//      a block on SIMT register micro-tiles): an exact f32 row max and
+//      softmax per query row, with
 //      the relative-position bias read from its [(2w-1)^2, heads] table and
 //      the shifted-window region derived from token coordinates (neither
 //      [nW, h, N, N] tensor is ever materialised).
@@ -31,16 +32,10 @@
 // pre-projection attention output that the backward wants, and the proj GEMM
 // stores through the window-reverse + unshift address (EPI_MAP).
 //
-// K5 replaces ::_bwd_kernel (through _backward).  In bf16 it runs on
-// win_attn_bwd_mma.cu (mma.sync tiles, the batch split over blocks).  The fp32
-// parity path keeps win_attn_bwd_kernel below: one block per (window of the
-// image, head) that loops over the batch, so the bias gradient of a window
-// kind is summed over images in a fixed order by the one block that owns it
-// (the TPU kernel revisits its dbias block across the batch grid axis); no
-// atomics.  Per image it recomputes P from the stored q (pre-scaled), k and
-// the bias table, then dV = P^T dO, dP = dO V^T, dS = P (dP - rowsum(dP P)),
-// dQ = scale dS K, dK = dS^T Q.  Q, K, V, dO (f32, 74 KB) and one N x N f32
-// matrix that holds P and then dS (81 KB) live in dynamic shared memory.
+// K5 replaces ::_bwd_kernel (through _backward): in bf16 on
+// win_attn_bwd_mma.cu (mma.sync tiles), in fp32 on win_attn_f32.cu (SIMT
+// register micro-tiles), both with the batch split over blocks and the bias
+// gradient summed without atomics into per-chunk slices.
 //
 // K8 replaces ::_kernel and, for its gradient, ::_bwd_kernel on a dense bias
 // (through fused_window_attention): the same two attention kernels, given q, k
@@ -62,10 +57,11 @@
 // attention core a memory pass; in bf16 both run on kernels designed for
 // Hopper, in their own files: the GEMM on TMA + an mbarrier ring + wgmma
 // (gemm_sm90.cu), the attention core on mma.sync tiles with the softmax in
-// registers (window_attn_mma.cu).  The fp32 parity path keeps the SIMT
-// attention core below and a SIMT GEMM (no TF32: the parity runs compare with
-// the plain path in full f32), bound by operations at 67 TFLOP/s, the card's
-// f32 rate outside the tensor cores.  It is built to reach that rate (see
+// registers (window_attn_mma.cu).  In fp32 (no TF32: the parity runs compare
+// with the plain path in full f32) both are bound by operations at 67
+// TFLOP/s, the card's f32 rate outside the tensor cores: the attention core
+// runs on SIMT register micro-tiles in its own file (win_attn_f32.cu), the
+// GEMM on the SIMT tile below.  The GEMM is built to reach that rate (see
 // gemm_f32_kernel): 8 x 8 outputs a thread for four 16-byte shared-memory
 // reads a k, and the next k step's global loads in flight during this one's
 // FMAs.  LN is a memory pass.  Every intermediate (xn, qkv, the
@@ -344,289 +340,6 @@ int launch_gemm_f32(const float* A, const float* W, int M, int N, int K, const E
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// Window attention core, fp32 (parity path; bf16: window_attn_mma.cu).  qkv:
-// [B*nW*N, 3C] window-partitioned rows (q already scaled); out: [B*nW*N, C].
-// One block per (window, head), 8 warps, one query row per warp at a time;
-// d = 32 = one lane per head channel.  score_row is K5's too.
-// ---------------------------------------------------------------------------
-constexpr int WA_D = 32, WA_WARPS = 8, WA_MAXT = 8;  // N <= 32 * WA_MAXT
-
-// scores of query row i against keys j = lane + 32 t, bias and shift mask
-// included; returns the row max over the warp.  The bias comes from the
-// relative-position table or, when dense_row is given (K8), from row i of a
-// dense [N, N] bias
-template <int MAXT>
-__device__ __forceinline__ float score_row(
-    const float* __restrict__ q, const float* __restrict__ Ks, int ldk,
-    const float* __restrict__ table, const float* __restrict__ dense_row,
-    const int* __restrict__ reg, int i, int n, int win, int heads, int h, int shift, int lane,
-    float* s) {
-  const int tw = 2 * win - 1;
-  const int iy = i / win, ix = i - (i / win) * win;
-  const int ri = shift > 0 ? reg[i] : 0;
-  float mx = -INFINITY;
-#pragma unroll
-  for (int t = 0; t < MAXT; ++t) {
-    const int j = lane + 32 * t;
-    s[t] = -INFINITY;
-    if (j < n) {
-      const float* kr = Ks + j * ldk;
-      float acc = 0.0f;
-#pragma unroll
-      for (int dd = 0; dd < WA_D; ++dd) acc = fmaf(q[dd], kr[dd], acc);
-      const int jy = j / win, jx = j - (j / win) * win;
-      acc += dense_row ? dense_row[j]
-                       : table[((iy - jy + win - 1) * tw + (ix - jx + win - 1)) * heads + h];
-      if (shift > 0 && reg[j] != ri) acc += -100.0f;
-      s[t] = acc;
-      mx = fmaxf(mx, acc);
-    }
-  }
-  return warp_max(mx);
-}
-
-// q, k, v: rows of stride ld (the three column blocks of one qkv tensor, or
-// three tensors); qscale multiplies q (1 where the projection scaled it
-// already); dense: null, or the K8
-// bias f32 [dense_windows, heads, N, N], window wi reading slice wi % dense_windows.
-__global__ void __launch_bounds__(256) win_attn_f32_kernel(
-    const float* __restrict__ qp, const float* __restrict__ kp, const float* __restrict__ vp,
-    size_t ld, float qscale, const float* __restrict__ table, const float* __restrict__ dense,
-    int dense_windows, float* __restrict__ out, int C, int heads, WinMap m) {
-  extern __shared__ float sm[];
-  const int win = m.win, n = win * win;
-  float* Ks = sm;                       // n x (D + 1)
-  float* Vs = Ks + n * (WA_D + 1);      // n x D
-  float* Qw = Vs + n * WA_D;            // warps x D
-  float* Pw = Qw + WA_WARPS * WA_D;     // warps x n
-  int* reg = reinterpret_cast<int*>(Pw + WA_WARPS * n);  // n
-  const int wi = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t row0 = (size_t)wi * n;
-  const float* dense_w =
-      dense ? dense + ((size_t)(wi % dense_windows) * heads + h) * n * n : nullptr;
-
-  for (int idx = tid; idx < n * WA_D; idx += blockDim.x) {
-    const int j = idx / WA_D, dd = idx - (idx / WA_D) * WA_D;
-    const size_t off = (row0 + j) * ld + h * WA_D + dd;
-    Ks[j * (WA_D + 1) + dd] = kp[off];
-    Vs[j * WA_D + dd] = vp[off];
-  }
-  if (m.shift > 0) {
-    // shifted-window regions on the rolled padded grid: rows [0, Hp - w),
-    // [Hp - w, Hp - s), [Hp - s, Hp) and likewise for columns
-    const int nwx = m.Wp / win, per_img = (m.Hp / win) * nwx;
-    const int wr = wi % per_img, wy = wr / nwx, wx = wr - wy * nwx;
-    for (int j = tid; j < n; j += blockDim.x) {
-      const int ry = wy * win + j / win, rx = wx * win + j % win;
-      const int gy = ry < m.Hp - win ? 0 : (ry < m.Hp - m.shift ? 1 : 2);
-      const int gx = rx < m.Wp - win ? 0 : (rx < m.Wp - m.shift ? 1 : 2);
-      reg[j] = gy * 3 + gx;
-    }
-  }
-  __syncthreads();
-
-  float* q = Qw + warp * WA_D;
-  float* p = Pw + warp * n;
-  for (int i = warp; i < n; i += WA_WARPS) {
-    q[lane] = qp[(row0 + i) * ld + h * WA_D + lane] * qscale;
-    __syncwarp();
-    float s[WA_MAXT];
-    const float mx = score_row<WA_MAXT>(q, Ks, WA_D + 1, table, dense_w ? dense_w + i * n : nullptr,
-                                        reg, i, n, win, heads, h, m.shift, lane, s);
-    float sum = 0.0f;
-#pragma unroll
-    for (int t = 0; t < WA_MAXT; ++t) {
-      if (lane + 32 * t < n) {
-        s[t] = expf(s[t] - mx);
-        sum += s[t];
-      }
-    }
-    sum = warp_sum(sum);
-#pragma unroll
-    for (int t = 0; t < WA_MAXT; ++t) {
-      const int j = lane + 32 * t;
-      if (j < n) p[j] = s[t] / sum;
-    }
-    __syncwarp();
-    float o = 0.0f;
-    for (int j = 0; j < n; ++j) o = fmaf(p[j], Vs[j * WA_D + lane], o);
-    out[(row0 + i) * C + h * WA_D + lane] = o;
-    __syncwarp();
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K5 in fp32 (the parity path; bf16: win_attn_bwd_mma.cu): window attention
-// backward.  qkv: [B*nW*N, 3C] as the forward stored it
-// (q pre-scaled); dout: [B*nW*N, C], the gradient of the attention core's
-// output; dqkv: [B*nW*N, 3C], gradients of the qkv projection's output (dq
-// carries the q scale); dbias: f32 [nW, heads, N, N], dS summed over images.
-// One block per (window of the image, head), WB_WARPS warps; needs N % 4 == 0.
-// ---------------------------------------------------------------------------
-// 18 warps: 144 rows are 8 rounds of 18, 36 column groups of 4 are 2 rounds
-constexpr int WB_LD = WA_D + 1, WB_WARPS = 18;
-
-// q, k, v and their gradients dq, dk, dv: rows of stride ld (column blocks of
-// one tensor, or three tensors); qscale and dense as in win_attn_f32_kernel
-// (q rounded to the storage type after the scale).
-template <typename T>
-__global__ void __launch_bounds__(32 * WB_WARPS) win_attn_bwd_kernel(
-    const T* __restrict__ qp, const T* __restrict__ kp, const T* __restrict__ vp,
-    const T* __restrict__ dout, size_t ld, float qscale, const float* __restrict__ table,
-    const float* __restrict__ dense, int dense_windows, T* __restrict__ dq, T* __restrict__ dk,
-    T* __restrict__ dv, float* __restrict__ dbias, int batch, int C, int heads, float scale,
-    WinMap m) {
-  extern __shared__ float sm[];
-  const int win = m.win, n = win * win;
-  float* Qs = sm;                 // n x WB_LD each
-  float* Ks = Qs + n * WB_LD;
-  float* Vs = Ks + n * WB_LD;
-  float* Gs = Vs + n * WB_LD;     // dO
-  float* Mx = Gs + n * WB_LD;     // n x n: P, then dS
-  int* reg = reinterpret_cast<int*>(Mx + n * n);
-  const int w = blockIdx.x, h = blockIdx.y, per_img = gridDim.x;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* db = dbias + ((size_t)w * heads + h) * n * n;
-  const float* dense_w =
-      dense ? dense + ((size_t)(w % dense_windows) * heads + h) * n * n : nullptr;
-
-  if (m.shift > 0) {
-    const int nwx = m.Wp / win;
-    const int wy = w / nwx, wx = w - wy * nwx;
-    for (int j = tid; j < n; j += blockDim.x) {
-      const int ry = wy * win + j / win, rx = wx * win + j % win;
-      const int gy = ry < m.Hp - win ? 0 : (ry < m.Hp - m.shift ? 1 : 2);
-      const int gx = rx < m.Wp - win ? 0 : (rx < m.Wp - m.shift ? 1 : 2);
-      reg[j] = gy * 3 + gx;
-    }
-  }
-
-  for (int b = 0; b < batch; ++b) {
-    const size_t row0 = ((size_t)b * per_img + w) * n;
-    __syncthreads();  // the previous image's passes are done with shared memory
-    for (int idx = tid; idx < n * WA_D; idx += blockDim.x) {
-      const int j = idx / WA_D, dd = idx - (idx / WA_D) * WA_D;
-      const size_t off = (row0 + j) * ld + h * WA_D + dd;
-      Qs[j * WB_LD + dd] = to_f<T>(from_f<T>(to_f<T>(qp[off]) * qscale));
-      Ks[j * WB_LD + dd] = to_f<T>(kp[off]);
-      Vs[j * WB_LD + dd] = to_f<T>(vp[off]);
-      Gs[j * WB_LD + dd] = to_f<T>(dout[(row0 + j) * C + h * WA_D + dd]);
-    }
-    __syncthreads();
-
-    // pass 1: P = softmax(S), one query row per warp
-    for (int i = warp; i < n; i += WB_WARPS) {
-      float s[WA_MAXT];
-      const float mx = score_row<WA_MAXT>(Qs + i * WB_LD, Ks, WB_LD, table,
-                                          dense_w ? dense_w + i * n : nullptr, reg, i, n, win,
-                                          heads, h, m.shift, lane, s);
-      float sum = 0.0f;
-#pragma unroll
-      for (int t = 0; t < WA_MAXT; ++t) {
-        if (lane + 32 * t < n) {
-          s[t] = expf(s[t] - mx);
-          sum += s[t];
-        }
-      }
-      sum = warp_sum(sum);
-#pragma unroll
-      for (int t = 0; t < WA_MAXT; ++t) {
-        const int j = lane + 32 * t;
-        if (j < n) Mx[i * n + j] = s[t] / sum;
-      }
-    }
-    __syncthreads();
-
-    // pass 2: dV[j] = sum_i P[i, j] dO[i], P in the storage type as the forward used it;
-    // a warp takes 4 neighbouring columns j so that one dO load feeds 4 products
-    for (int j = 4 * warp; j < n; j += 4 * WB_WARPS) {
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      for (int i = 0; i < n; ++i) {
-        const float4 pr = *reinterpret_cast<const float4*>(Mx + i * n + j);
-        const float gv = Gs[i * WB_LD + lane];
-        acc[0] = fmaf(to_f<T>(from_f<T>(pr.x)), gv, acc[0]);
-        acc[1] = fmaf(to_f<T>(from_f<T>(pr.y)), gv, acc[1]);
-        acc[2] = fmaf(to_f<T>(from_f<T>(pr.z)), gv, acc[2]);
-        acc[3] = fmaf(to_f<T>(from_f<T>(pr.w)), gv, acc[3]);
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        dv[(row0 + j + k) * ld + h * WA_D + lane] = from_f<T>(acc[k]);
-    }
-    __syncthreads();
-
-    // pass 3: dP = dO V^T, dS = P (dP - rowsum(dP P)) over P in place, dQ = scale dS K
-    for (int i = warp; i < n; i += WB_WARPS) {
-      const float* g = Gs + i * WB_LD;
-      float dp[WA_MAXT];
-      float part = 0.0f;
-#pragma unroll
-      for (int t = 0; t < WA_MAXT; ++t) {
-        const int j = lane + 32 * t;
-        dp[t] = 0.0f;
-        if (j < n) {
-          const float* vr = Vs + j * WB_LD;
-          float acc = 0.0f;
-#pragma unroll
-          for (int dd = 0; dd < WA_D; ++dd) acc = fmaf(g[dd], vr[dd], acc);
-          dp[t] = acc;
-          part = fmaf(acc, Mx[i * n + j], part);
-        }
-      }
-      part = warp_sum(part);
-#pragma unroll
-      for (int t = 0; t < WA_MAXT; ++t) {
-        const int j = lane + 32 * t;
-        if (j < n) Mx[i * n + j] *= dp[t] - part;
-      }
-      __syncwarp();
-      float acc = 0.0f;
-      for (int j = 0; j < n; ++j) acc = fmaf(Mx[i * n + j], Ks[j * WB_LD + lane], acc);
-      dq[(row0 + i) * ld + h * WA_D + lane] = from_f<T>(acc * scale);
-    }
-    __syncthreads();
-
-    // pass 4: dK[j] = sum_i dS[i, j] Q[i] (Q carries the scale); dBias += dS
-    for (int j = 4 * warp; j < n; j += 4 * WB_WARPS) {
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      for (int i = 0; i < n; ++i) {
-        const float4 ds = *reinterpret_cast<const float4*>(Mx + i * n + j);
-        const float qv = Qs[i * WB_LD + lane];
-        acc[0] = fmaf(ds.x, qv, acc[0]);
-        acc[1] = fmaf(ds.y, qv, acc[1]);
-        acc[2] = fmaf(ds.z, qv, acc[2]);
-        acc[3] = fmaf(ds.w, qv, acc[3]);
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        dk[(row0 + j + k) * ld + h * WA_D + lane] = from_f<T>(acc[k]);
-    }
-    for (int idx = tid; idx < n * n; idx += blockDim.x)
-      db[idx] = (b == 0 ? 0.0f : db[idx]) + Mx[idx];
-  }
-}
-
-template <typename T>
-int launch_win_attn_bwd(const void* q, const void* k, const void* v, const void* dout, size_t ld,
-                        float qscale, const void* table, const void* dense, int dense_windows,
-                        void* dq, void* dk, void* dv, void* dbias, int batch, int C, int heads,
-                        float scale, WinMap m, cudaStream_t st) {
-  const int n = m.win * m.win;
-  const size_t smem = (size_t)(4 * n * WB_LD + n * n + n) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      win_attn_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((m.Hp / m.win) * (m.Wp / m.win), heads);
-  win_attn_bwd_kernel<T><<<grid, 32 * WB_WARPS, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), ld, qscale, static_cast<const float*>(table),
-      static_cast<const float*>(dense), dense_windows, static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), static_cast<float*>(dbias), batch, C, heads, scale, m);
-  return (int)cudaGetLastError();
-}
-
 template <typename T>
 int launch_ln(const void* x, const void* g, const void* b, void* out, int rows, int C,
               int window_mode, WinMap m, float eps, cudaStream_t st) {
@@ -634,25 +347,6 @@ int launch_ln(const void* x, const void* g, const void* b, void* out, int rows, 
   ln_rows_kernel<T><<<(rows + per_block - 1) / per_block, 32 * per_block, 0, st>>>(
       static_cast<const T*>(x), static_cast<const float*>(g), static_cast<const float*>(b),
       static_cast<T*>(out), rows, C, window_mode, m, eps);
-  return (int)cudaGetLastError();
-}
-
-int launch_win_attn_f32(const void* q, const void* k, const void* v, size_t ld, float qscale,
-                        const void* table, const void* dense, int dense_windows, void* out,
-                        int num_windows, int C, int heads, WinMap m, cudaStream_t st) {
-  const int n = m.win * m.win;
-  const size_t smem = (size_t)(n * (WA_D + 1) + n * WA_D + WA_WARPS * WA_D + WA_WARPS * n) * 4 +
-                      (size_t)n * 4;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        win_attn_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  dim3 grid(num_windows, heads);
-  win_attn_f32_kernel<<<grid, 32 * WA_WARPS, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), ld,
-      qscale, static_cast<const float*>(table), static_cast<const float*>(dense), dense_windows,
-      static_cast<float*>(out), C, heads, m);
   return (int)cudaGetLastError();
 }
 
@@ -666,8 +360,10 @@ int launch_win_attn(int dtype, const void* q, const void* k, const void* v, size
                                 static_cast<const float*>(table), static_cast<const float*>(dense),
                                 dense_windows, static_cast<bf16*>(out), num_windows, C, heads, m,
                                 st);
-  return launch_win_attn_f32(q, k, v, ld, qscale, table, dense, dense_windows, out, num_windows, C,
-                             heads, m, st);
+  return launch_win_attn_f32(static_cast<const float*>(q), static_cast<const float*>(k),
+                             static_cast<const float*>(v), ld, qscale,
+                             static_cast<const float*>(table), static_cast<const float*>(dense),
+                             dense_windows, static_cast<float*>(out), num_windows, C, heads, m, st);
 }
 
 template <typename T>
@@ -734,10 +430,10 @@ int grit_window_attn(const void* qkv, const void* table, void* out, int num_wind
                          1.0f, table, nullptr, 1, out, num_windows, C, heads, m, st);
 }
 
-// K5 (bf16: win_attn_bwd_mma.cu; fp32: win_attn_bwd_kernel): qkv, dqkv
+// K5 (bf16: win_attn_bwd_mma.cu; fp32: win_attn_f32.cu): qkv, dqkv
 // [batch * nW * win^2, 3C]; dout [.., C]; table f32 [(2win-1)^2, heads]; dbias
 // f32 [chunks, nW, heads, win^2, win^2], dS summed over each of `chunks`
-// balanced chunks of the batch (fp32: chunks = 1).
+// balanced chunks of the batch.
 int grit_window_attn_bwd(const void* qkv, const void* dout, const void* table, void* dqkv,
                          void* dbias, int batch, int chunks, int C, int heads, float scale,
                          int Hp, int Wp, int win, int shift, int dtype, void* stream) {
@@ -752,11 +448,12 @@ int grit_window_attn_bwd(const void* qkv, const void* dout, const void* table, v
                                     dq + C, dq + 2 * C, static_cast<float*>(dbias), batch, chunks,
                                     C, heads, m, st);
   }
-  if (chunks != 1) return (int)cudaErrorInvalidValue;
-  return launch_win_attn_bwd<float>(
-      qkv, col_block<float>(qkv, C, 1), col_block<float>(qkv, C, 2), dout, ld, 1.0f, table,
-      nullptr, 1, dqkv, col_block<float>(dqkv, C, 1), col_block<float>(dqkv, C, 2), dbias, batch,
-      C, heads, scale, m, st);
+  const float* q = static_cast<const float*>(qkv);
+  float* dq = static_cast<float*>(dqkv);
+  return launch_win_attn_bwd_f32(q, q + C, q + 2 * C, static_cast<const float*>(dout), ld, 1.0f,
+                                 scale, static_cast<const float*>(table), nullptr, 1, dq, dq + C,
+                                 dq + 2 * C, static_cast<float*>(dbias), batch, chunks, C, heads,
+                                 m, st);
 }
 
 // K8 forward: q, k, v, out [batch * nW * win^2, C] (q unscaled); bias f32
@@ -771,7 +468,7 @@ int grit_window_attn_dense(const void* q, const void* k, const void* v, const vo
 
 // K8 backward: dq, dk, dv as q; dbias f32 [chunks, nW, heads, win^2, win^2], dS
 // summed over each chunk of the batch (the sums over chunks, and over windows
-// for a one-window bias, are the caller's; fp32: chunks = 1).
+// for a one-window bias, are the caller's).
 int grit_window_attn_dense_bwd(const void* q, const void* k, const void* v, const void* dout,
                                const void* bias, void* dq, void* dk, void* dv, void* dbias,
                                int batch, int chunks, int nW, int win, int C, int heads,
@@ -785,9 +482,12 @@ int grit_window_attn_dense_bwd(const void* q, const void* k, const void* v, cons
         static_cast<const float*>(bias), bias_windows, static_cast<bf16*>(dq),
         static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float*>(dbias), batch, chunks,
         C, heads, m, st);
-  if (chunks != 1) return (int)cudaErrorInvalidValue;
-  return launch_win_attn_bwd<float>(q, k, v, dout, (size_t)C, scale, nullptr, bias, bias_windows,
-                                    dq, dk, dv, dbias, batch, C, heads, scale, m, st);
+  return launch_win_attn_bwd_f32(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), (size_t)C, scale, scale, nullptr,
+      static_cast<const float*>(bias), bias_windows, static_cast<float*>(dq),
+      static_cast<float*>(dk), static_cast<float*>(dv), static_cast<float*>(dbias), batch, chunks,
+      C, heads, m, st);
 }
 
 // K10a: out [rows, N] = LN(rows of x) W^T, W [N, K] in the storage type, g, b f32

@@ -10,7 +10,8 @@
 // the bias from the relative-position table and the shifted-window regions,
 // as the forward kernel derives them) and K8's backward
 // (grit_window_attn_dense_bwd: q unscaled, scaled at the load, a dense f32
-// bias).  The fp32 parity path keeps win_attn_bwd_kernel in swin_block.cu.
+// bias).  fp32 runs on win_attn_f32.cu's SIMT register micro-tiles, which
+// follow this structure.
 //
 // What bounds it on an H100: bytes.  Per (window, head, image) it reads q,
 // k, v and dO (4 x N x 32 bf16) and writes dq, dk and dv; its 10 N^2 d flops

@@ -5,7 +5,8 @@
 // (grit_window_attn_dense: q scaled at the load, a dense f32 bias): the
 // softmax(q k^T + bias) v inside grit_tpu/ops/window_attention.py::_band_kernel,
 // ::_block_kernel and ::_kernel.  Entered through launch_win_attn_bf16
-// (swin_block.cu's entry points); the fp32 parity path keeps its SIMT kernel.
+// (swin_block.cu's entry points); fp32 runs on win_attn_f32.cu's SIMT
+// register micro-tiles, which follow this layout.
 //
 // What bounds it on an H100: bytes.  Per (window, head) it reads q, k and v
 // (3 x N x 32 bf16) and writes N x 32; its 4 N^2 d flops are ~0.08 ms over a

@@ -8,7 +8,8 @@ reduction) and K10b (the patch-embed LayerNorm).
 ``mlp`` its ``_mlp_kernel`` (via ``fused_mlp``), ``block_attention`` its
 ``_block_kernel`` (via ``fused_block_attention``, with ``save_attn`` the
 differentiating forward) and ``window_attention_bwd`` its ``_bwd_kernel``
-(via ``_backward``; bf16 on ``csrc/win_attn_bwd_mma.cu``).  On a CUDA tensor
+(via ``_backward``; bf16 on ``csrc/win_attn_bwd_mma.cu``, fp32 on
+``csrc/win_attn_f32.cu``).  On a CUDA tensor
 each launches the hand-written kernels in ``csrc/swin_block.cu`` (design notes
 there) or raises; on a CPU tensor each runs its plain version (``*_plain``),
 which defines the dtype semantics the kernels reproduce: f32 LN statistics
@@ -21,7 +22,8 @@ f32.
 Two kernels do most of the work inside them, each launched by one helper
 here: ``gemm`` (every product of K1, K2, K4 and K10a; bf16 on
 ``csrc/gemm_sm90.cu``) and ``attention_core`` (the attention core of K1 and
-K4, and K8's forward; bf16 on ``csrc/window_attn_mma.cu``); ``gemm_plain``
+K4, and K8's forward; bf16 on ``csrc/window_attn_mma.cu``, fp32 on
+``csrc/win_attn_f32.cu``); ``gemm_plain``
 and ``attention_core_plain`` are their plain versions.
 
 ``window_attention`` replaces its ``_kernel`` and, for the gradient, its
@@ -73,10 +75,10 @@ EPILOGUES = {"bias": 0, "gelu": 1, "resid": 2, "resid_map": 3, "map": 4}
 GEMM_TILES = {torch.bfloat16: (128, 64), torch.float32: (64, 16)}
 #: K5 and K8's backward take even windows up to 12 (N <= 144): the bf16
 #: kernel's two N x N bf16 tiles and its double-buffered rows, and the fp32
-#: kernel's Q, K, V, dO and N x N matrix, fill a block's 227 KB of shared
+#: kernel's Q, K, V, dO and N x N f32 tile, fill a block's 227 KB of shared
 #: memory; both read bias pairs (or fours) of columns
 _MAX_BWD_WINDOW = 12
-#: the bf16 backward kernel runs one block an SM; it splits the batch into
+#: both backward kernels run one block an SM; each splits the batch into
 #: chunks (one block each) until a launch has about this many waves of blocks
 _BWD_WAVES = 2
 
@@ -475,8 +477,8 @@ def _sm_count(index: int) -> int:
 
 
 def bwd_batch_chunks(batch: int, blocks_per_image: int, sms: int) -> int:
-    """Into how many chunks the bf16 backward kernel (K5, K8's backward)
-    splits the batch: one block per (window, head, chunk), each walking its
+    """Into how many chunks the backward kernels (K5, K8's backward; bf16
+    and fp32 alike, one block an SM) split the batch: one block per (window, head, chunk), each walking its
     chunk's images in order.  Enough chunks for about ``_BWD_WAVES`` waves of
     blocks over ``sms`` SMs, one where the windows and heads alone fill them,
     at most one per image.  Each chunk adds a [nW, heads, N, N] f32 slice to
@@ -485,9 +487,7 @@ def bwd_batch_chunks(batch: int, blocks_per_image: int, sms: int) -> int:
 
 
 def _bwd_chunks(t: torch.Tensor, batch: int, blocks_per_image: int) -> int:
-    """``bwd_batch_chunks`` on ``t``'s card in bf16; the fp32 kernel takes one."""
-    if t.dtype != torch.bfloat16:
-        return 1
+    """``bwd_batch_chunks`` on ``t``'s card."""
     index = t.device.index if t.device.index is not None else torch.cuda.current_device()
     return bwd_batch_chunks(batch, blocks_per_image, _sm_count(index))
 
@@ -496,8 +496,8 @@ def window_attention_bwd(qkv, d_ao, table, *, batch: int, hp: int, wp: int, num_
                          window: int, shift: int = 0):
     """K5: window-attention backward with the probabilities recomputed (see
     ``window_attention_bwd_plain``).  One kernel launch (bf16:
-    ``csrc/win_attn_bwd_mma.cu``, the batch split into ``bwd_batch_chunks``
-    chunks; fp32: ``swin_block.cu::win_attn_bwd_kernel``) sums the bias
+    ``csrc/win_attn_bwd_mma.cu``; fp32: ``csrc/win_attn_f32.cu``; the batch
+    split into ``bwd_batch_chunks`` chunks) sums the bias
     gradient over each chunk's images per window of the image, [chunks, nW,
     heads, N, N] f32; the sum over chunks and windows and the scatter into
     the table's rows are plain torch in a fixed order, as the table gather is

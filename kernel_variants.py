@@ -15,6 +15,14 @@ call for the same function, at the shapes of a b8 384x640 caption forward
   window_attn_mma.cu, K1's core: as it is; with an IEEE division for each
     probability in place of one reciprocal a row; beside
     scaled_dot_product_attention with an additive mask.
+  win_attn_f32.cu, the fp32 core at the shapes of a b4 832x1344 detector
+    step (K4's, both shifts): as it is; with an IEEE division for each
+    probability; one block an SM; beside scaled_dot_product_attention in fp32
+    with an additive mask; each variant's outputs checked within 2e-5 of the
+    first's (of its max).  And its fp32 backward at the same shapes, the
+    batch split as the wrapper splits it: as it is; without the bias
+    gradient's stores; with the rows loaded for a chunk's first image only
+    (both cut parts out, so their outputs are not checked).
   swin_block.cu's fp32 GEMM, every product in its bias epilogue at the shapes
     of a b4 832x1344 detector step (the fp32 CLI's): as it is; with 8-deep
     k steps; one block an SM; the main loop alone; beside F.linear in fp32;
@@ -38,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from grit_tpu_torch.ops import _cuda
+from grit_tpu_torch.ops.window_attention import bwd_batch_chunks
 
 OUT = Path("chiprun_out") / "kernel_variants"
 # the b8 384x640 Swin-B stages: (C, heads, padded map (Hp, Wp), blocks)
@@ -73,6 +82,15 @@ int launch_win_attn_bwd_bf16(const bf16*, const bf16*, const bf16*, const bf16*,
                              int, int, int, int, WinMap, cudaStream_t) {
   return 1;
 }
+int launch_win_attn_f32(const float*, const float*, const float*, size_t, float, const float*,
+                        const float*, int, float*, int, int, int, WinMap, cudaStream_t) {
+  return 1;
+}
+int launch_win_attn_bwd_f32(const float*, const float*, const float*, const float*, size_t, float,
+                            float, const float*, const float*, int, float*, float*, float*, float*,
+                            int, int, int, int, WinMap, cudaStream_t) {
+  return 1;
+}
 }  // namespace grit
 extern "C" int grit_gemm(const void*, const void*, const void*, void*, const void*, int, int,
                          int, int, float, int, int, int, int, int, int, int, int, int, void*);
@@ -93,6 +111,27 @@ extern "C" int variant_entry(const void* qkv, const void* table, void* out, int 
                                     heads, m, (cudaStream_t)st);
 }
 ''',
+    "win_attn_f32.cu": r'''
+#include "common.cuh"
+extern "C" int variant_entry(const void* qkv, const void* table, void* out, int nw, int C,
+                             int heads, int Hp, int Wp, int win, int shift, void* st) {
+  grit::WinMap m{Hp, Wp, win, shift, Hp, Wp};
+  const float* q = (const float*)qkv;
+  return grit::launch_win_attn_f32(q, q + C, q + 2 * C, 3 * (size_t)C, 1.0f, (const float*)table,
+                                   nullptr, 1, (float*)out, nw, C, heads, m, (cudaStream_t)st);
+}
+extern "C" int variant_bwd_entry(const void* qkv, const void* dout, const void* table,
+                                 void* dqkv, void* dbias, int batch, int chunks, int C, int heads,
+                                 int Hp, int Wp, int win, int shift, void* st) {
+  grit::WinMap m{Hp, Wp, win, shift, Hp, Wp};
+  const float* q = (const float*)qkv;
+  float* dq = (float*)dqkv;
+  return grit::launch_win_attn_bwd_f32(q, q + C, q + 2 * C, (const float*)dout, 3 * (size_t)C,
+                                       1.0f, 0.17677669529663687f, (const float*)table, nullptr,
+                                       1, dq, dq + C, dq + 2 * C, (float*)dbias, batch, chunks, C,
+                                       heads, m, (cudaStream_t)st);
+}
+''',
 }
 # (source, variant name, [(text, replacement), ...])
 VARIANTS = [
@@ -104,6 +143,15 @@ VARIANTS = [
     ("window_attn_mma.cu", "a division per probability", [
         (" * ra,", " / suma,"), (" * ra);", " / suma);"), (" * rb,", " / sumb,"),
         (" * rb);", " / sumb);")]),
+    ("win_attn_f32.cu", "as is", []),
+    ("win_attn_f32.cu", "a division per probability", [
+        ("rs[r] = 1.0f / sum;", "rs[r] = sum;"), (" * rs[", " / rs[")]),
+    ("win_attn_f32.cu", "one block an SM", [("NS <= 9 ? 2 : 1", "1")]),
+    # the backward with a part cut out (its outputs then differ: timed only)
+    ("win_attn_f32.cu", "backward: no bias-gradient stores", [
+        ("      if (idx < n * n4) {", "      if (idx < n * n4 && batch < 0) {")]),
+    ("win_attn_f32.cu", "backward: rows loaded for the first image only", [
+        ("    load_rows<NP>(Qs, src, stride, 4, row0", "    if (bi == b_begin) load_rows<NP>(Qs, src, stride, 4, row0")]),
     ("swin_block.cu", "as is", []),
     ("swin_block.cu", "k step 8", [("GF_BK = 16", "GF_BK = 8")]),
     ("swin_block.cu", "one block an SM", [
@@ -165,6 +213,10 @@ def build() -> list:
                                       + [ctypes.c_int] * (3 if n_ptr == 4 else 7)
                                       + [ctypes.c_void_p])
         lib.variant_entry.restype = ctypes.c_int
+        if src == "win_attn_f32.cu":
+            lib.variant_bwd_entry.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+                ctypes.c_void_p]
+            lib.variant_bwd_entry.restype = ctypes.c_int
     return built
 
 
@@ -229,6 +281,65 @@ def main() -> None:
             lambda: F.scaled_dot_product_attention(q, kk, v, attn_mask=mask)) * depth
     f32 = torch.float32
     same: dict[str, bool] = {}   # an fp32 GEMM variant's outputs equal to the first's
+    close: dict[str, float] = {}  # an fp32 core variant's largest error against the first's
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for c, heads, (hp, wp), depth in DET_STAGES:
+        if not any(src == "win_attn_f32.cu" for src, _, _ in built):
+            break
+        rows = DET_BATCH * hp * wp
+        qkv = torch.randn(rows, 3 * c, generator=g, device="cuda")
+        qkv[:, :c] *= 32 ** -0.5
+        table = torch.randn((2 * WINDOW - 1) ** 2, heads, generator=g, device="cuda")
+        out = torch.empty(rows, c, device="cuda", dtype=f32)
+        for shift in (0, WINDOW // 2):
+            first = None
+            for src, name, lib in built:
+                if src != "win_attn_f32.cu" or name.startswith("backward"):
+                    continue
+
+                def call(lib=lib, shift=shift):
+                    err = lib.variant_entry(qkv.data_ptr(), table.data_ptr(), out.data_ptr(),
+                                            rows // (WINDOW * WINDOW), c, heads, hp, wp, WINDOW,
+                                            shift, stream())
+                    if err:
+                        raise RuntimeError(f"fp32 core variant {name}: CUDA error {err}")
+
+                out.fill_(float("nan"))
+                call()
+                if first is None:
+                    first = out.clone()
+                key = f"win_attn_f32: {name}"
+                rel = ((out - first).abs().max() / first.abs().max()).item()
+                close[key] = max(close.get(key, 0.0), rel)
+                if not rel <= 2e-5:
+                    raise RuntimeError(f"{key}: {rel:.3e} of the first variant's max apart")
+                totals[key] = totals.get(key, 0.0) + graph_ms(call) * (depth // 2)
+        q, kk, v = (torch.randn(rows // WINDOW ** 2, heads, WINDOW ** 2, 32, generator=g,
+                                device="cuda") for _ in range(3))
+        mask = torch.randn(1, heads, WINDOW ** 2, WINDOW ** 2, generator=g, device="cuda")
+        key = "win_attn_f32: SDPA + mask fp32"
+        totals[key] = totals.get(key, 0.0) + graph_ms(
+            lambda: F.scaled_dot_product_attention(q, kk, v, attn_mask=mask)) * depth
+        # the fp32 backward (K5's launch) on the same qkv, its batch split as the wrapper's
+        nw = (hp // WINDOW) * (wp // WINDOW)
+        chunks = bwd_batch_chunks(DET_BATCH, nw * heads, sms)
+        d_ao = torch.randn(rows, c, generator=g, device="cuda")
+        dqkv = torch.empty(rows, 3 * c, device="cuda", dtype=f32)
+        dbias = torch.empty(chunks, nw, heads, WINDOW ** 4, device="cuda", dtype=f32)
+        for shift in (0, WINDOW // 2):
+            for src, name, lib in built:
+                if src != "win_attn_f32.cu" or not (name == "as is" or name.startswith("backward")):
+                    continue
+
+                def call(lib=lib, shift=shift):
+                    err = lib.variant_bwd_entry(qkv.data_ptr(), d_ao.data_ptr(), table.data_ptr(),
+                                                dqkv.data_ptr(), dbias.data_ptr(), DET_BATCH,
+                                                chunks, c, heads, hp, wp, WINDOW, shift, stream())
+                    if err:
+                        raise RuntimeError(f"fp32 backward variant {name}: CUDA error {err}")
+
+                key = f"win_attn_bwd_f32: {name.replace('backward: ', '')}"
+                totals[key] = totals.get(key, 0.0) + graph_ms(call) * (depth // 2)
     for c, heads, (hp, wp), depth in DET_STAGES:
         if not any(src == "swin_block.cu" for src, _, _ in built):
             break
@@ -261,13 +372,17 @@ def main() -> None:
             key = "gemm_f32: F.linear"
             totals[key] = totals.get(key, 0.0) + graph_ms(lambda: F.linear(x, w, bias)) * depth
     for key, ms in totals.items():
-        per = (f"b{DET_BATCH} 832x1344 detector step" if key.startswith("gemm_f32")
+        per = (f"b{DET_BATCH} 832x1344 detector step"
+               if key.startswith(("gemm_f32", "win_attn_f32", "win_attn_bwd_f32"))
                else f"b{BATCH} forward")
         bits = f", bit-equal to the first: {same[key]}" if key in same else ""
+        if key in close:
+            bits = f", {close[key]:.2e} of the first's max from it"
         print(f"{key:<45} {ms:.3f} ms a {per}{bits}  [{card}]")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "kernel_variants.json"), "w") as f:
-        json.dump({"card": card, "ms_per_run": totals, "bit_equal_to_first": same}, f, indent=1)
+        json.dump({"card": card, "ms_per_run": totals, "bit_equal_to_first": same,
+                   "max_rel_to_first": close}, f, indent=1)
 
 
 if __name__ == "__main__":

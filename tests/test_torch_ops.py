@@ -22,7 +22,10 @@ from the Pallas body, each by at most one bf16 ulp (only an f32 summation
 order can flip a rounding), where dropping either rounding point changes
 ~40% of them.  The same holds the bf16 backward's plain version (K5) to the
 Pallas ``_bwd_kernel``: P rounded before dV, the score gradient times the
-scale rounded before dQ and dK.
+scale rounded before dQ and dK.  In fp32, at the fp32 kernels' own shape
+class (head dim 32, window 12), the core's and the backward's plain versions
+are held to the same Pallas bodies within 2e-5 of each output's max (1e-5
+for the bias gradients).
 
 The one-launch helpers that chip_smoke.py times on the card (``gemm``,
 ``attention_core``) run their plain versions here, and those compose to
@@ -388,6 +391,113 @@ def test_window_attention_bwd_plain_bf16_matches_jax_kernel(shift):
     np.testing.assert_allclose(dtable.numpy(), ref_table, atol=1e-5 * np.abs(ref_table).max(),
                                rtol=0)
 
+
+
+# the fp32 kernels' own shape class: head dim 32, window 12 (N = 144, nine
+# 16-row strips), two windows of a 24x24 map a row
+F32_GEO = dict(b=2, hp=24, wp=24, heads=2, d=32, win=12)
+
+
+def _f32_bias(table, win, hp, wp, shift):
+    """The table (and the shifted-window mask) as the dense bias the Pallas
+    bodies take: [1 or nW, heads, N, N]."""
+    n = win * win
+    idx = jwin.relative_position_index((win, win)).reshape(-1)
+    bias = table[idx].reshape(n, n, -1).transpose(2, 0, 1)[None]
+    if shift:
+        bias = bias + jwin.shifted_window_mask(hp, wp, win, shift)[:, None]
+    return bias.astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["dense bias (K8)", "table shift=0", "table shift=6"])
+def test_attention_core_plain_f32_matches_jax_kernel(case):
+    """fp32 at the kernel's shape class: the core's plain versions, which
+    chip_smoke.py holds the fp32 Hopper kernel (win_attn_f32.cu) to on the
+    card, against the Pallas ``_kernel`` in interpret mode: K8's
+    ``window_attention_plain`` on a dense bias, ``attention_core_plain`` (q
+    pre-scaled, the table and the shifted-window mask) against the body fed
+    that bias densely with scale 1.  2e-5 of the output's max (summation
+    order only)."""
+    g = F32_GEO
+    b, hp, wp, heads, d, win = g["b"], g["hp"], g["wp"], g["heads"], g["d"], g["win"]
+    n, nw, c = win * win, (hp // win) * (wp // win), heads * d
+    f = _f(np.random.default_rng(30))
+    if case.startswith("dense"):
+        q, k, v = (f(b, nw, n, c) for _ in range(3))
+        bias, scale = f(nw, heads, n, n), d ** -0.5
+        out = twa.window_attention_plain(_t(q), _t(k), _t(v), _t(bias), scale, heads).numpy()
+    else:
+        shift = int(case.split("=")[1])
+        qkv = f(b * nw * n, 3 * c)
+        qkv[:, :c] *= d ** -0.5
+        table = f((2 * win - 1) ** 2, heads)
+        out = twa.attention_core_plain(_t(qkv), _t(table), batch=b, hp=hp, wp=wp,
+                                       num_heads=heads, window=win, shift=shift).numpy()
+        out = out.reshape(b, nw, n, c)
+        q, k, v = (qkv[:, i * c:(i + 1) * c].reshape(b, nw, n, c) for i in range(3))
+        bias, scale = _f32_bias(table, win, hp, wp, shift), 1.0
+    with interpret(jwa):
+        ref = jwa.fused_window_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                         jnp.asarray(bias), scale, heads)
+    ref = np.asarray(ref).reshape(out.shape)
+    np.testing.assert_allclose(out, ref, atol=2e-5 * np.abs(ref).max(), rtol=0)
+
+
+@pytest.mark.parametrize("case", ["dense bias (K8)", "table shift=0", "table shift=6"])
+def test_window_attention_bwd_plain_f32_matches_jax_kernel(case):
+    """fp32 at the kernel's shape class: the backward's plain versions, which
+    chip_smoke.py holds the fp32 backward kernel to on the card, against the
+    Pallas ``_bwd_kernel`` in interpret mode (``_backward``).  K5's
+    ``window_attention_bwd_plain`` (q pre-scaled by s = d^-1/2, so its dq is
+    the body's times s) with the table and the shift mask fed to the body
+    densely at scale 1, its dtable against the body's per-window bias
+    gradient scattered into the table; K8's ``window_attention`` backward on
+    a dense bias (the plain version through autograd on the CPU), its bias
+    gradient against the body's.  dq, dk, dv within 2e-5 of each one's max,
+    the bias gradients within 1e-5."""
+    g = F32_GEO
+    b, hp, wp, heads, d, win = g["b"], g["hp"], g["wp"], g["heads"], g["d"], g["win"]
+    n, nw, c = win * win, (hp // win) * (wp // win), heads * d
+    f = _f(np.random.default_rng(31))
+    do = f(b, nw, n, c)
+    if case.startswith("dense"):
+        q, k, v = (f(b, nw, n, c) for _ in range(3))
+        bias, scale = f(nw, heads, n, n), d ** -0.5
+        leaves = [_t(a).requires_grad_() for a in (q, k, v, bias)]
+        out = twa.window_attention(*leaves, scale, heads)
+        grads = torch.autograd.grad(out, leaves, _t(do))
+        outs, factors = [t.numpy() for t in grads[:3]], (1.0, 1.0, 1.0)
+        dbias_out = grads[3].numpy()
+    else:
+        shift = int(case.split("=")[1])
+        qkv = f(b * nw * n, 3 * c)
+        qkv[:, :c] *= d ** -0.5
+        table = f((2 * win - 1) ** 2, heads)
+        dqkv, dtable = twa.window_attention_bwd_plain(
+            _t(qkv), _t(do.reshape(-1, c)), _t(table), batch=b, hp=hp, wp=wp, num_heads=heads,
+            window=win, shift=shift)
+        dqkv = dqkv.numpy().reshape(b, nw, n, 3 * c)
+        outs = [dqkv[..., i * c:(i + 1) * c] for i in range(3)]
+        factors = (d ** -0.5, 1.0, 1.0)
+        q, k, v = (qkv[:, i * c:(i + 1) * c].reshape(b, nw, n, c) for i in range(3))
+        bias, scale = _f32_bias(table, win, hp, wp, shift), 1.0
+    with interpret(jwa):
+        *refs, dbias = jwa._backward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                     jnp.asarray(bias), scale, heads, jnp.asarray(do))
+    for name, out, ref, factor in zip(("dq", "dk", "dv"), outs, refs, factors):
+        ref = np.asarray(ref) * factor
+        np.testing.assert_allclose(out, ref, atol=2e-5 * np.abs(ref).max(), rtol=0, err_msg=name)
+    dbias = np.asarray(dbias)
+    if case.startswith("dense"):
+        ref_bias = dbias.reshape(dbias_out.shape)
+        np.testing.assert_allclose(dbias_out, ref_bias, atol=1e-5 * np.abs(ref_bias).max(),
+                                   rtol=0)
+    else:
+        idx = jwin.relative_position_index((win, win)).reshape(-1)
+        ref_table = np.zeros_like(table)
+        np.add.at(ref_table, idx, dbias.sum(0).reshape(heads, n * n).T)
+        np.testing.assert_allclose(dtable.numpy(), ref_table,
+                                   atol=1e-5 * np.abs(ref_table).max(), rtol=0)
 
 def _swin_products(config) -> list[tuple[str, int, int]]:
     """(name, N, K) of every product of the config's Swin backbone: qkv,

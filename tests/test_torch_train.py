@@ -181,6 +181,36 @@ def test_bwd_batch_chunks_fill_the_card(run, stage):
     assert chunks * per_image < per_image + twa._BWD_WAVES * sms
 
 
+
+@pytest.mark.parametrize("run,stage", [("XE b16", 3), ("XE b16", 4), ("detector b4", 1),
+                                       ("detector b4", 2), ("detector b4", 3),
+                                       ("detector b4", 4)])
+def test_bwd_batch_chunks_fill_the_card_fp32(run, stage, monkeypatch):
+    """The fp32 backward kernel (csrc/win_attn_f32.cu, one block an SM like
+    the bf16 one) splits the batch as the bf16 kernel does: the wrapper's
+    choice for an fp32 tensor on a card of 132 SMs is ``bwd_batch_chunks``'s,
+    about two waves of blocks, and the b16 XE step's stage 4 (2 windows x 32
+    heads an image) is no longer one launch of 64 blocks walking 16 images
+    each."""
+    from grit_tpu_torch.config import default_caption_config, default_detection_config
+    sms = 132
+    monkeypatch.setattr(twa, "_sm_count", lambda index: sms)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    if run.startswith("XE"):
+        config, batch = default_caption_config(), 16
+        hw = tuple(config.dataset.transform_cfg.size)
+    else:
+        config, batch = default_detection_config(), 4
+        hw = tuple(config.dataset.fixed_bucket)
+    (hp, wp), heads, win = _stage_shapes(config, hw)[stage - 1]
+    per_image = (hp // win) * (wp // win) * heads
+    chunks = twa._bwd_chunks(torch.empty(0, dtype=torch.float32), batch, per_image)
+    assert chunks == twa.bwd_batch_chunks(batch, per_image, sms)
+    assert chunks * per_image >= min(batch * per_image, twa._BWD_WAVES * sms)
+    assert chunks * per_image < per_image + twa._BWD_WAVES * sms
+    if run.startswith("XE") and stage == 4:
+        assert per_image == 64 and chunks == 5
+
 def test_backward_kernels_have_launch_counters():
     """``LAUNCHES`` counts the fp32 GEMM and each instantiation of the
     attention backward apart, and a CPU call (the plain version) counts no
