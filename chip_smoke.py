@@ -731,27 +731,72 @@ ADAM_TOL = 1e-6   # same f32 operations in the same order; sqrt and division to 
 
 
 def count_launches(fn) -> int:
-    """Device kernels launched by one call of ``fn`` (torch.profiler)."""
+    """Device kernels launched by one call of ``fn`` (torch.profiler).  A
+    profile that saw no device kernel at all is taken again, once: every
+    ``fn`` given here launches, and the profiler has been seen to return a
+    window without the card's records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and getattr(e, "self_device_time_total", 0) > 0)
+        if n:
+            return n
+        print("  count_launches: the profile holds no device kernel; profiling again",
+              flush=True)
+    return n
+
+
+def launch_times(fn, calls: int = 10) -> dict[str, tuple[float, float]]:
+    """{kernel name: (device ms a call, launches a call)} of the kernels one
+    call of ``fn`` launches (torch.profiler over ``calls`` calls); a name is
+    the kernel's function name (``dt_qproj_kernel``), its template
+    arguments and parameters dropped."""
+    import re
+
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and getattr(e, "self_device_time_total", 0) > 0)
+    out: dict[str, list[float]] = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0)
+        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            m = re.search(r"(\w+)(?:<|\()", e.key.split("::")[-1])
+            name = m.group(1) if m else e.key[:60]
+            acc = out.setdefault(name, [0.0, 0.0])
+            acc[0] += us / 1e3 / calls
+            acc[1] += e.count / calls
+    return {k: (v[0], v[1]) for k, v in out.items()}
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
 
 
 def phase_decode_kernel() -> None:
     """K11 against its plain version at the decode shapes of a b8 and a b128
     caption batch (40 and 640 rows, beam 5) and of the trainer's b16
-    evaluation batch (80 rows: a full tile of rows and a ragged one; weights
-    cast from f32 master parameters at the call, as a model built for training
-    hands them over), with and without key masks, half the rows pad, on a
-    decode layer's own weights; beside it the module path for the same tail
-    (no single PyTorch call computes it), timed and its launches counted."""
+    evaluation batch (80 rows: two row tiles; weights cast from f32 master
+    parameters at the call, as a model built for training hands them over),
+    with and without key masks, half the rows pad, on a decode layer's own
+    weights; beside it the module path for the same tail (no single PyTorch
+    call computes it), timed and its launches counted.  The kernel's time is
+    device time by CUDA-graph replay (``graph_ms``; the eager time by CUDA
+    events beside it), the plain version's and the module path's eager.
+    Each case must give the same output bit for bit from two calls, make
+    exactly 8 CUDA launches a call and count one ``decode_tail`` launch; at
+    b8 the device time of each of the eight launches is printed."""
     print("[kernels] K11 (decode-layer tail) vs plain, beam-5 rows over 60 + 150 keys",
           flush=True)
     g = torch.Generator(device=DEV).manual_seed(3)
@@ -807,27 +852,44 @@ def phase_decode_kernel() -> None:
                                           kv_fold=BEAM) * pad
                     return layer._fuse(x, enc1, enc2, pad)
 
+                case = f"{dn} b{batch} masks={masked}"
                 with torch.no_grad():
                     out, ref = kernel()[:, 0], plain()
+                    again = kernel()[:, 0]
                     mod = module_path()[:, 0]
-                    ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+                    eager_ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+                    ms = graph_ms(kernel)
                     mod_ms = cuda_ms(module_path)
                     mod_launches = count_launches(module_path)
+                    counted = tail_ops.LAUNCHES["decode_tail"]
+                    kernel()
+                    counted = tail_ops.LAUNCHES["decode_tail"] - counted
                     own_launches = count_launches(kernel)
+                    per_launch = launch_times(kernel) if batch == 8 and masked else None
+                if not bits_equal(out, again):
+                    fail(f"K11 {case}: two calls on the same inputs differ")
+                if own_launches != 8 or counted != 1:
+                    fail(f"K11 {case}: a call made {own_launches} CUDA launches and counted "
+                         f"{counted} (want 8 and 1)")
                 # the path the caption batch takes: b8, bf16, masks from the padded images
                 calls = 3 * STEPS if (batch == 8 and masked) else 0
                 work = ((2 * rows * D_MODEL + 2 * batch * (T_GRID + T_REG) * D_MODEL)
                         * esize(dtype) + wbytes,
                         2.0 * rows * (8 * D_MODEL * D_MODEL + 2 * D_MODEL * D_FF)
                         + 4.0 * rows * D_MODEL * (T_GRID + T_REG))
-                case = f"{dn} b{batch} masks={masked}"
                 compare("K11", case, out, ref, dtype, ms, plain_ms, calls, work)
                 mod_rel = max_rel(mod.float(), ref.float())
-                print(f"  K11 {case:<30} module path: {mod_ms:.3f} ms in {mod_launches} launches "
-                      f"(kernel wrapper: {own_launches}); module path vs plain {mod_rel:.3e}",
-                      flush=True)
-                DETAIL[-1].update(module_ms=mod_ms, module_launches=mod_launches,
-                                  wrapper_launches=own_launches, module_vs_plain=mod_rel)
+                print(f"  K11 {case:<30} eager {eager_ms:.3f} ms; module path: {mod_ms:.3f} ms "
+                      f"eager in {mod_launches} launches (kernel: {own_launches}); module path "
+                      f"vs plain {mod_rel:.3e}; two calls bit-equal", flush=True)
+                DETAIL[-1].update(eager_ms=eager_ms, module_ms=mod_ms,
+                                  module_launches=mod_launches, wrapper_launches=own_launches,
+                                  module_vs_plain=mod_rel, bit_equal=True)
+                if per_launch is not None:
+                    DETAIL[-1]["launch_ms"] = per_launch
+                    print(f"  K11 {case:<30} device ms a call by launch: " + ", ".join(
+                        f"{k} {v[0]:.4f} ({v[1]:g}x)" for k, v in per_launch.items())
+                        + f"; sum {sum(v[0] for v in per_launch.values()):.4f}", flush=True)
                 if mod_rel > TOL[dtype]:
                     fail(f"K11 {case}: module path differs from the plain version by {mod_rel:.3e}")
                 if calls and dtype == torch.bfloat16:
