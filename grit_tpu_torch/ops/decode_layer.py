@@ -91,6 +91,19 @@ def decode_layer_tail_plain(x, k1, v1, madd1, k2, v2, madd2, pad, weights, *, fo
     return (_ln(enc + y, lnfs, lnfb, eps) * pad).to(x.dtype)
 
 
+_SMEM_MAX = 232448   # a block's shared memory on Hopper
+
+
+def attn_smem_bytes(dtype, fold: int, head: int, t_max: int) -> int:
+    """Shared memory of the attention launch (``csrc/decode_layer.cu``,
+    ``attn_smem``): K and V rows of ``head`` values plus 16 bytes, q, the
+    scores (rounded up to 4) and the P V partials of its 8 warps, f32."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    ld = head + 16 // esize
+    return (2 * t_max * ld * esize
+            + (fold * head + (fold * t_max + 3) // 4 * 4 + 8 * fold * head) * 4)
+
+
 def _launch(x, k1, v1, m1, k2, v2, m2, pad, weights, fold, n_heads, eps) -> torch.Tensor:
     """Validate a CUDA call and run the chain.  m_i: bool [B, T_i] or None;
     pad: [B*fold] in x's dtype."""
@@ -105,9 +118,11 @@ def _launch(x, k1, v1, m1, k2, v2, m2, pad, weights, fold, n_heads, eps) -> torc
         raise ValueError(f"fused_decode_layer_tail: {rows} rows for {b} images x fold {fold}, "
                          f"d_model {d_model}, d_ff {d_ff}, {n_heads} heads: needs rows = "
                          "images x fold and widths that are multiples of 64")
-    if fold * (d_model // n_heads + max(t1, t2)) * 4 > 48 * 1024:
-        raise ValueError(f"fused_decode_layer_tail: fold {fold} x {max(t1, t2)} keys do not "
-                         "fit the attention core's shared memory")
+    head = d_model // n_heads
+    if head % 8 or attn_smem_bytes(dt, fold, head, max(t1, t2)) > _SMEM_MAX:
+        raise ValueError(f"fused_decode_layer_tail: head dim {head} (needs a multiple of 8) "
+                         f"and fold {fold} x {max(t1, t2)} keys must fit the attention launch's "
+                         f"{_SMEM_MAX} bytes of shared memory")
     _cuda.require(x, "x", dt, (rows, d_model))
     _cuda.require(pad, "mask_pad", dt, (rows,))
     for name, t, tk in (("k1", k1, t1), ("v1", v1, t1), ("k2", k2, t2), ("v2", v2, t2)):
@@ -136,7 +151,8 @@ def _launch(x, k1, v1, m1, k2, v2, m2, pad, weights, fold, n_heads, eps) -> torc
     lib = _cuda.library()
     out = torch.empty_like(x)
     scratch_f = torch.empty((5, rows, d_model), dtype=torch.float32, device=x.device)
-    scratch_t = torch.empty((rows, 4 * d_model + d_ff), dtype=dt, device=x.device)
+    # q, o, h, and the compute-type copies of enc_1, enc_2 and the gated enc
+    scratch_t = torch.empty((rows, 7 * d_model + d_ff), dtype=dt, device=x.device)
     ptrs = (ctypes.c_void_p * 24)(*[w.data_ptr() for w in weights])
     _cuda.check(lib.grit_decode_tail(
         x.data_ptr(), k1.data_ptr(), v1.data_ptr(), None if m1 is None else m1.data_ptr(),

@@ -29,6 +29,14 @@ call for the same function, at the shapes of a b8 384x640 caption forward
     each variant's outputs checked equal to the first's bit for bit (every
     variant keeps the fmaf chain of each output).
 
+  decode_layer.cu, K11 (the decode-layer tail, eight launches) through its
+    wrapper at the decode shapes of a b8, a b16 and a b128 caption batch
+    (40, 80 and 640 rows, beam 5, 60 + 150 keys, masks), bf16 and fp32: as it
+    is; 8-column product tiles at 640 rows too; 16-column ones there; 128
+    threads an attention block; a ring of 2 stages; 128-byte chunks of K; each
+    variant's outputs checked within 2e-5 (fp32) / 3e-2 (bf16) of the first's
+    max (the attention variant sums P V in another order).
+
 Prints one line per kernel and writes chiprun_out/kernel_variants.json.
 Needs a card and nvcc; exits non-zero without them.
 """
@@ -132,6 +140,8 @@ extern "C" int variant_bwd_entry(const void* qkv, const void* dout, const void* 
                                        heads, m, (cudaStream_t)st);
 }
 ''',
+    # the variant library exports grit_decode_tail itself
+    "decode_layer.cu": "\n",
 }
 # (source, variant name, [(text, replacement), ...])
 VARIANTS = [
@@ -152,6 +162,13 @@ VARIANTS = [
         ("      if (idx < n * n4) {", "      if (idx < n * n4 && batch < 0) {")]),
     ("win_attn_f32.cu", "backward: rows loaded for the first image only", [
         ("    load_rows<NP>(Qs, src, stride, 4, row0", "    if (bi == b_begin) load_rows<NP>(Qs, src, stride, 4, row0")]),
+    ("decode_layer.cu", "as is", []),
+    ("decode_layer.cu", "8-column tiles at every row count", [
+        ("PR_WIDE_ROWS = 128", "PR_WIDE_ROWS = 1 << 30")]),
+    ("decode_layer.cu", "16-column tiles past 128 rows", [("PR_WIDE_NF = 4", "PR_WIDE_NF = 2")]),
+    ("decode_layer.cu", "128 attention threads", [("AT_THREADS = 256", "AT_THREADS = 128")]),
+    ("decode_layer.cu", "ring of 2 stages", [("PR_STAGES = 3", "PR_STAGES = 2")]),
+    ("decode_layer.cu", "128-byte chunks", [("PR_KB = 64", "PR_KB = 128")]),
     ("swin_block.cu", "as is", []),
     ("swin_block.cu", "k step 8", [("GF_BK = 16", "GF_BK = 8")]),
     ("swin_block.cu", "one block an SM", [
@@ -208,6 +225,10 @@ def build() -> list:
             raise RuntimeError(f"nvcc failed for {src} / {name}:\n{log[-4000:]}")
         built.append((src, name, ctypes.CDLL(str(lib))))
     for src, _, lib in built:
+        if src == "decode_layer.cu":
+            lib.grit_decode_tail.argtypes = _cuda._SIGNATURES["grit_decode_tail"]
+            lib.grit_decode_tail.restype = ctypes.c_int
+            continue
         n_ptr = 4 if src in ("gemm_sm90.cu", "swin_block.cu") else 3
         lib.variant_entry.argtypes = ([ctypes.c_void_p] * n_ptr
                                       + [ctypes.c_int] * (3 if n_ptr == 4 else 7)
@@ -224,6 +245,69 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+class _TailLib:
+    """The kernel library as ``ops/decode_layer.py`` sees it, with one
+    variant's ``grit_decode_tail``."""
+
+    def __init__(self, lib):
+        self.grit_decode_tail = lib.grit_decode_tail
+
+
+def decode_tail_variants(built: list, totals: dict, close: dict) -> None:
+    """K11's variants through its wrapper at 40, 80 and 640 rows, both types."""
+    from grit_tpu_torch.models.cap_generator import ParallelAttentionLayer
+    from grit_tpu_torch.models.captioner import to_compute_dtype
+    from grit_tpu_torch.ops import decode_layer as tail_ops
+
+    libs = [(name, lib) for src, name, lib in built if src == "decode_layer.cu"]
+    if not libs:
+        return
+    d_model, heads, d_ff, beam, keys = 512, 8, 2048, 5, (60, 150)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    saved = _cuda._lib
+    for dtype, dn in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        layer = ParallelAttentionLayer(d_model, heads, d_ff).to("cuda").eval()
+        with torch.no_grad():
+            for name, prm in layer.named_parameters():
+                scale = prm.shape[-1] ** -0.5 if prm.dim() == 2 else 0.1
+                prm.copy_(torch.randn(prm.shape, generator=g, device="cuda") * scale
+                          + ("layer_norm" in name and name.endswith("weight")))
+        to_compute_dtype(layer, dtype)
+        weights = layer.tail_weights(dtype)
+        for batch in (8, 16, 128):
+            rows = batch * beam
+            x = torch.randn(rows, 1, d_model, generator=g, device="cuda").to(dtype)
+            kv = [torch.randn(batch, t, d_model, generator=g, device="cuda").to(dtype)
+                  for t in (keys[0], keys[0], keys[1], keys[1])]
+            masks = [((torch.arange(t, device="cuda")[None] >= t * 3 // 4)
+                      & (torch.arange(batch, device="cuda")[:, None] % 2 == 1))[:, None, None]
+                     for t in keys]
+            pad = (torch.arange(rows, device="cuda") % 2 == 0).to(dtype)[:, None, None]
+
+            def call():
+                return tail_ops.fused_decode_layer_tail(
+                    x, kv[0], kv[1], masks[0], kv[2], kv[3], masks[1], pad, weights,
+                    fold=beam, n_heads=heads)
+
+            first = None
+            for name, lib in libs:
+                key = f"decode_tail {dn} b{batch}: {name}"
+                _cuda._lib = _TailLib(lib)
+                try:
+                    with torch.no_grad():
+                        out = call().float()
+                        first = out if first is None else first
+                        close[key] = ((out - first).abs().max() / first.abs().max()).item()
+                        if not close[key] <= (2e-5 if dtype == torch.float32 else 3e-2):
+                            raise RuntimeError(f"{key}: {close[key]:.3e} of the first's max apart")
+                        totals[key] = graph_ms(call)
+                except RuntimeError as exc:   # a variant the card refuses is reported, not timed
+                    print(f"{key}: failed: {exc}", flush=True)
+                    torch.cuda.synchronize()
+                finally:
+                    _cuda._lib = saved
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("kernel_variants: FAIL: needs a CUDA device", file=sys.stderr)
@@ -236,6 +320,8 @@ def main() -> None:
     bf = torch.bfloat16
     totals: dict[str, float] = {}
     for c, heads, (hp, wp), depth in STAGES:
+        if not any(src in ("gemm_sm90.cu", "window_attn_mma.cu") for src, _, _ in built):
+            break
         rows = BATCH * hp * wp
         a = torch.randn(rows, c, generator=g, device="cuda").to(bf)
         h4 = torch.randn(rows, 4 * c, generator=g, device="cuda").to(bf)
@@ -371,10 +457,11 @@ def main() -> None:
                 totals[key] = totals.get(key, 0.0) + graph_ms(call) * depth
             key = "gemm_f32: F.linear"
             totals[key] = totals.get(key, 0.0) + graph_ms(lambda: F.linear(x, w, bias)) * depth
+    decode_tail_variants(built, totals, close)
     for key, ms in totals.items():
         per = (f"b{DET_BATCH} 832x1344 detector step"
                if key.startswith(("gemm_f32", "win_attn_f32", "win_attn_bwd_f32"))
-               else f"b{BATCH} forward")
+               else "call" if key.startswith("decode_tail") else f"b{BATCH} forward")
         bits = f", bit-equal to the first: {same[key]}" if key in same else ""
         if key in close:
             bits = f", {close[key]:.2e} of the first's max from it"

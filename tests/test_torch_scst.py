@@ -51,16 +51,22 @@ def _rel(a, b):
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
 
 
-def tail_inputs(masked: bool, seed=40, b=2, fold=3, d=32, d_ff=64, t1=7, t2=11):
+def tail_inputs(masked: bool, seed=40, b=2, fold=3, d=32, d_ff=64, t1=7, t2=11,
+                n_heads=4):
     """x [B*fold, 1, D], K/V [B, T, D], bool masks [B, 1, 1, T] (the second
-    image hides its last keys) or None, pad [B*fold, 1, 1] with a pad row, and
-    the 24 weights in the JAX order and layout."""
+    image hides its last keys; with more than two images every odd image hides
+    the last quarter of its keys) or None, pad [B*fold, 1, 1] with a pad row,
+    and the 24 weights in the JAX order and layout."""
     rng = np.random.default_rng(seed)
     f = lambda *s, sc=1.0: (rng.standard_normal(s) * sc).astype(np.float32)  # noqa: E731
     x = f(b * fold, 1, d)
     kv = [f(b, t, d) for t in (t1, t1, t2, t2)]
     masks = [None, None]
-    if masked:
+    if masked and b > 2:
+        masks = [np.zeros((b, 1, 1, t), bool) for t in (t1, t2)]
+        for m, t in zip(masks, (t1, t2)):
+            m[1::2, ..., t - t // 4:] = True
+    elif masked:
         masks = [np.zeros((b, 1, 1, t), bool) for t in (t1, t2)]
         masks[0][1, ..., t1 - 2:] = True
         masks[1][1, ..., t2 - 4:] = True
@@ -72,7 +78,7 @@ def tail_inputs(masked: bool, seed=40, b=2, fold=3, d=32, d_ff=64, t1=7, t2=11):
                mat(d, d), f(d, sc=0.1), mat(d, d), f(d, sc=0.1), *ln(),
                mat(d, d), mat(d, d), f(d, sc=0.1), mat(d, d), mat(d, d), f(d, sc=0.1),
                mat(d, d_ff), f(d_ff, sc=0.1), mat(d_ff, d), f(d, sc=0.1), *ln())
-    return x, kv, masks, pad, weights, dict(fold=fold, n_heads=4)
+    return x, kv, masks, pad, weights, dict(fold=fold, n_heads=n_heads)
 
 
 def port_tail(x, kv, masks, pad, weights, kw, grad=False):
@@ -91,12 +97,24 @@ def jax_tail(x, kv, masks, pad, weights, kw):
         tuple(j(w) for w in weights), **kw)
 
 
-@pytest.mark.parametrize("masked", [True, False], ids=["masks", "no_masks"])
-@pytest.mark.parametrize("ref", ["pallas_interpret", "jnp_ref"])
-def test_decode_tail_plain_matches_jax(ref, masked):
+#: the decode geometry the card runs K11 at: the shipped generator's widths
+#: (d 512, 8 heads, d_ff 2048), beam 5, 8 images (40 rows, not a multiple of
+#: 16), the 60 grid and 150 region keys of a 384x640 image
+CARD = dict(b=8, fold=5, d=512, d_ff=2048, t1=60, t2=150, n_heads=8)
+TAIL_CASES = [pytest.param(ref, masked, geo, id="-".join(
+                  ([] if geo == "tiny" else [geo]) + [ref, "masks" if masked else "no_masks"]))
+              for geo in ("tiny", "card") for ref in ("pallas_interpret", "jnp_ref")
+              for masked in (True, False)]
+
+
+@pytest.mark.parametrize("ref, masked, geo", TAIL_CASES)
+def test_decode_tail_plain_matches_jax(ref, masked, geo):
     """The plain version of K11 against the Pallas kernel in interpret mode
-    and against its jnp mirror; 2e-5 absolute on O(1) outputs."""
-    x, kv, masks, pad, weights, kw = tail_inputs(masked)
+    and against its jnp mirror: at the tiny widths 2e-5 absolute on O(1)
+    outputs; at the card's decode geometry (``CARD``, the widths at which
+    chip_smoke.py holds the CUDA kernel to this plain version) 2e-5 of the
+    output's max."""
+    x, kv, masks, pad, weights, kw = tail_inputs(masked, **(CARD if geo == "card" else {}))
     out, _, _ = port_tail(x, kv, masks, pad, weights, kw)
     if ref == "pallas_interpret":
         with _interp():
@@ -112,8 +130,25 @@ def test_decode_tail_plain_matches_jax(ref, masked):
             jnp.asarray(pad.reshape(-1, 1)), tuple(jnp.asarray(w) for w in weights),
             f=kw["fold"], h=kw["n_heads"], eps=1e-5))[:, None]
     assert out.shape == want.shape == x.shape
-    assert np.abs(out.numpy() - want).max() <= ATOL
+    if geo == "card":
+        assert _rel(out.numpy(), want) <= 2e-5
+    else:
+        assert np.abs(out.numpy() - want).max() <= ATOL
     assert (out.numpy()[2] == 0).all()          # the pad row
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_decode_tail_attention_fits_the_caption_geometry(dtype):
+    """The CUDA attention launch's shared memory (K and V of one head staged
+    whole) admits the caption paths' fold 5 over 60 and 150 keys at head dim
+    64 within a Hopper block's 227 KB, and the wrapper's bound is the C
+    launcher's layout: K and V rows of 64 values plus 16 bytes, then q,
+    the scores (rounded up to 4) and eight warps' P V partials in f32."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    want = 2 * 150 * (64 * esize + 16) + (5 * 64 + 752 + 8 * 5 * 64) * 4
+    assert tdl.attn_smem_bytes(dtype, 5, 64, 150) == want
+    assert want <= 232448
+    assert tdl.attn_smem_bytes(dtype, 5, 64, 60) < want
 
 
 def test_decode_tail_gradient_matches_jax():
