@@ -41,9 +41,12 @@
 //   cp.async copies (A rows and the weight rows, rows of 80 bytes so that
 //   ldmatrix and float4 reads hit distinct banks), the next chunk issued
 //   before the current one's product, with no block barrier in the loop;
+// - up to 128 rows the gates' and fc2's K (2048) is split over a cluster of
+//   two blocks as well (128 blocks each at 40 rows, half the bytes a block);
 // - each warp leaves its f32 partial tile in shared memory and the epilogue
-//   sums the warps in a fixed order (the gates: warps 0-3 the first gate,
-//   4-7 the second), so the outputs are the same bit for bit from call to
+//   sums the warps of the block, or of the cluster through distributed
+//   shared memory, in a fixed order (the gates: the first half of the warps
+//   the first gate), so the outputs are the same bit for bit from call to
 //   call: no atomics;
 // - bf16 runs mma.sync m16n8k16 on ldmatrix fragments; fp32 (the parity path
 //   and the fp32 trainers' decoding) the same blocks, staging and split with
@@ -60,6 +63,8 @@
 // warps' partials summed in order.
 // Timed by chip_smoke.py (device time by CUDA-graph replay, each launch by
 // the profiler); kernel_variants.py times variants of this source.
+#include <cooperative_groups.h>
+
 #include <type_traits>
 
 #include "mma_tiles.cuh"
@@ -80,6 +85,9 @@ constexpr int PR_MAXM = 64, PR_KB = 64, PR_RB = PR_KB + 16;
 // past PR_WIDE_ROWS rows a block takes 8 * PR_WIDE_NF columns: each A row tile is
 // then read by a quarter as many blocks
 constexpr int PR_WIDE_ROWS = 128, PR_WIDE_NF = 4;
+// up to PR_WIDE_ROWS rows the gates' and fc2's K (4D and F) is split over a
+// cluster of PR_SPLIT blocks too: twice the blocks, half the bytes a block
+constexpr int PR_SPLIT = 2;
 
 __device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
@@ -208,13 +216,13 @@ __host__ __device__ constexpr int pr_warp_bytes(int mf, int nf) {
 // The block's rows [row0, row0 + nrows) (nrows <= 16 mf) times columns
 // [col0, col0 + 8 NF) of this warp's output: the K of s0 then s1 (s1.k may
 // be 0).  The wpz warps that share an output split its chunks into
-// contiguous runs.  Leaves each warp's f32 partial [16 mf][8 NF] at the start
-// of its ring and ends with a block barrier.
+// contiguous runs; this warp is the wl-th of them.  Leaves each warp's f32
+// partial [16 mf][8 NF] at the start of its ring and ends with a block barrier.
 template <typename T, int NF>
-__device__ __forceinline__ void product(const Seg& s0, const Seg& s1, int wpz, int row0,
+__device__ __forceinline__ void product(const Seg& s0, const Seg& s1, int wl, int wpz, int row0,
                                         int nrows, int mf, int col0, unsigned char* smem) {
   constexpr int KC = PR_KB / sizeof(T);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wl = warp % wpz;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int mrows = mf * 16, sb = pr_stage_bytes(mf, NF);
   unsigned char* ring = smem + warp * pr_warp_bytes(mf, NF);
   const int n0 = s0.k / KC, nch = n0 + s1.k / KC;
@@ -257,15 +265,35 @@ __device__ __forceinline__ void product(const Seg& s0, const Seg& s1, int wpz, i
   __syncthreads();
 }
 
-// Output z's sum at element idx of the partial tiles: warps z*wpz .. in order.
-template <int NF>
-__device__ __forceinline__ float partial_sum(const unsigned char* smem, int mf, int wpz, int z,
-                                             int idx) {
-  float s = 0.0f;
-  for (int w = z * wpz; w < (z + 1) * wpz; ++w)
-    s += reinterpret_cast<const float*>(smem + w * pr_warp_bytes(mf, NF))[idx];
-  return s;
-}
+// The partial tiles of a block's cluster of KS blocks (a product whose K is
+// split over KS blocks as well as over their warps): virtual warp v = rank *
+// PR_WARPS + warp.  Output z's sum at element idx adds its wpz virtual warps in
+// order, the same order whichever block of the cluster reads them.
+template <int NF, int KS> struct Partials {
+  const unsigned char* base[KS];
+  __device__ explicit Partials(unsigned char* smem) {
+    if constexpr (KS > 1) {
+      cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+      cl.sync();  // every block's partials are written
+#pragma unroll
+      for (int r = 0; r < KS; ++r)
+        base[r] = static_cast<const unsigned char*>(cl.map_shared_rank(static_cast<void*>(smem), r));
+    } else {
+      base[0] = smem;
+    }
+  }
+  __device__ float sum(int mf, int wpz, int z, int idx) const {
+    float s = 0.0f;
+    for (int v = z * wpz; v < (z + 1) * wpz; ++v)
+      s += reinterpret_cast<const float*>(base[v / PR_WARPS] +
+                                          (v % PR_WARPS) * pr_warp_bytes(mf, NF))[idx];
+    return s;
+  }
+  // the other blocks' reads are done before this block's shared memory goes
+  __device__ void done() const {
+    if constexpr (KS > 1) cooperative_groups::this_cluster().sync();
+  }
+};
 
 // The row tile of a product block: `per` rows a tile, the last one ragged.
 struct RowTile {
@@ -282,12 +310,14 @@ __global__ void __launch_bounds__(PR_THREADS) dt_qproj_kernel(
   const int z = blockIdx.z, col0 = blockIdx.x * 8 * NF;
   const RowTile t(R, per);
   const Seg s{x, D, z ? wq2 : wq1, D, D};
-  product<T, NF>(s, Seg{nullptr, 0, nullptr, 0, 0}, PR_WARPS, t.row0, t.nrows, mf, col0, smem);
+  product<T, NF>(s, Seg{nullptr, 0, nullptr, 0, 0}, threadIdx.x >> 5, PR_WARPS, t.row0, t.nrows,
+                 mf, col0, smem);
+  const Partials<NF, 1> parts(smem);
   const T* bias = z ? bq2 : bq1;
   for (int idx = threadIdx.x; idx < t.nrows * 8 * NF; idx += PR_THREADS) {
     const int r = idx / (8 * NF), c = idx % (8 * NF);
     q[(size_t)(t.row0 + r) * 2 * D + z * D + col0 + c] =
-        from_f<T>((partial_sum<NF>(smem, mf, PR_WARPS, 0, idx) + to_f<T>(bias[col0 + c])) * scale);
+        from_f<T>((parts.sum(mf, PR_WARPS, 0, idx) + to_f<T>(bias[col0 + c])) * scale);
   }
 }
 
@@ -447,13 +477,15 @@ __global__ void __launch_bounds__(PR_THREADS) dt_oproj_kernel(
   const int z = blockIdx.z, col0 = blockIdx.x * 8 * NF;
   const RowTile t(R, per);
   const Seg s{o + z * D, 2 * D, z ? wo2 : wo1, D, D};
-  product<T, NF>(s, Seg{nullptr, 0, nullptr, 0, 0}, PR_WARPS, t.row0, t.nrows, mf, col0, smem);
+  product<T, NF>(s, Seg{nullptr, 0, nullptr, 0, 0}, threadIdx.x >> 5, PR_WARPS, t.row0, t.nrows,
+                 mf, col0, smem);
+  const Partials<NF, 1> parts(smem);
   const T* bias = z ? bo2 : bo1;
   for (int idx = threadIdx.x; idx < t.nrows * 8 * NF; idx += PR_THREADS) {
     const int r = idx / (8 * NF), c = idx % (8 * NF), row = t.row0 + r, col = col0 + c;
     pre[((size_t)z * R + row) * D + col] =
         to_f<T>(x[(size_t)row * D + col]) +
-        (partial_sum<NF>(smem, mf, PR_WARPS, 0, idx) + to_f<T>(bias[col]));
+        (parts.sum(mf, PR_WARPS, 0, idx) + to_f<T>(bias[col]));
   }
 }
 
@@ -493,29 +525,33 @@ __global__ void __launch_bounds__(DT_THREADS) dt_ln_kernel(
 // one [D, 2D] Linear weight).  Warps 0-3 take the first gate's K (x Ws_1 then
 // enc_1 We_1), warps 4-7 the second's.  Writes encf (f32) and, unless null,
 // its compute-type copy encf_t.
-template <typename T, int NF>
+template <typename T, int NF, int KS>
 __global__ void __launch_bounds__(PR_THREADS) dt_gate_kernel(
     const T* __restrict__ x, const float* __restrict__ enc, const T* __restrict__ enc_t,
     const T* wsa, const T* wea, const T* ba, const T* wsb, const T* web, const T* bb,
     const T* __restrict__ pad, float* __restrict__ encf, T* __restrict__ encf_t, int R, int D,
     int ldg, int per, int mf) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int col0 = blockIdx.x * 8 * NF, z = (threadIdx.x >> 5) / (PR_WARPS / 2);
+  // the cluster's KS * PR_WARPS virtual warps: the first half the first gate's K
+  const int rank = blockIdx.x % KS, col0 = blockIdx.x / KS * 8 * NF;
+  const int v = rank * PR_WARPS + (threadIdx.x >> 5), wpz = KS * PR_WARPS / 2, z = v / wpz;
   const RowTile t(R, per);
   const Seg sx{x, D, z ? wsb : wsa, ldg, D};
   const Seg se{enc_t + (size_t)z * R * D, D, z ? web : wea, ldg, D};
-  product<T, NF>(sx, se, PR_WARPS / 2, t.row0, t.nrows, mf, col0, smem);
-  for (int idx = threadIdx.x; idx < t.nrows * 8 * NF; idx += PR_THREADS) {
+  product<T, NF>(sx, se, v % wpz, wpz, t.row0, t.nrows, mf, col0, smem);
+  const Partials<NF, KS> parts(smem);
+  for (int idx = rank * PR_THREADS + threadIdx.x; idx < t.nrows * 8 * NF;
+       idx += KS * PR_THREADS) {
     const int r = idx / (8 * NF), c = idx % (8 * NF), row = t.row0 + r, col = col0 + c;
-    const float s1 = partial_sum<NF>(smem, mf, PR_WARPS / 2, 0, idx);
-    const float s2 = partial_sum<NF>(smem, mf, PR_WARPS / 2, 1, idx);
+    const float s1 = parts.sum(mf, wpz, 0, idx), s2 = parts.sum(mf, wpz, 1, idx);
     const float a1 = 1.0f / (1.0f + expf(-(s1 + to_f<T>(ba[col]))));
     const float a2 = 1.0f / (1.0f + expf(-(s2 + to_f<T>(bb[col]))));
     const float e1 = enc[(size_t)row * D + col], e2 = enc[((size_t)R + row) * D + col];
-    const float v = (e1 * a1 + e2 * a2) * 0.70710678118654752440f * to_f<T>(pad[row]);
-    encf[(size_t)row * D + col] = v;
-    if (encf_t != nullptr) encf_t[(size_t)row * D + col] = from_f<T>(v);
+    const float e = (e1 * a1 + e2 * a2) * 0.70710678118654752440f * to_f<T>(pad[row]);
+    encf[(size_t)row * D + col] = e;
+    if (encf_t != nullptr) encf_t[(size_t)row * D + col] = from_f<T>(e);
   }
+  parts.done();
 }
 
 // 6. h = relu(enc W1 + b1), rounded to the compute type.
@@ -526,30 +562,35 @@ __global__ void __launch_bounds__(PR_THREADS) dt_fc1_kernel(
   extern __shared__ __align__(16) unsigned char smem[];
   const int col0 = blockIdx.x * 8 * NF;
   const RowTile t(R, per);
-  product<T, NF>(Seg{enc_t, D, w1, D, D}, Seg{nullptr, 0, nullptr, 0, 0}, PR_WARPS, t.row0, t.nrows,
-             mf, col0, smem);
+  product<T, NF>(Seg{enc_t, D, w1, D, D}, Seg{nullptr, 0, nullptr, 0, 0}, threadIdx.x >> 5,
+                 PR_WARPS, t.row0, t.nrows, mf, col0, smem);
+  const Partials<NF, 1> parts(smem);
   for (int idx = threadIdx.x; idx < t.nrows * 8 * NF; idx += PR_THREADS) {
     const int r = idx / (8 * NF), c = idx % (8 * NF), row = t.row0 + r, col = col0 + c;
     hbuf[(size_t)row * F + col] =
-        from_f<T>(fmaxf(partial_sum<NF>(smem, mf, PR_WARPS, 0, idx) + to_f<T>(b1[col]), 0.0f));
+        from_f<T>(fmaxf(parts.sum(mf, PR_WARPS, 0, idx) + to_f<T>(b1[col]), 0.0f));
   }
 }
 
 // 7. pre = enc + h W2 + b2 (f32).
-template <typename T, int NF>
+template <typename T, int NF, int KS>
 __global__ void __launch_bounds__(PR_THREADS) dt_fc2_kernel(
     const T* __restrict__ hbuf, const float* __restrict__ encf, const T* w2, const T* b2,
     float* __restrict__ pre, int R, int D, int F, int per, int mf) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int col0 = blockIdx.x * 8 * NF;
+  const int rank = blockIdx.x % KS, col0 = blockIdx.x / KS * 8 * NF;
   const RowTile t(R, per);
-  product<T, NF>(Seg{hbuf, F, w2, F, F}, Seg{nullptr, 0, nullptr, 0, 0}, PR_WARPS, t.row0, t.nrows,
-             mf, col0, smem);
-  for (int idx = threadIdx.x; idx < t.nrows * 8 * NF; idx += PR_THREADS) {
+  product<T, NF>(Seg{hbuf, F, w2, F, F}, Seg{nullptr, 0, nullptr, 0, 0},
+                 rank * PR_WARPS + (threadIdx.x >> 5), KS * PR_WARPS, t.row0, t.nrows, mf, col0,
+                 smem);
+  const Partials<NF, KS> parts(smem);
+  for (int idx = rank * PR_THREADS + threadIdx.x; idx < t.nrows * 8 * NF;
+       idx += KS * PR_THREADS) {
     const int r = idx / (8 * NF), c = idx % (8 * NF), row = t.row0 + r, col = col0 + c;
     pre[(size_t)row * D + col] =
-        encf[(size_t)row * D + col] + (partial_sum<NF>(smem, mf, PR_WARPS, 0, idx) + to_f<T>(b2[col]));
+        encf[(size_t)row * D + col] + (parts.sum(mf, KS * PR_WARPS, 0, idx) + to_f<T>(b2[col]));
   }
+  parts.done();
 }
 
 // the largest dynamic shared memory for a kernel, asked for once
@@ -557,6 +598,25 @@ template <auto K> int opt_in() {
   static const cudaError_t err = cudaFuncSetAttribute(
       K, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(DT_SMEM_MAX));
   return static_cast<int>(err);
+}
+
+// a launch of PR_THREADS-thread blocks in clusters of ks along x
+template <typename... P, typename... A>
+int launch_cluster(void (*kernel)(P...), dim3 grid, size_t smem, cudaStream_t st, int ks,
+                   A... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(PR_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = ks;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, args...));
 }
 
 // weights: the 24 pointers in grit_tpu/ops/decode_layer.py::_ref's order;
@@ -567,6 +627,7 @@ int decode_tail(const void* x_, const void* k1, const void* v1, const void* m1, 
                 const void* const* w, float* sf, void* st_, int R, int B, int fold, int T1,
                 int T2, int D, int F, int H, int ldg, float eps, cudaStream_t stream) {
   constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int KS = NF == 1 ? PR_SPLIT : 1;
   const T* x = static_cast<const T*>(x_);
   const T* pad = static_cast<const T*>(pad_);
   auto wt = [&](int i) { return static_cast<const T*>(w[i]); };
@@ -591,8 +652,8 @@ int decode_tail(const void* x_, const void* k1, const void* v1, const void* m1, 
   if (at_smem > DT_SMEM_MAX || d % 8 || D % cw || F % cw || R != B * fold)
     return static_cast<int>(cudaErrorInvalidValue);
   for (int err : {opt_in<dt_qproj_kernel<T, NF>>(), opt_in<dt_attn_kernel<T>>(),
-                  opt_in<dt_oproj_kernel<T, NF>>(), opt_in<dt_gate_kernel<T, NF>>(),
-                  opt_in<dt_fc1_kernel<T, NF>>(), opt_in<dt_fc2_kernel<T, NF>>()})
+                  opt_in<dt_oproj_kernel<T, NF>>(), opt_in<dt_gate_kernel<T, NF, KS>>(),
+                  opt_in<dt_fc1_kernel<T, NF>>(), opt_in<dt_fc2_kernel<T, NF, KS>>()})
     if (err != 0) return err;
 
   dt_qproj_kernel<T, NF><<<dim3(D / cw, rt, 2), PR_THREADS, pr_smem, stream>>>(
@@ -605,13 +666,17 @@ int decode_tail(const void* x_, const void* k1, const void* v1, const void* m1, 
       o, x, wt(2), wt(3), wt(8), wt(9), pre, R, D, per, mf);
   dt_ln_kernel<T><<<dim3(lr, 2), DT_THREADS, 0, stream>>>(
       pre, wf(4), wf(5), wf(10), wf(11), pad, enc, kF32 ? nullptr : enc_t, R, D, eps);
-  dt_gate_kernel<T, NF><<<dim3(D / cw, rt), PR_THREADS, pr_smem, stream>>>(
-      x, enc, enc_a, wt(12), wt(13), wt(14), wt(15), wt(16), wt(17), pad, encf,
-      kF32 ? nullptr : encf_t, R, D, ldg, per, mf);
+  int err = launch_cluster(dt_gate_kernel<T, NF, KS>, dim3(D / cw * KS, rt), pr_smem, stream, KS,
+                           x, static_cast<const float*>(enc), enc_a, wt(12), wt(13), wt(14),
+                           wt(15), wt(16), wt(17), pad, encf, kF32 ? nullptr : encf_t, R, D, ldg,
+                           per, mf);
+  if (err != 0) return err;
   dt_fc1_kernel<T, NF><<<dim3(F / cw, rt), PR_THREADS, pr_smem, stream>>>(
       encf_a, wt(18), wt(19), hbuf, R, D, F, per, mf);
-  dt_fc2_kernel<T, NF><<<dim3(D / cw, rt), PR_THREADS, pr_smem, stream>>>(
-      hbuf, encf, wt(20), wt(21), pre, R, D, F, per, mf);
+  err = launch_cluster(dt_fc2_kernel<T, NF, KS>, dim3(D / cw * KS, rt), pr_smem, stream, KS,
+                       static_cast<const T*>(hbuf), static_cast<const float*>(encf), wt(20),
+                       wt(21), pre, R, D, F, per, mf);
+  if (err != 0) return err;
   dt_ln_kernel<T><<<dim3(lr, 1), DT_THREADS, 0, stream>>>(
       pre, wf(22), wf(23), wf(22), wf(23), pad, nullptr, static_cast<T*>(out), R, D, eps);
   return static_cast<int>(cudaGetLastError());

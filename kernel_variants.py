@@ -33,8 +33,8 @@ call for the same function, at the shapes of a b8 384x640 caption forward
     wrapper at the decode shapes of a b8, a b16 and a b128 caption batch
     (40, 80 and 640 rows, beam 5, 60 + 150 keys, masks), bf16 and fp32: as it
     is; 8-column product tiles at 640 rows too; 16-column ones there; 128
-    threads an attention block; a ring of 2 stages; 128-byte chunks of K; each
-    variant's outputs checked within 2e-5 (fp32) / 3e-2 (bf16) of the first's
+    threads an attention block; the gates' and fc2's K not split over a
+    cluster of blocks, or split over 4; each variant's outputs checked within 2e-5 (fp32) / 3e-2 (bf16) of the first's
     max (the attention variant sums P V in another order).
 
 Prints one line per kernel and writes chiprun_out/kernel_variants.json.
@@ -167,8 +167,8 @@ VARIANTS = [
         ("PR_WIDE_ROWS = 128", "PR_WIDE_ROWS = 1 << 30")]),
     ("decode_layer.cu", "16-column tiles past 128 rows", [("PR_WIDE_NF = 4", "PR_WIDE_NF = 2")]),
     ("decode_layer.cu", "128 attention threads", [("AT_THREADS = 256", "AT_THREADS = 128")]),
-    ("decode_layer.cu", "ring of 2 stages", [("PR_STAGES = 3", "PR_STAGES = 2")]),
-    ("decode_layer.cu", "128-byte chunks", [("PR_KB = 64", "PR_KB = 128")]),
+    ("decode_layer.cu", "no K split over a cluster", [("PR_SPLIT = 2", "PR_SPLIT = 1")]),
+    ("decode_layer.cu", "K split over 4 blocks", [("PR_SPLIT = 2", "PR_SPLIT = 4")]),
     ("swin_block.cu", "as is", []),
     ("swin_block.cu", "k step 8", [("GF_BK = 16", "GF_BK = 8")]),
     ("swin_block.cu", "one block an SM", [
