@@ -1,8 +1,8 @@
 """GPU smoke test of the PyTorch/CUDA port (grit_tpu_torch) on one card.
 
   python3 chip_smoke.py              # every phase
-  python3 chip_smoke.py --profile    # and torch.profiler passes over one caption
-                                     # batch and one training step
+  python3 chip_smoke.py --profile    # and torch.profiler passes over a b8 and a
+                                     # b128 caption batch and the training steps
   python3 chip_smoke.py --parity-seeds 3   # and phase 7's gradient errors at 3
                                      # further batch seeds, reported only
 
@@ -731,26 +731,48 @@ ADAM_TOL = 1e-6   # same f32 operations in the same order; sqrt and division to 
 
 
 def count_launches(fn) -> int:
-    """Device kernels launched by one call of ``fn`` (torch.profiler).  A
-    profile that saw no device kernel at all is taken again, once: every
-    ``fn`` given here launches, and the profiler has been seen to return a
-    window without the card's records."""
+    """Device kernels launched by one call of ``fn`` (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(2):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        n = sum(e.count for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and getattr(e, "self_device_time_total", 0) > 0)
-        if n:
-            return n
-        print("  count_launches: the profile holds no device kernel; profiling again",
-              flush=True)
-    return n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and getattr(e, "self_device_time_total", 0) > 0)
+
+
+def graph_launches(fn) -> int:
+    """Kernel launches of one call of ``fn``: the kernel nodes of a CUDA graph
+    that captures it (read through the CUDA runtime), which needs no
+    profiler.  The warm-up call runs on a side stream, as in ``graph_ms``."""
+    import ctypes
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    rt = ctypes.CDLL(f"libcudart.so.{torch.version.cuda.split('.')[0]}")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if rt.cudaGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        fail("graph_launches: cudaGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    rt.cudaGraphGetNodes(raw, nodes, ctypes.byref(n))
+    kernels = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        rt.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kernels += kind.value == 0   # cudaGraphNodeTypeKernel
+    del graph
+    return kernels
 
 
 def launch_times(fn, calls: int = 10) -> dict[str, tuple[float, float]]:
@@ -791,12 +813,13 @@ def phase_decode_kernel() -> None:
     parameters at the call, as a model built for training hands them over),
     with and without key masks, half the rows pad, on a decode layer's own
     weights; beside it the module path for the same tail (no single PyTorch
-    call computes it), timed and its launches counted.  The kernel's time is
-    device time by CUDA-graph replay (``graph_ms``; the eager time by CUDA
-    events beside it), the plain version's and the module path's eager.
+    call computes it), timed and its launches counted.  The kernel's and the
+    module path's times are device times by CUDA-graph replay (``graph_ms``;
+    their eager times by CUDA events beside them), the plain version's eager.
     Each case must give the same output bit for bit from two calls, make
-    exactly 8 CUDA launches a call and count one ``decode_tail`` launch; at
-    b8 the device time of each of the eight launches is printed."""
+    exactly 8 CUDA launches a call (``graph_launches``) and count one
+    ``decode_tail`` launch; at b8 the device time of each of the eight
+    launches is printed."""
     print("[kernels] K11 (decode-layer tail) vs plain, beam-5 rows over 60 + 150 keys",
           flush=True)
     g = torch.Generator(device=DEV).manual_seed(3)
@@ -859,12 +882,12 @@ def phase_decode_kernel() -> None:
                     mod = module_path()[:, 0]
                     eager_ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
                     ms = graph_ms(kernel)
-                    mod_ms = cuda_ms(module_path)
+                    mod_ms, mod_dev_ms = cuda_ms(module_path), graph_ms(module_path)
                     mod_launches = count_launches(module_path)
                     counted = tail_ops.LAUNCHES["decode_tail"]
                     kernel()
                     counted = tail_ops.LAUNCHES["decode_tail"] - counted
-                    own_launches = count_launches(kernel)
+                    own_launches = graph_launches(kernel)
                     per_launch = launch_times(kernel) if batch == 8 and masked else None
                 if not bits_equal(out, again):
                     fail(f"K11 {case}: two calls on the same inputs differ")
@@ -879,10 +902,11 @@ def phase_decode_kernel() -> None:
                         + 4.0 * rows * D_MODEL * (T_GRID + T_REG))
                 compare("K11", case, out, ref, dtype, ms, plain_ms, calls, work)
                 mod_rel = max_rel(mod.float(), ref.float())
-                print(f"  K11 {case:<30} eager {eager_ms:.3f} ms; module path: {mod_ms:.3f} ms "
-                      f"eager in {mod_launches} launches (kernel: {own_launches}); module path "
-                      f"vs plain {mod_rel:.3e}; two calls bit-equal", flush=True)
-                DETAIL[-1].update(eager_ms=eager_ms, module_ms=mod_ms,
+                print(f"  K11 {case:<30} eager {eager_ms:.3f} ms; module path: {mod_dev_ms:.3f} ms "
+                      f"device, {mod_ms:.3f} ms eager in {mod_launches} launches (kernel: "
+                      f"{own_launches}); module path vs plain {mod_rel:.3e}; two calls bit-equal",
+                      flush=True)
+                DETAIL[-1].update(eager_ms=eager_ms, module_ms=mod_ms, module_device_ms=mod_dev_ms,
                                   module_launches=mod_launches, wrapper_launches=own_launches,
                                   module_vs_plain=mod_rel, bit_equal=True)
                 if per_launch is not None:
@@ -894,6 +918,7 @@ def phase_decode_kernel() -> None:
                     fail(f"K11 {case}: module path differs from the plain version by {mod_rel:.3e}")
                 if calls and dtype == torch.bfloat16:
                     YARDSTICKS.update({"decode_tail_module_ms": mod_ms,
+                                       "decode_tail_module_device_ms": mod_dev_ms,
                                        "decode_tail_module_launches": mod_launches,
                                        "decode_tail_wrapper_launches": own_launches})
 
@@ -1305,8 +1330,8 @@ def profile_run(fn, title: str, path: str) -> None:
 
 
 def phase_profile(batch: int, card: str) -> None:
-    """Profile one bf16 caption batch, one bf16 XE training step and one
-    detector training step in bf16 and in fp32."""
+    """Profile one bf16 caption batch at ``batch`` and at 128 images, one bf16
+    XE training step and one detector training step in bf16 and in fp32."""
     config = default_caption_config()
     model = build_captioner(config, device=DEV, dtype=torch.bfloat16, seed=0)
     samples = synthetic_batch(batch)
@@ -1317,7 +1342,11 @@ def phase_profile(batch: int, card: str) -> None:
     torch.cuda.synchronize()
     profile_run(lambda: gen(samples, batch), f"b{batch} bf16 caption batch [{card}]",
                 "profile.txt")
-    del model, gen
+    big = synthetic_batch(128)   # the device-bound batch of phase_slice_b128
+    gen(big, 128)
+    torch.cuda.synchronize()
+    profile_run(lambda: gen(big, 128), f"b128 bf16 caption batch [{card}]", "profile_b128.txt")
+    del model, gen, big
     state, step, tbatch = training_setup(config, torch.bfloat16, TRAIN_BATCH)
     step(state, tbatch)
     torch.cuda.synchronize()
