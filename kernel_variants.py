@@ -34,8 +34,9 @@ call for the same function, at the shapes of a b8 384x640 caption forward
     (40, 80 and 640 rows, beam 5, 60 + 150 keys, masks), bf16 and fp32: as it
     is; 8-column product tiles at 640 rows too; 16-column ones there; 128
     threads an attention block; the gates' and fc2's K not split over a
-    cluster of blocks, or split over 4; each variant's outputs checked within 2e-5 (fp32) / 3e-2 (bf16) of the first's
-    max (the attention variant sums P V in another order).
+    cluster of blocks, or split over 4; each variant's outputs checked
+    within 2e-5 (fp32) / 3e-2 (bf16) of the first's max (a variant may sum
+    in another order).
 
 Prints one line per kernel and writes chiprun_out/kernel_variants.json.
 Needs a card and nvcc; exits non-zero without them.
