@@ -20,6 +20,11 @@ Phases, each of which must pass:
      TPU needed S-chunked variants;
      K11 (the caption generator's decode-layer tail) at the decode shapes of
      a b8 and a b128 caption batch, beside the module path for the same tail;
+     K3 and K6 once more at the shapes of a b8 and a b128 caption forward, a
+     b16 XE step and a b4 detector step (K6 but at b128), timed by CUDA-graph
+     replay, their launches a call counted from a captured graph and K6's
+     split into zero-fill, kernel and casts, each bit-equal over two calls
+     (K3's output, K6's location and weight gradients);
      K12 (the multi-tensor Adam update) for three steps on the captioner's
      own trainable leaves, beside torch.optim.Adam(fused=True);
   3. the kernels that do most of K1, K2, K4, K5 and K10a's work: the GEMM
@@ -351,14 +356,40 @@ def mlp_work(rows: int, c: int, dtype) -> tuple[float, float]:
     return (2 * rows * c + 8 * c * c + 5 * c) * esize(dtype) + 8 * c, 16.0 * rows * c * c
 
 
-def msda_work(n: int, s: int, lq: int, mh: int, d: int, taps: int, dtype,
-              backward: bool) -> tuple[float, float]:
-    """Forward: value, locations, weights in, output out; 4 corners of a
-    multiply-add and the weighting per tap and channel.  Backward: also dOut
-    in and the three gradients out; about three times the arithmetic."""
-    c = mh * d
+def msda_touched(value, levels, loc, attn, real_hw) -> int:
+    """(image, value row, head) segments that one call's taps read, each
+    counted once: the value bytes these inputs need (a valid corner, as the
+    kernels and the plain version decide it)."""
+    n, s, _ = value.shape
+    _, lq, m, _, p, _ = loc.shape
+    img = torch.arange(n, device=value.device).view(n, 1, 1, 1)
+    head = torch.arange(m, device=value.device).view(1, 1, m, 1)
+    keys = []
+    for lid, ((h, w), st) in enumerate(zip(levels, msda_ops.level_start_index(levels))):
+        hmax = real_hw[:, lid, 0].clamp(max=h).view(n, 1, 1, 1)
+        wmax = real_hw[:, lid, 1].clamp(max=w).view(n, 1, 1, 1)
+        x0 = torch.floor(loc[:, :, :, lid, :, 0] * w - 0.5).long()
+        y0 = torch.floor(loc[:, :, :, lid, :, 1] * h - 0.5).long()
+        for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            ix, iy = x0 + dx, y0 + dy
+            valid = (ix >= 0) & (ix < wmax) & (iy >= 0) & (iy < hmax)
+            keys.append((((img * s + st + iy * w + ix) * m) + head)[valid])
+    return torch.unique(torch.cat(keys)).numel()
+
+
+def msda_work(args, dtype, backward: bool) -> tuple[float, float]:
+    """K3 / K6 on ``args`` (value, levels, locations, weights, real_hw).
+    Forward: the value rows the taps read (``msda_touched``), locations and
+    weights in, the output out; 4 corners of a multiply-add and the weighting
+    per tap and channel.  Backward: also dOut in, the whole value gradient
+    and the location and weight gradients out; about three times the
+    arithmetic."""
+    value, loc = args[0], args[2]
+    n, s, c = value.shape
+    _, lq, mh, L, p, _ = loc.shape
+    taps = L * p
     meta = n * lq * mh * taps * 3 * 4
-    nbytes = (n * s * c + n * lq * c) * esize(dtype) + meta
+    nbytes = (msda_touched(*args) * (c // mh) + n * lq * c) * esize(dtype) + meta
     ops = 10.0 * n * lq * c * taps
     if backward:
         nbytes += n * s * c * esize(dtype) + meta
@@ -418,9 +449,9 @@ def phase_kernels(batch: int, counted: bool = True, stages=None, levels=None,
 
         args = msda_inputs(g, batch, levels, dtype)
         compare("K3", f"{dn} {hw[0]}x{hw[1]} pyramid{tag}", msda_ops.msda(*args),
-                msda_ops.msda_plain(*args), dtype, cuda_ms(lambda: msda_ops.msda(*args)),
+                msda_ops.msda_plain(*args), dtype, graph_ms(lambda: msda_ops.msda(*args)),
                 cuda_ms(lambda: msda_ops.msda_plain(*args)), DET_LAYERS * counted,
-                msda_work(batch, args[0].shape[1], 150, 8, 64, 16, dtype, False))
+                msda_work(args, dtype, False))
 
 
 def msda_inputs(g, batch: int, levels, dtype):
@@ -524,18 +555,18 @@ def phase_train_kernels(batch: int, counted: bool = True, stages=None, levels=No
         pyramids = [(levels, f"{hw[0]}x{hw[1]} pyramid b{batch}", batch, DET_LAYERS * counted)]
         if counted and run == "train":
             pyramids.append((DET_LEVELS, "832x1344 pyramid", 2, 0))
-        for levels, tag, nb, calls in pyramids:
-            args = msda_inputs(g, nb, levels, dtype)
+        for pyramid, tag, nb, calls in pyramids:
+            args = msda_inputs(g, nb, pyramid, dtype)
             compare("K3", f"{dn} {tag}", msda_ops.msda(*args), msda_ops.msda_plain(*args),
-                    dtype, cuda_ms(lambda: msda_ops.msda(*args)),
+                    dtype, graph_ms(lambda: msda_ops.msda(*args)),
                     cuda_ms(lambda: msda_ops.msda_plain(*args), reps=3), calls,
-                    msda_work(nb, args[0].shape[1], 150, 8, 64, 16, dtype, False), run)
+                    msda_work(args, dtype, False), run)
             dout = rnd(nb, 150, 512).to(dtype)
             grads = msda_ops.msda_bwd(dout, *args)
             refs = msda_ops.msda_bwd_plain(dout, *args)
-            ms = cuda_ms(lambda: msda_ops.msda_bwd(dout, *args))
+            ms = graph_ms(lambda: msda_ops.msda_bwd(dout, *args))
             plain_ms = cuda_ms(lambda: msda_ops.msda_bwd_plain(dout, *args), reps=3)
-            work = msda_work(nb, args[0].shape[1], 150, 8, 64, 16, dtype, True)
+            work = msda_work(args, dtype, True)
             for j, part in enumerate(("dvalue", "dloc", "dattn")):
                 compare("K6", f"{dn} {tag} {part}", grads[j], refs[j], dtype, ms, plain_ms,
                         calls if j == 0 else 0, work if j == 0 else None, run)
@@ -775,13 +806,19 @@ def graph_launches(fn) -> int:
     return kernels
 
 
-def launch_times(fn, calls: int = 10) -> dict[str, tuple[float, float]]:
-    """{kernel name: (device ms a call, launches a call)} of the kernels one
-    call of ``fn`` launches (torch.profiler over ``calls`` calls); a name is
-    the kernel's function name (``dt_qproj_kernel``), its template
-    arguments and parameters dropped."""
+def kernel_name(key: str) -> str:
+    """A profiler key's kernel function name (``dt_qproj_kernel``), its
+    template arguments and parameters dropped."""
     import re
 
+    m = re.search(r"(\w+)(?:<|\()", key.split("::")[-1])
+    return m.group(1) if m else key[:60]
+
+
+def launch_times(fn, calls: int = 10, name_of=kernel_name) -> dict[str, tuple[float, float]]:
+    """{name: (device ms a call, launches a call)} of the kernels one call of
+    ``fn`` launches (torch.profiler over ``calls`` calls), summed by
+    ``name_of(profiler key)``: by default the kernel's function name."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -794,9 +831,7 @@ def launch_times(fn, calls: int = 10) -> dict[str, tuple[float, float]]:
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0)
         if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
-            m = re.search(r"(\w+)(?:<|\()", e.key.split("::")[-1])
-            name = m.group(1) if m else e.key[:60]
-            acc = out.setdefault(name, [0.0, 0.0])
+            acc = out.setdefault(name_of(e.key), [0.0, 0.0])
             acc[0] += us / 1e3 / calls
             acc[1] += e.count / calls
     return {k: (v[0], v[1]) for k, v in out.items()}
@@ -921,6 +956,116 @@ def phase_decode_kernel() -> None:
                                        "decode_tail_module_device_ms": mod_dev_ms,
                                        "decode_tail_module_launches": mod_launches,
                                        "decode_tail_wrapper_launches": own_launches})
+
+
+# phase_msda_kernels' cases: (name, batch, pyramid, K6 too); the b128 caption
+# batch runs no backward
+MSDA_CASES = (("b8 caption", 8, MSDA_LEVELS, True), ("b128 caption", 128, MSDA_LEVELS, False),
+              ("b16 XE", TRAIN_BATCH, MSDA_LEVELS, True),
+              ("b4 detector", DET_BATCH, DET_LEVELS, True))
+# launches a call of the MSDA kernels before their Hopper redesign, counted
+# from a captured graph: the weights' cast in bf16, and in K6 the value
+# gradient's zero-fill and, in bf16, its cast and the weight gradient's; a
+# call may make no more
+MSDA_LAUNCHES = {("K3", torch.float32): 1, ("K3", torch.bfloat16): 2,
+                 ("K6", torch.float32): 2, ("K6", torch.bfloat16): 5}
+
+
+def msda_part(key: str) -> str:
+    """A profiler key of one K3 / K6 call -> the part of the call it is."""
+    if "msda" in key:
+        return "kernel"
+    if "FillFunctor" in key:
+        return "zero-fill"
+    return "casts"   # the weights in, the value and weight gradients out
+
+
+def phase_msda_kernels() -> None:
+    """K3 and K6 against their plain versions at the shapes of a b8 and a
+    b128 caption forward, a b16 XE step and a b4 832x1344 detector step
+    (K6 at all but b128), in fp32 and bf16, on inputs as the deformable
+    layer hands them over (weights in the compute type, real_hw int32):
+    device ms a call by CUDA-graph replay beside the eager ms, kernel
+    launches a call from a captured graph, K6's call split by launch into
+    zero-fill, kernel and casts; the bound counts the value rows the taps
+    read (``msda_touched``), beside the whole map's.  Fails unless K3's
+    output and K6's dloc and dattn are the same bit for bit over two calls
+    (dvalue, scattered with atomics, is reported) and a call makes no more
+    launches than ``MSDA_LAUNCHES``."""
+    print("[kernels] K3 / K6 (MSDA forward / backward) vs plain, device ms by graph replay",
+          flush=True)
+    g = torch.Generator(device=DEV).manual_seed(4)
+    rows = RESULTS.setdefault("msda_phase", {})
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = "fp32" if dtype == torch.float32 else "bf16"
+        for name, batch, levels, backward in MSDA_CASES:
+            value, _, loc, attn, real_hw = msda_inputs(g, batch, levels, dtype)
+            args = (value, levels, loc, attn.to(dtype), real_hw.to(torch.int32))
+            case = f"{dn} {name}"
+            map_ms = value.numel() * esize(dtype) / PEAK_BYTES * 1e3
+
+            def fwd():
+                return msda_ops.msda(*args)
+
+            with torch.no_grad():
+                out, again = fwd(), fwd()
+                ref = msda_ops.msda_plain(*args)
+                ms, eager_ms = graph_ms(fwd), cuda_ms(fwd)
+                plain_ms = cuda_ms(lambda: msda_ops.msda_plain(*args), reps=3)
+                launches = graph_launches(fwd)
+            if not bits_equal(out, again):
+                fail(f"K3 {case}: two calls on the same inputs differ")
+            if launches > MSDA_LAUNCHES["K3", dtype]:
+                fail(f"K3 {case}: {launches} launches a call (at most "
+                     f"{MSDA_LAUNCHES['K3', dtype]})")
+            work = msda_work(args, dtype, False)
+            compare("K3", f"{case} (msda phase)", out, ref, dtype, ms, plain_ms, 0, work)
+            bound = max(work[0] / PEAK_BYTES, work[1] / PEAK_FLOPS[dtype]) * 1e3
+            rows[f"K3 {case}"] = row = dict(graph_ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                                            bound_ms=bound, map_bound_ms=map_ms,
+                                            graph_launches=launches,
+                                            max_rel_err=DETAIL[-1]["max_rel_err"])
+            DETAIL[-1].update(row, bit_equal=True)
+            print(f"  K3 {case:<30} {ms:.4f} ms device ({eager_ms:.4f} eager), bound "
+                  f"{bound:.4f} (the whole map once: {map_ms:.4f}), {launches} launches a call; "
+                  "two calls bit-equal", flush=True)
+            del out, again, ref
+            if not backward:
+                continue
+            dout = torch.randn(batch, 150, 512, generator=g, device=DEV).to(dtype)
+
+            def bwd():
+                return msda_ops.msda_bwd(dout, *args)
+
+            grads, again = bwd(), bwd()
+            refs = msda_ops.msda_bwd_plain(dout, *args)
+            ms, eager_ms = graph_ms(bwd), cuda_ms(bwd)
+            plain_ms = cuda_ms(lambda: msda_ops.msda_bwd_plain(dout, *args), reps=3)
+            launches = graph_launches(bwd)
+            split = launch_times(bwd, calls=5, name_of=msda_part)
+            same = [bits_equal(a, b) for a, b in zip(grads, again)]
+            if not (same[1] and same[2]):
+                fail(f"K6 {case}: two calls give different dloc / dattn")
+            if launches > MSDA_LAUNCHES["K6", dtype]:
+                fail(f"K6 {case}: {launches} launches a call (at most "
+                     f"{MSDA_LAUNCHES['K6', dtype]})")
+            work = msda_work(args, dtype, True)
+            bound = max(work[0] / PEAK_BYTES, work[1] / PEAK_FLOPS[dtype]) * 1e3
+            for j, part in enumerate(("dvalue", "dloc", "dattn")):
+                compare("K6", f"{case} {part} (msda phase)", grads[j], refs[j], dtype, ms,
+                        plain_ms, 0, work if j == 0 else None)
+            rows[f"K6 {case}"] = row = dict(
+                graph_ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound,
+                graph_launches=launches, split_ms={k: v[0] for k, v in split.items()},
+                split_launches={k: v[1] for k, v in split.items()},
+                dvalue_bit_equal=same[0],
+                max_rel_err=max(c["max_rel_err"] for c in DETAIL[-3:]))
+            DETAIL[-3].update(row, bit_equal_dloc_dattn=True)
+            print(f"  K6 {case:<30} {ms:.4f} ms device ({eager_ms:.4f} eager), bound "
+                  f"{bound:.4f}, {launches} launches a call: " + ", ".join(
+                      f"{k} {v[0]:.4f} ({v[1]:g}x)" for k, v in split.items())
+                  + f"; dloc, dattn bit-equal over two calls, dvalue {same[0]}", flush=True)
+            del grads, again, refs
 
 
 def phase_adam_kernel() -> None:
@@ -2522,6 +2667,7 @@ def main() -> None:
     phase_merge_kernels()
     phase_dense_attention_kernel(args.batch)
     phase_decode_kernel()
+    phase_msda_kernels()
     phase_adam_kernel()
     phase_yardsticks("caption", args.batch, STAGES, len(STAGES))
     phase_yardsticks("train", TRAIN_BATCH, STAGES, FROZEN_STAGES - 1)
@@ -2637,6 +2783,7 @@ def main() -> None:
                    "ptxas": resources,
                    "kernels": kernels,
                    "mapped": mapped, "yardsticks": YARDSTICKS, "cases": DETAIL,
+                   "msda_phase": RESULTS.get("msda_phase"),
                    "slice": RESULTS.get("slice"), "slice_b128": RESULTS.get("slice_b128"),
                    "train": RESULTS.get("train"),
                    "trainer": RESULTS.get("trainer"),

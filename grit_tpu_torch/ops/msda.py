@@ -48,6 +48,12 @@ from grit_tpu_torch.ops import _cuda
 #: Kernel launches (one per call that reached the CUDA kernel).
 LAUNCHES = {"msda": 0, "msda_bwd": 0}
 
+#: What K3 and K6 (``csrc/msda.cu``) take: a lane owns ``MSDA_VEC``
+#: consecutive channels of a head, ``MSDA_LANES`` lanes a head; a group's
+#: taps (levels x points) are set up in shared memory, at most
+#: ``MSDA_MAX_TAPS``; offsets within one image's value map are 32-bit.
+MSDA_VEC, MSDA_LANES, MSDA_MAX_TAPS = 4, (8, 16, 32), 32
+
 _SHAPES_CACHE: dict = {}
 
 
@@ -100,17 +106,34 @@ def _shapes_tensor(spatial_shapes, device) -> torch.Tensor:
     return _SHAPES_CACHE[key]
 
 
+def check_msda_shape(s: int, c: int, heads: int, levels: int, points: int, dtype,
+                     what: str = "msda") -> None:
+    """Raise ``ValueError`` unless K3 and K6 take a value map of ``s`` rows of
+    ``c`` channels in ``heads`` heads, sampled at ``levels`` x ``points``
+    taps, in ``dtype``: a head width of ``MSDA_VEC`` channels times one of
+    ``MSDA_LANES`` (so C % 4 == 0), at most ``MSDA_MAX_TAPS`` taps, fewer
+    than 2^31 values an image, fp32 or bf16.  Both wrappers check a call
+    with this before they launch."""
+    if dtype not in _cuda.DTYPE_CODE:
+        raise ValueError(f"{what}: unsupported dtype {dtype}")
+    if c % heads or (c // heads) % MSDA_VEC or (c // heads) // MSDA_VEC not in MSDA_LANES:
+        raise ValueError(f"{what}: {c} channels in {heads} heads: a head needs "
+                         f"{MSDA_VEC} x {MSDA_LANES} channels")
+    if levels * points > MSDA_MAX_TAPS:
+        raise ValueError(f"{what}: {levels} levels x {points} points exceed "
+                         f"{MSDA_MAX_TAPS} taps")
+    if s * c >= 2 ** 31:
+        raise ValueError(f"{what}: {s} rows of {c} channels exceed 32-bit offsets")
+
+
 def _check(name, value, spatial_shapes, sampling_locations, attention_weights, real_hw):
     """Validate a CUDA call's arguments -> (loc f32, attn f32, real_hw i32, shapes)."""
     n, s, c = value.shape
     _, lq, m, L, p, _ = sampling_locations.shape
     dt = value.dtype
-    if dt not in _cuda.DTYPE_CODE:
-        raise ValueError(f"{name}: unsupported dtype {dt}")
+    check_msda_shape(s, c, m, L, p, dt, name)
     if len(spatial_shapes) != L or s != sum(h * w for h, w in spatial_shapes):
         raise ValueError(f"{name}: value has {s} rows for levels {spatial_shapes}")
-    if c % m:
-        raise ValueError(f"{name}: {c} channels do not split into {m} heads")
     _cuda.require(value, "value", dt)
     loc = sampling_locations.float().contiguous()
     attn = attention_weights.float().contiguous()
@@ -153,10 +176,12 @@ def msda_bwd_plain(dout, value, spatial_shapes, sampling_locations, attention_we
 def msda_bwd(dout, value, spatial_shapes, sampling_locations, attention_weights, real_hw):
     """K6: MSDA backward -> (dvalue [N, S, C] in value's dtype, dlocations
     [N, Lq, M, L, P, 2], dweights [N, Lq, M, L, P], each in its input's
-    dtype).  The value gradient is scattered with f32 atomics (rounded once
-    for bf16), so it is reproducible to f32 summation order; a tap outside
-    the level or the image's real extent gets no gradient.  CPU tensors run
-    the plain version; CUDA tensors launch the kernel or raise."""
+    dtype).  The value gradient is scattered with vector f32 atomics into a
+    zeroed f32 buffer (rounded once for bf16), so it is reproducible to f32
+    summation order; the location and weight gradients are the same bit for
+    bit from call to call; a tap outside the level or the image's real extent
+    gets no gradient.  CPU tensors run the plain version; CUDA tensors launch
+    the kernel (shapes as ``check_msda_shape`` takes them) or raise."""
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     if value.device.type == "cpu":
         return msda_bwd_plain(dout, value, spatial_shapes, sampling_locations,
@@ -166,10 +191,6 @@ def msda_bwd(dout, value, spatial_shapes, sampling_locations, attention_weights,
     d = c // m
     loc, attn, rh, shapes = _check("msda_bwd", value, spatial_shapes, sampling_locations,
                                    attention_weights, real_hw)
-    if c > 1024 or c % 32 or (d % 32 and (d > 32 or d & (d - 1))):
-        raise ValueError(f"msda_bwd: {m} heads of {d} channels: needs at most 1024 channels, "
-                         "a multiple of 32, and a head width that is a power of two below "
-                         "32 or a multiple of 32")
     dout = dout.to(value.dtype).contiguous()
     _cuda.require(dout, "dout", value.dtype, (n, lq, c))
     lib = _cuda.library()

@@ -1,4 +1,4 @@
-"""Time variants of the Swin kernels' sources side by side on one card.
+"""Time variants of the Hopper kernels' sources side by side on one card.
 
   python3 kernel_variants.py                  # every variant
   python3 kernel_variants.py swin_block.cu    # the variants of the named sources
@@ -37,6 +37,16 @@ call for the same function, at the shapes of a b8 384x640 caption forward
     cluster of blocks, or split over 4; each variant's outputs checked
     within 2e-5 (fp32) / 3e-2 (bf16) of the first's max (a variant may sum
     in another order).
+
+  msda.cu, K3 (MSDA forward) and K6 (its backward) through their C entries
+    at a b16 XE step's and a b128 caption batch's MSDA (K6 without the
+    wrapper's zero-fill and casts), bf16 and fp32: as it is; 2 channels a
+    lane (a warp a head); every corner loaded (an invalid one zeroed
+    after) in place of behind a branch; 2 taps in
+    flight; K6 at one block an SM; K6 with scalar atomics in place of vector
+    ones; K6 without its value-gradient scatter (its dvalue not checked);
+    each variant's outputs checked within 2e-5 (fp32) / 3e-2 (bf16) of the
+    first's max.
 
 Prints one line per kernel and writes chiprun_out/kernel_variants.json.
 Needs a card and nvcc; exits non-zero without them.
@@ -141,8 +151,9 @@ extern "C" int variant_bwd_entry(const void* qkv, const void* dout, const void* 
                                        heads, m, (cudaStream_t)st);
 }
 ''',
-    # the variant library exports grit_decode_tail itself
+    # the variant library exports grit_decode_tail (grit_msda, grit_msda_bwd) itself
     "decode_layer.cu": "\n",
+    "msda.cu": "\n",
 }
 # (source, variant name, [(text, replacement), ...])
 VARIANTS = [
@@ -170,6 +181,23 @@ VARIANTS = [
     ("decode_layer.cu", "128 attention threads", [("AT_THREADS = 256", "AT_THREADS = 128")]),
     ("decode_layer.cu", "no K split over a cluster", [("PR_SPLIT = 2", "PR_SPLIT = 1")]),
     ("decode_layer.cu", "K split over 4 blocks", [("PR_SPLIT = 2", "PR_SPLIT = 4")]),
+    ("msda.cu", "as is", []),
+    ("msda.cu", "2 channels a lane", [("MS_VEC = 4;", "MS_VEC = 2;")]),
+    ("msda.cu", "branch-free corner loads", [(
+        "  if (o >= 0) {\n    load_vec(vb + o, v);\n  } else {\n#pragma unroll\n"
+        "    for (int c = 0; c < MS_VEC; ++c) v[c] = 0.0f;\n  }\n",
+        "  load_vec(vb + max(o, 0), v);\n#pragma unroll\n"
+        "  for (int c = 0; c < MS_VEC; ++c) v[c] = o >= 0 ? v[c] : 0.0f;\n")]),
+    ("msda.cu", "2 taps in flight", [("MS_UNROLL = 4;", "MS_UNROLL = 2;")]),
+    ("msda.cu", "backward: one block an SM", [
+        ("__launch_bounds__(MS_THREADS, 2) msda_bwd_kernel",
+         "__launch_bounds__(MS_THREADS) msda_bwd_kernel")]),
+    ("msda.cu", "backward: scalar atomics", [(
+        "    atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));",
+        "    for (int c = 0; c < 4; ++c) atomicAdd(p + c, v[c]);")]),
+    # cuts the value gradient out: its dvalue is not checked
+    ("msda.cu", "backward: no value-gradient scatter", [
+        ("          red_vec(db + o, d);", "          (void)d;")]),
     ("swin_block.cu", "as is", []),
     ("swin_block.cu", "k step 8", [("GF_BK = 16", "GF_BK = 8")]),
     ("swin_block.cu", "one block an SM", [
@@ -226,9 +254,11 @@ def build() -> list:
             raise RuntimeError(f"nvcc failed for {src} / {name}:\n{log[-4000:]}")
         built.append((src, name, ctypes.CDLL(str(lib))))
     for src, _, lib in built:
-        if src == "decode_layer.cu":
-            lib.grit_decode_tail.argtypes = _cuda._SIGNATURES["grit_decode_tail"]
-            lib.grit_decode_tail.restype = ctypes.c_int
+        if src in ("decode_layer.cu", "msda.cu"):
+            for fn in (("grit_decode_tail",) if src == "decode_layer.cu"
+                       else ("grit_msda", "grit_msda_bwd")):
+                getattr(lib, fn).argtypes = _cuda._SIGNATURES[fn]
+                getattr(lib, fn).restype = ctypes.c_int
             continue
         n_ptr = 4 if src in ("gemm_sm90.cu", "swin_block.cu") else 3
         lib.variant_entry.argtypes = ([ctypes.c_void_p] * n_ptr
@@ -307,6 +337,69 @@ def decode_tail_variants(built: list, totals: dict, close: dict) -> None:
                     torch.cuda.synchronize()
                 finally:
                     _cuda._lib = saved
+
+
+def msda_variants(built: list, totals: dict, close: dict) -> None:
+    """K3's and K6's variants at a b16 XE step's and a b128 caption batch's
+    MSDA (384x640 pyramid, 150 queries, 8 heads of 64 channels, 4 x 4 taps,
+    half the images padded), both types, each launch alone through the C
+    entry (K6 without the wrapper's zero-fill and casts); each variant's
+    outputs checked within 2e-5 (fp32) / 3e-2 (bf16) of the first's max,
+    but for the part a variant cuts out."""
+    import chip_smoke
+    from grit_tpu_torch.ops import msda as msda_ops
+
+    libs = [(name, lib) for src, name, lib in built if src == "msda.cu"]
+    if not libs:
+        return
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for dtype, dn in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        tol = 2e-5 if dtype == torch.float32 else 3e-2
+        for batch in (16, 128):
+            args = chip_smoke.msda_inputs(g, batch, chip_smoke.MSDA_LEVELS, dtype)
+            loc, attn, rh, shapes = msda_ops._check("msda", *args)
+            value = args[0]
+            n, s, c = value.shape
+            _, lq, m, L, p, _ = loc.shape
+            dims = (n, s, lq, m, c // m, L, p, _cuda.DTYPE_CODE[dtype])
+            dout = torch.randn(n, lq, c, generator=g, device="cuda").to(dtype)
+            out = torch.empty(n, lq, c, device="cuda", dtype=dtype)
+            dvalue = torch.empty(n, s, c, device="cuda")
+            dloc, dattn = torch.empty_like(loc), torch.empty_like(attn)
+            first: dict[str, torch.Tensor] = {}
+            for name, lib in libs:
+
+                def fwd(lib=lib):
+                    _cuda.check(lib.grit_msda(value.data_ptr(), shapes.data_ptr(),
+                                              loc.data_ptr(), attn.data_ptr(), rh.data_ptr(),
+                                              out.data_ptr(), *dims, stream()), name)
+
+                def bwd(lib=lib):
+                    _cuda.check(lib.grit_msda_bwd(
+                        value.data_ptr(), shapes.data_ptr(), loc.data_ptr(), attn.data_ptr(),
+                        rh.data_ptr(), dout.data_ptr(), dvalue.data_ptr(), dloc.data_ptr(),
+                        dattn.data_ptr(), *dims, stream()), name)
+
+                try:
+                    fwd()
+                    dvalue.zero_()
+                    bwd()
+                    got = {"K3 out": out.float(), "K6 dvalue": dvalue.clone(),
+                           "K6 dloc": dloc.clone(), "K6 dattn": dattn.clone()}
+                    for part, t in got.items():
+                        if "scatter" in name and part == "K6 dvalue":
+                            continue
+                        ref = first.setdefault(part, t)
+                        rel = ((t - ref).abs().max() / ref.abs().max()).item()
+                        key = f"{part[:2]} {dn} b{batch}: {name}"
+                        close[key] = max(close.get(key, 0.0), rel)
+                        if not rel <= tol:
+                            raise RuntimeError(f"{key} {part}: {rel:.3e} of the first's max apart")
+                    totals[f"K3 {dn} b{batch}: {name}"] = graph_ms(fwd)
+                    totals[f"K6 {dn} b{batch}: {name}"] = graph_ms(bwd)
+                except RuntimeError as exc:   # a variant the card refuses is reported
+                    print(f"msda {dn} b{batch} {name}: failed: {exc}", flush=True)
+                    torch.cuda.synchronize()
 
 
 def main() -> None:
@@ -459,10 +552,11 @@ def main() -> None:
             key = "gemm_f32: F.linear"
             totals[key] = totals.get(key, 0.0) + graph_ms(lambda: F.linear(x, w, bias)) * depth
     decode_tail_variants(built, totals, close)
+    msda_variants(built, totals, close)
     for key, ms in totals.items():
         per = (f"b{DET_BATCH} 832x1344 detector step"
                if key.startswith(("gemm_f32", "win_attn_f32", "win_attn_bwd_f32"))
-               else "call" if key.startswith("decode_tail") else f"b{BATCH} forward")
+               else "call" if key.startswith(("decode_tail", "K3", "K6")) else f"b{BATCH} forward")
         bits = f", bit-equal to the first: {same[key]}" if key in same else ""
         if key in close:
             bits = f", {close[key]:.2e} of the first's max from it"
