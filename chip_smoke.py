@@ -100,6 +100,22 @@ Phases, each of which must pass:
      float64, whose Hungarian assignments all three use: assignments, the
      total and every named loss, every clipped gradient leaf by module group,
      and the update against AdamW's step.
+ 12. the decoders and entry points (between 8 and 10;
+     phase_decoders_and_entry_points): the sequential and concat decoders
+     (b8 bf16 caption batches, their fp32 captions against the plain path's,
+     a b16 bf16 XE step each), greedy_search, beam_search with
+     return_all_probs, a two-member ensemble, the online and nocaps CLIs'
+     caption loop over two b16 batches (the online one in its 640x640 bucket,
+     whose Swin maps pad H and W at every stage; K1, K2, K3, K10a and K10b are
+     held to their plain versions at b16 in that bucket, fp32 and bf16, in
+     phase 2 and 9), feature extraction over four b16 batches and two
+     freezing-mode XE steps at b64 on its float16 features, each path's
+     kernel launches counted from 0 around its run;
+ 13. ln_rows_kernel and ln_merge_kernel (the LayerNorm launches inside K1,
+     K2, K10b and K10a) alone at the b8 and b128 caption shapes, device time
+     by graph replay beside their bound and F.layer_norm (phase_ln_kernels);
+     phase 9's K8 backward also beside SDPA's backward with the mask
+     requiring grad.  Each phase's seconds are printed ([time] lines).
 
 Prints the card's name and power limit as nvidia-smi reports them, a JSON
 line of per-kernel results (all 18 TPU kernel bodies: the eleven ported
@@ -107,7 +123,9 @@ kernels, and the seven bodies that one of them serves; and the kernels
 inside K1, K2, K4, K5, K8 and K10a: gemm_bf16, win_attn and win_attn_bwd, and
 gemm_f32, win_attn_f32 and win_attn_bwd_f32), and last {"ok": true, "device": {...}}; the
 per-shape results go to chiprun_out/chip_smoke.json.  Exits non-zero, without
-that last line, when there is no CUDA device or any phase fails.
+that last line, when there is no CUDA device or any phase fails.  The JSON
+file also holds the LN kernels' rows, the decoders phase's numbers and each
+phase's seconds.
 """
 
 from __future__ import annotations
@@ -132,7 +150,7 @@ try:
     import torch
 
     from grit_tpu_torch.config import default_caption_config, default_detection_config
-    from grit_tpu_torch.decoding.beam_search import beam_search
+    from grit_tpu_torch.decoding.beam_search import beam_search, greedy_search
     from grit_tpu_torch.data.field import TextField
     from grit_tpu_torch.data.metrics import Cider, PTBTokenizer
     from grit_tpu_torch.data.vocab import SPECIALS, Vocab
@@ -146,9 +164,12 @@ try:
     from grit_tpu_torch.engine import optim as optim_lib
     from grit_tpu_torch.engine import scst as scst_lib
     from grit_tpu_torch.engine import xe as xe_lib
-    from grit_tpu_torch.engine.evaluator import evaluate_metrics, make_caption_generator
+    from grit_tpu_torch.engine.evaluator import (caption_batches, evaluate_metrics,
+                                                 make_caption_generator)
+    from grit_tpu_torch.eval_caption_online import ONLINE_BATCH, ONLINE_BUCKET
     from grit_tpu_torch.models import cap_generator as cap_generator_lib
-    from grit_tpu_torch.models.captioner import build_captioner, to_compute_dtype
+    from grit_tpu_torch.models.captioner import build_captioner, build_detector, to_compute_dtype
+    from grit_tpu_torch.models.ensemble import make_ensemble_generator
     from grit_tpu_torch.models.layers import Dropout
     from grit_tpu_torch.models.swin import SwinBlock
     from grit_tpu_torch.ops import _cuda
@@ -156,7 +177,8 @@ try:
     from grit_tpu_torch.ops import fused_adam as adam_ops
     from grit_tpu_torch.ops import msda as msda_ops
     from grit_tpu_torch.ops import window_attention as wa
-    from grit_tpu_torch.utils.nested import ImageBatch
+    from grit_tpu_torch.tools.extract_features import FEATURES, collect_vis_features
+    from grit_tpu_torch.utils.nested import ImageBatch, to_device
 except ImportError as exc:  # e.g. run outside a checkout of the repo
     print(f"chip_smoke: FAIL: cannot import the port: {exc}", file=sys.stderr)
     sys.exit(2)
@@ -185,6 +207,15 @@ DET_STAGES = [
     ("stage3", 512, 16, (52, 84), (60, 84), 18),
     ("stage4", 1024, 32, (26, 42), (36, 48), 2),
 ]
+# Swin-B stage maps of the online evaluation's 640x640 bucket: H and W pad to
+# window multiples at every stage, and the MSDA pyramid is square
+ONLINE_STAGES = [
+    ("stage1", 128, 4, (160, 160), (168, 168), 2),
+    ("stage2", 256, 8, (80, 80), (84, 84), 2),
+    ("stage3", 512, 16, (40, 40), (48, 48), 18),
+    ("stage4", 1024, 32, (20, 20), (24, 24), 2),
+]
+ONLINE_LEVELS = ((80, 80), (40, 40), (20, 20), (10, 10))
 RUNS = ("caption", "train", "detector")
 TRAIN_BATCH, CAPTION_LEN, FROZEN_STAGES, TRAIN_STEPS = 16, 20, 2, 6
 SC_BATCH = TRAIN_BATCH // 2     # optimizer.batch_size // optimizer.sc_batch_divisor
@@ -1172,15 +1203,16 @@ def grads_of(fn, leaves, gout):
     return torch.autograd.grad(fn(*leaves), leaves, gout)
 
 
-def phase_merge_kernels() -> None:
+def phase_merge_kernels(paths=None, counted: bool = True) -> None:
     """K10a (PatchMerging: 2x2 gather, LayerNorm over 4C, reduction) and K10b
     (the patch-embed LayerNorm) against their plain versions, fp32 and bf16,
     forward and the gradient of every input against the plain version's
     autograd, at the shapes of the three main paths: a b8 caption forward and
     a b16 XE step at 384x640, a b4 detector step at 832x1344 (whose last merge
-    pads 13x21 to 14x22).  Library yardsticks, used nowhere in the port:
-    F.layer_norm + F.linear on the gathered rows for K10a, F.layer_norm for
-    K10b."""
+    pads 13x21 to 14x22), or at ``paths`` ((run, batch, stages, bucket), ...;
+    ``counted=False``: a comparison only).  Library yardsticks, used nowhere
+    in the port: F.layer_norm + F.linear on the gathered rows for K10a,
+    F.layer_norm for K10b."""
     import torch.nn.functional as F
 
     print("[kernels] K10a (PatchMerging LN + reduction) and K10b (patch-embed LN) vs plain",
@@ -1190,8 +1222,8 @@ def phase_merge_kernels() -> None:
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=DEV) * scale
 
-    paths = (("caption", 8, STAGES, HW), ("train", TRAIN_BATCH, STAGES, HW),
-             ("detector", DET_BATCH, DET_STAGES, DET_HW))
+    paths = paths or (("caption", 8, STAGES, HW), ("train", TRAIN_BATCH, STAGES, HW),
+                      ("detector", DET_BATCH, DET_STAGES, DET_HW))
     for dtype in (torch.float32, torch.bfloat16):
         dn = "fp32" if dtype == torch.float32 else "bf16"
         es = esize(dtype)
@@ -1205,7 +1237,7 @@ def phase_merge_kernels() -> None:
             lib = cuda_ms(lambda: F.layer_norm(x, (c,), ln[0].to(dtype), ln[1].to(dtype), 1e-5))
             compare("K10b", f"{dn} {tag}", out, ref, dtype,
                     cuda_ms(lambda: wa.layernorm_rows(x, *ln)),
-                    cuda_ms(lambda: wa.layernorm_rows_plain(x, *ln)), 1,
+                    cuda_ms(lambda: wa.layernorm_rows_plain(x, *ln)), int(counted),
                     (2.0 * rows * c * es + 8 * c, 8.0 * rows * c), run, library_ms=lib)
             for part, a, b in zip(("dx", "dscale", "dbias"),
                                   grads_of(wa.layernorm_rows, [x, *ln], gout),
@@ -1226,7 +1258,7 @@ def phase_merge_kernels() -> None:
 
                 compare("K10a", f"{dn} {name} {tag}", out, ref, dtype,
                         cuda_ms(lambda: wa.patch_merge(x, *ln, wt)),
-                        cuda_ms(lambda: wa.patch_merge_plain(x, *ln, wt)), 1,
+                        cuda_ms(lambda: wa.patch_merge_plain(x, *ln, wt)), int(counted),
                         ((batch * h * w * c + mrows * n_out + 4 * c * n_out) * es + 32 * c,
                          2.0 * mrows * 4 * c * n_out), run, library_ms=cuda_ms(library))
                 gout = rnd(*out.shape).to(dtype)
@@ -1234,12 +1266,111 @@ def phase_merge_kernels() -> None:
                                       grads_of(wa.patch_merge, [x, *ln, wt], gout),
                                       grads_of(wa.patch_merge_plain, [x, *ln, wt], gout)):
                     compare("K10a", f"{dn} {name} {tag} {part}", a, b, dtype, 0.0, 0.0, 0)
+        if not counted:
+            continue
         # K10a on rows that are merged already (the JAX op's own signature)
         x = rnd(4, 77, 512).to(dtype)
         ln, wt = [1 + rnd(512, scale=0.1), rnd(512, scale=0.1)], rnd(256, 512, scale=0.05).to(dtype)
         compare("K10a", f"{dn} rows [4, 77, 512] -> 256", wa.ln_linear(x, *ln, wt),
                 wa.ln_linear_plain(x, *ln, wt), dtype, cuda_ms(lambda: wa.ln_linear(x, *ln, wt)),
                 cuda_ms(lambda: wa.ln_linear_plain(x, *ln, wt)), 0)
+
+
+def phase_ln_kernels(card: str) -> None:
+    """ln_rows_kernel (the LayerNorm launch inside K1, K2 and K10b) and
+    ln_merge_kernel (K10a's first launch) alone, through their C entries, in
+    bf16 at every shape a b8 and a b128 caption forward gives them: device time
+    by graph_ms, summed over one forward's launches; the bound (bytes: each row
+    read once and written once, K1's window rows read from the real tokens
+    only); and F.layer_norm over the same rows (for ln_merge the rows gathered
+    already) as the library yardstick.  ln_merge's output is held to the plain
+    LayerNorm of the gathered rows.  Timing launches: counted nowhere."""
+    import torch.nn.functional as F
+
+    print("[ln] ln_rows_kernel and ln_merge_kernel alone at the b8 and b128 caption shapes",
+          flush=True)
+    lib = _cuda.library()
+    bf, eps = torch.bfloat16, 1e-5
+    code = _cuda.DTYPE_CODE[bf]
+    g = torch.Generator(device=DEV).manual_seed(7)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=DEV) * scale
+
+    def ln_rows(x, w, b, y, rows, c, geo=None):
+        mode = int(geo is not None)
+        geo = geo or (1, 1, 1, 0, 1, 1)
+        return lambda: _cuda.check(lib.grit_ln_rows(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), rows, c, mode, *geo, eps,
+            code, _cuda.stream()), "ln_rows")
+
+    out = {}
+    for batch in (8, 128):
+        acc = {k: {"ms": 0.0, "bytes": 0.0, "library_ms": 0.0, "launches": 0}
+               for k in ("ln_rows_kernel", "ln_merge_kernel")}
+
+        def add(kernel, calls, ms, nbytes, lib_ms):
+            a = acc[kernel]
+            a["ms"] += calls * ms
+            a["bytes"] += calls * nbytes
+            a["library_ms"] += calls * lib_ms
+            a["launches"] += calls
+
+        # K10b: the patch-embed norm
+        c = STAGES[0][1]
+        rows = batch * (HW[0] // 4) * (HW[1] // 4)
+        x, w, b = rnd(rows, c).to(bf), 1 + rnd(c, scale=0.1), rnd(c, scale=0.1)
+        y = torch.empty_like(x)
+        add("ln_rows_kernel", 1, graph_ms(ln_rows(x, w, b, y, rows, c)), 4.0 * rows * c + 8 * c,
+            graph_ms(lambda: F.layer_norm(x, (c,), w.to(bf), b.to(bf), eps)))
+        for name, c, _, (h, wd), (hp, wp), depth in STAGES:
+            rows = batch * hp * wp
+            xm = torch.zeros(batch, hp, wp, c, dtype=bf, device=DEV)
+            xm[:, :h, :wd] = rnd(batch, h, wd, c).to(bf)
+            w, b = 1 + rnd(c, scale=0.1), rnd(c, scale=0.1)
+            y = torch.empty(rows, c, dtype=bf, device=DEV)
+            lib_ms = graph_ms(lambda: F.layer_norm(xm.view(rows, c), (c,), w.to(bf), b.to(bf), eps))
+            # K1's LN1 gathers each window's rows from the real tokens; K2's LN2
+            # runs on every row of the padded map
+            add("ln_rows_kernel", depth,
+                graph_ms(ln_rows(xm, w, b, y, rows, c, (hp, wp, WINDOW, 0, h, wd))),
+                2.0 * (batch * h * wd * c + rows * c) + 8 * c, lib_ms)
+            add("ln_rows_kernel", depth, graph_ms(ln_rows(xm, w, b, y, rows, c)),
+                4.0 * rows * c + 8 * c, lib_ms)
+            # K10a's norm over the 2x2 neighbourhoods of the real map
+            xr = xm[:, :h, :wd].contiguous()
+            mrows = batch * ((h + 1) // 2) * ((wd + 1) // 2)
+            w4, b4 = 1 + rnd(4 * c, scale=0.1), rnd(4 * c, scale=0.1)
+            y4 = torch.empty(mrows, 4 * c, dtype=bf, device=DEV)
+            rows4 = wa._merge_rows(xr).reshape(mrows, 4 * c)
+
+            def merge():
+                _cuda.check(lib.grit_ln_merge(xr.data_ptr(), w4.data_ptr(), b4.data_ptr(),
+                                              y4.data_ptr(), mrows, h, wd, c, eps, code,
+                                              _cuda.stream()), "ln_merge")
+
+            merge()
+            ref = F.layer_norm(rows4.float(), (4 * c,), w4, b4, eps)
+            err = ((y4.float() - ref).abs().max() / ref.abs().max()).item()
+            if not err <= TOL[bf]:
+                fail(f"ln_merge_kernel b{batch} {name}: max rel err {err:.3e} > {TOL[bf]:.0e}")
+            add("ln_merge_kernel", 1, graph_ms(merge), 2.0 * (batch * h * wd * c + mrows * 4 * c)
+                + 32 * c, graph_ms(lambda: F.layer_norm(rows4, (4 * c,), w4.to(bf), b4.to(bf),
+                                                         eps)))
+            del xm, y, xr, y4, rows4
+        for kernel, a in acc.items():
+            a["bound_ms"] = a["bytes"] / PEAK_BYTES * 1e3
+            a["bound_share"] = a["bound_ms"] / a["ms"]
+            print(f"[ln] {kernel} b{batch} bf16 caption forward: {a['ms']:.3f} ms over "
+                  f"{a['launches']} launches (graph replay), bound {a['bound_ms']:.3f} ms by "
+                  f"bytes ({a['bound_share']:.0%} of it), F.layer_norm on the same rows "
+                  f"{a['library_ms']:.3f} ms  [{card}]", flush=True)
+        out[f"b{batch}"] = acc
+    want = forward_launches()
+    if (out["b8"]["ln_rows_kernel"]["launches"] != want["K1"] + want["K2"] + want["K10b"]
+            or out["b8"]["ln_merge_kernel"]["launches"] != want["K10a"]):
+        fail(f"ln kernels: launches {out['b8']} differ from a forward's {want}")
+    RESULTS["ln_kernels"] = out
 
 
 def phase_dense_attention_kernel(batch: int) -> None:
@@ -1249,8 +1380,10 @@ def phase_dense_attention_kernel(batch: int) -> None:
     every window, at the four Swin stage shapes of a b8 384x640 batch.  No
     model path of either package reaches it, so this phase is what holds it;
     its times are of the shapes with a bias over every window.  Library
-    yardstick, used nowhere in the port: scaled_dot_product_attention with an
-    additive mask."""
+    yardsticks, used nowhere in the port: scaled_dot_product_attention with an
+    additive mask, and its backward with the mask requiring grad
+    (``sdpa_bwd_ms``: dq, dk, dv and the bias gradient summed over images, as
+    K8's), both timed by graph_ms."""
     import torch.nn.functional as F
 
     print(f"[kernels] K8 (window attention on a dense bias) vs plain, forward and backward, "
@@ -1260,7 +1393,8 @@ def phase_dense_attention_kernel(batch: int) -> None:
     before = dict(wa.LAUNCHES)
     rec = RESULTS.setdefault("K8", {"max_abs_err": 0.0})
     rec.update({k: 0.0 for k in ("ms", "plain_ms", "bound_bytes_ms", "bound_ops_ms",
-                                 "library_ms", "bwd_ms", "bwd_plain_ms", "bwd_bound_ms")})
+                                 "library_ms", "bwd_ms", "bwd_plain_ms", "bwd_bound_ms",
+                                 "bwd_library_ms")})
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device=DEV)
@@ -1302,6 +1436,8 @@ def phase_dense_attention_kernel(batch: int) -> None:
                     mask = bias.to(dtype).repeat(batch, 1, 1, 1)
                     lib = cuda_ms(lambda: F.scaled_dot_product_attention(
                         qh, kh, vh, attn_mask=mask, scale=scale))
+                    gh = gout.reshape(batch * nw, n, heads, d).transpose(1, 2)
+                    lib_bwd = sdpa_bwd_ms(qh, kh, vh, bias.to(dtype), gh, batch)
                     # the backward runs the forward first; time it net of that
                     bwd_ms = cuda_ms(kernel_bwd) - ms
                     bwd_plain = cuda_ms(plain_bwd, reps=3) - plain_ms
@@ -1313,10 +1449,12 @@ def phase_dense_attention_kernel(batch: int) -> None:
                     rec["library_ms"] += lib
                     rec["bwd_ms"] += bwd_ms
                     rec["bwd_plain_ms"] += bwd_plain
+                    rec["bwd_library_ms"] += lib_bwd
                     rec["bwd_bound_ms"] += max(bwd_bytes / PEAK_BYTES,
                                                10.0 * q.numel() * n / PEAK_FLOPS[dtype]) * 1e3
                     print(f"  K8 {case:<30} backward {bwd_ms:.3f} ms (plain {bwd_plain:.3f}); "
-                          f"SDPA + mask forward {lib:.3f} ms", flush=True)
+                          f"SDPA + mask forward {lib:.3f} ms, backward {lib_bwd:.3f} ms "
+                          f"(graph replay)", flush=True)
     rec["kernel_phase_launches"] = {
         "forward": wa.LAUNCHES["window_attention"] - before["window_attention"],
         "backward": wa.LAUNCHES["window_attention_grad"] - before["window_attention_grad"],
@@ -1326,13 +1464,15 @@ def phase_dense_attention_kernel(batch: int) -> None:
         fail(f"K8: the phase launched no kernel: {rec['kernel_phase_launches']}")
 
 
-def synthetic_batch(batch: int, offset: int = 0) -> ImageBatch:
-    """uint8 images from a seed; every other image smaller than the bucket."""
+def synthetic_batch(batch: int, offset: int = 0, hw=None) -> ImageBatch:
+    """uint8 images from a seed in the ``hw`` bucket (default HW); every other
+    image smaller than the bucket."""
+    hw = hw or HW
     rng = np.random.default_rng(BATCH_SEED + offset)
-    imgs = np.zeros((batch, *HW, 3), np.uint8)
-    mask = np.ones((batch, *HW), bool)
+    imgs = np.zeros((batch, *hw, 3), np.uint8)
+    mask = np.ones((batch, *hw), bool)
     for i in range(batch):
-        h, w = HW if i % 2 == 0 else (HW[0] * 3 // 4, HW[1] * 4 // 5)
+        h, w = hw if i % 2 == 0 else (hw[0] * 3 // 4, hw[1] * 4 // 5)
         imgs[i, :h, :w] = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
         mask[i, :h, :w] = False
     return ImageBatch(torch.from_numpy(imgs), torch.from_numpy(mask)).to(DEV)
@@ -1348,6 +1488,23 @@ def core_launches() -> dict:
 def f32_launches() -> dict:
     """Launches of the fp32 GEMM, attention core and attention backward."""
     return {k: wa.LAUNCHES[k] for k in ("gemm_f32", "win_attn_f32", "win_attn_bwd_f32")}
+
+
+def caption_launches() -> dict:
+    """Launches of the kernels a caption batch runs: K1, K2, K3, K10a and
+    K10b in each Swin and detector forward, K11 in each parallel decode step."""
+    return {"K1": wa.LAUNCHES["block_step"], "K2": wa.LAUNCHES["mlp"],
+            "K3": msda_ops.LAUNCHES["msda"], "K10a": wa.LAUNCHES["ln_linear"],
+            "K10b": wa.LAUNCHES["layernorm_rows"], "K11": tail_ops.LAUNCHES["decode_tail"]}
+
+
+def forward_launches(forwards: int = 1) -> dict:
+    """What ``forwards`` Swin and detector forwards in eval() launch: each
+    block one K1 and one K2, each decoder layer one K3, a PatchMerging a
+    stage, one patch-embed norm."""
+    blocks = sum(s[-1] for s in STAGES)
+    return {"K1": blocks * forwards, "K2": blocks * forwards, "K3": DET_LAYERS * forwards,
+            "K10a": len(STAGES) * forwards, "K10b": forwards}
 
 
 def reset_launches() -> None:
@@ -1372,16 +1529,12 @@ def phase_slice(batch: int, card: str) -> None:
     out = gen(samples, batch)
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
-    counts = {"K1": wa.LAUNCHES["block_step"], "K2": wa.LAUNCHES["mlp"],
-              "K3": msda_ops.LAUNCHES["msda"], "K10a": wa.LAUNCHES["ln_linear"],
-              "K10b": wa.LAUNCHES["layernorm_rows"], "K11": tail_ops.LAUNCHES["decode_tail"],
-              **core_launches()}
+    counts = {**caption_launches(), **core_launches()}
     blocks = sum(s[-1] for s in STAGES)
     # EOS is off, so each of the generator's layers takes K11 at every step; a
     # Swin forward makes one PatchMerging a stage and one patch-embed norm; K1
     # and K2 make two GEMM launches each, K10a one
-    want = {"K1": blocks, "K2": blocks, "K3": DET_LAYERS, "K10a": len(STAGES), "K10b": 1,
-            "K11": config.model.cap_generator.n_layers * STEPS,
+    want = {**forward_launches(), "K11": config.model.cap_generator.n_layers * STEPS,
             "gemm_bf16": 4 * blocks + len(STAGES), "win_attn": blocks, "win_attn_bwd": 0}
     print(f"[slice] launches in one b{batch} caption batch: {counts} (want {want})")
     if counts != want:
@@ -1567,6 +1720,34 @@ def rms_rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).pow(2).mean() / b.pow(2).mean()).sqrt().item()
 
 
+@torch.inference_mode()
+def beam_run(model, samples, batch: int, bos: int, eos: int, beam: int = BEAM, **kw):
+    """-> (visual features, beam_search's result) of one batch, as
+    make_caption_generator runs it; ``kw`` goes to beam_search."""
+    vis = model.compute_vis(samples)
+    kv = model.precompute_vis_kv(vis)
+    res = beam_search(
+        lambda tok, t, v, c: model.decode_step(tok, t, v, c, vis_kv=kv, vis_fold=beam),
+        model.init_cache(batch * beam, STEPS), vis, batch, beam, STEPS, bos, eos, **kw)
+    return vis, res
+
+
+def same_tokens(what: str, seq_k: torch.Tensor, seq_p: torch.Tensor, margins) -> None:
+    """The kernel path's fp32 tokens [B, T] against the plain path's: equal,
+    or different only from a step whose decision margin (the kernel path's
+    ``margins`` [B, T]) is a near-tie."""
+    seq_k, seq_p = seq_k.cpu(), seq_p.cpu()
+    same = (seq_k == seq_p).all(1)
+    print(f"[{what}] fp32 tokens equal token for token on {int(same.sum())}/{len(same)} images")
+    for i in torch.nonzero(~same).flatten().tolist():
+        step = int(torch.nonzero(seq_k[i] != seq_p[i])[0])
+        gap = float(margins[i, step])
+        print(f"[{what}] image {i}: first differing step {step}, decision margin there "
+              f"{gap:.3e} (smallest over the run {float(margins[i].min()):.3e})")
+        if gap > NEAR_TIE:
+            fail(f"{what}: image {i} tokens differ without a near-tie ({gap:.3e})")
+
+
 def phase_parity(batch: int) -> None:
     config = default_caption_config()
     vocab = config.model.vocab_size
@@ -1576,15 +1757,8 @@ def phase_parity(batch: int) -> None:
     hook = model.detector.det_module.register_forward_hook(
         lambda mod, args, out: det_out.append(out))
 
-    @torch.inference_mode()
     def run():
-        vis = model.compute_vis(samples)
-        kv = model.precompute_vis_kv(vis)
-        res = beam_search(
-            lambda tok, t, v, c: model.decode_step(tok, t, v, c, vis_kv=kv, vis_fold=BEAM),
-            model.init_cache(batch * BEAM, STEPS), vis, batch, BEAM, STEPS,
-            config.model.bos_idx, vocab, return_margins=True)
-        return vis, res
+        return beam_run(model, samples, batch, config.model.bos_idx, vocab, return_margins=True)
 
     vis_k, res_k = run()
     with plain_arm():
@@ -1625,28 +1799,16 @@ def phase_parity(batch: int) -> None:
               f"{err:.3e} (tol {tol:.0e})", flush=True)
         if not torch.isfinite(a).all() or err > tol:
             fail(f"parity: bf16 {what} relative RMS err {err:.3e} > {tol:.0e}")
-    seq_k = res_k.sequences[:, 0].cpu()
-    seq_p = res_p.sequences[:, 0].cpu()
-    margins = res_k.margins.cpu()
-    same = (seq_k == seq_p).all(1)
-    print(f"[parity] fp32 captions equal token for token on {int(same.sum())}/{batch} images")
-    for i in torch.nonzero(~same).flatten().tolist():
-        step = int(torch.nonzero(seq_k[i] != seq_p[i])[0])
-        gap = float(margins[i, step])
-        print(f"[parity] image {i}: first differing step {step}, decision margin there "
-              f"{gap:.3e} (smallest over the run {float(margins[i].min()):.3e})")
-        if gap > NEAR_TIE:
-            fail(f"parity: image {i} captions differ without a near-tie ({gap:.3e})")
+    same_tokens("parity", res_k.sequences[:, 0], res_p.sequences[:, 0], res_k.margins.cpu())
 
 
 SCHED = dict(num_epochs=10, num_its_per_epoch=1000, init_lr=1e-4, min_lr=1e-4,
              warmup_init_lr=1e-5)
 
 
-def training_batch(batch: int, config, offset: int = 0) -> dict:
-    """Synthetic XE batch from a seed: the inference phase's images, and
-    captions of CAPTION_LEN tokens (BOS, random words, EOS, then a pad tail of
-    0-7 tokens)."""
+def training_captions(batch: int, config, offset: int = 0) -> torch.Tensor:
+    """Captions of CAPTION_LEN tokens from a seed (BOS, random words, EOS, then
+    a pad tail of 0-7 tokens), on the card."""
     rng = np.random.default_rng(1000 + BATCH_SEED + offset)
     m = config.model
     caps = rng.integers(4, m.vocab_size, (batch, CAPTION_LEN))
@@ -1655,8 +1817,14 @@ def training_batch(batch: int, config, offset: int = 0) -> dict:
         end = CAPTION_LEN - 1 - i % 8
         caps[i, end] = m.eos_idx
         caps[i, end + 1:] = m.pad_idx
+    return torch.from_numpy(caps).to(DEV)
+
+
+def training_batch(batch: int, config, offset: int = 0) -> dict:
+    """Synthetic XE batch from a seed: the inference phase's images and
+    ``training_captions``."""
     return {"samples": synthetic_batch(batch, offset),
-            "captions": torch.from_numpy(caps).to(DEV)}
+            "captions": training_captions(batch, config, offset)}
 
 
 def training_setup(config, dtype, batch: int, dropouts: bool = True, seed: int = 0):
@@ -1690,6 +1858,18 @@ def train_launches() -> dict:
             "K12": adam_ops.LAUNCHES["adam"], **core_launches()}
 
 
+def train_want() -> dict:
+    """What one bf16 XE step of ``training_setup`` launches."""
+    frozen = sum(s[-1] for s in STAGES[:FROZEN_STAGES - 1])
+    trained = sum(s[-1] for s in STAGES[FROZEN_STAGES - 1:])
+    return {"K1": frozen, "K2": frozen + trained, "K3": DET_LAYERS, "K4": trained,
+            "K5": trained, "K6": DET_LAYERS, "K10a": len(STAGES), "K10b": 1,
+            "K12": 2,   # one Adam launch per parameter group
+            # two GEMM launches in each of K1, K2 and K4, one in K10a
+            "gemm_bf16": 2 * (frozen + (frozen + trained) + trained) + len(STAGES),
+            "win_attn": frozen + trained, "win_attn_bwd": trained}
+
+
 def phase_train(card: str) -> None:
     batch = TRAIN_BATCH
     state, step, tbatch = training_setup(default_caption_config(), torch.bfloat16, batch)
@@ -1700,15 +1880,7 @@ def phase_train(card: str) -> None:
     reset_launches()
     _, metrics = step(state, tbatch)
     losses.append(float(metrics["loss"]))
-    counts = train_launches()
-    frozen = sum(s[-1] for s in STAGES[:FROZEN_STAGES - 1])
-    trained = sum(s[-1] for s in STAGES[FROZEN_STAGES - 1:])
-    want = {"K1": frozen, "K2": frozen + trained, "K3": DET_LAYERS, "K4": trained,
-            "K5": trained, "K6": DET_LAYERS, "K10a": len(STAGES), "K10b": 1,
-            "K12": 2,   # one Adam launch per parameter group
-            # two GEMM launches in each of K1, K2 and K4, one in K10a
-            "gemm_bf16": 2 * (frozen + (frozen + trained) + trained) + len(STAGES),
-            "win_attn": frozen + trained, "win_attn_bwd": trained}
+    counts, want = train_launches(), train_want()
     print(f"[train] launches in one b{batch} XE step: {counts} (want {want}); of the fp32 "
           f"kernels {f32_launches()} (want none)")
     if counts != want or any(f32_launches().values()):
@@ -1772,6 +1944,13 @@ def span_ms(spans: list) -> tuple[list[float], list[float]]:
             [round(host, 1) for _, _, host in spans])
 
 
+def synthetic_text_field(vocab_size: int) -> TextField:
+    """A vocabulary of ``vocab_size`` ids (the specials and words ``w0``,
+    ``w1``, ...), whose decoding stops at no word."""
+    return TextField(vocab=Vocab(counter=collections.Counter(
+        {f"w{i}": 5 for i in range(vocab_size - len(SPECIALS))})), eos_token="<off>")
+
+
 def phase_trainer(card: str) -> None:
     """The caption trainer's path at full width, bf16 over f32 master
     parameters, frozen_stages=2, dropouts on, random weights (seed 0),
@@ -1790,9 +1969,8 @@ def phase_trainer(card: str) -> None:
     vocab_size, layers = m.vocab_size, m.cap_generator.n_layers
     state, xe_step, _ = training_setup(config, torch.bfloat16, TRAIN_BATCH)
     model = state.model
-    # a synthetic vocabulary; the search's EOS is off, so decoding stops at no word either
-    text_field = TextField(vocab=Vocab(counter=collections.Counter(
-        {f"w{i}": 5 for i in range(vocab_size - len(SPECIALS))})), eos_token="<off>")
+    # the search's EOS is off, so decoding stops at no word either
+    text_field = synthetic_text_field(vocab_size)
     eval_loss_step = xe_lib.make_eval_loss_step(model, pad_idx=m.pad_idx)
 
     def xe_loader_batch(offset: int) -> dict:
@@ -2107,6 +2285,294 @@ def module_grad_errors(batch: int) -> dict[str, tuple[float, str]]:
         group = label.split(" block")[0]
         worst[group] = max(worst.get(group, (0.0, "")), err)
     return worst
+
+
+def median_ms(fn, reps: int = TIMED_REPS) -> float:
+    """Median host milliseconds of ``fn`` over ``reps`` calls, each waited for."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def check_launches(what: str, counts: dict, want: dict) -> None:
+    """The launches of one path's run (counts set to 0 just before it)."""
+    print(f"[decoders] {what}: launches {counts} (want {want})", flush=True)
+    if counts != want:
+        fail(f"{what}: kernel launch counts {counts} != {want}")
+
+
+def free_card() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_decoders_and_entry_points(card: str) -> None:
+    """The decoders and entry points at full width, random weights
+    (seed 0), each path's kernel launches counted from 0 around its run:
+
+    - the sequential and concat decoders, bf16, b8 384x640, beam 5, 20 steps
+      with EOS off: ms a batch (median of 7), peak memory, the Swin and
+      detector kernels as in phase_slice and K11 none; in fp32 the kernel
+      path's captions against the plain path's (the near-tie rule); one bf16
+      XE step at b16 each, launches as phase_train's;
+    - greedy_search, b8 bf16, EOS off: K11 3 layers x 20 steps; fp32 tokens
+      against the plain path's;
+    - beam_search(return_all_probs=True), b8 bf16 with the config's EOS:
+      [8, 1, 20, V], all 20 steps run, the default beam's sequences, and the
+      extra memory;
+    - make_ensemble_generator over two members (seeds 0 and 1), b8 bf16, EOS
+      off: twice one model's launches; in fp32 a one-member ensemble's tokens
+      equal make_caption_generator's;
+    - the online and nocaps CLIs' caption loop (engine.evaluator
+      .caption_batches) over two b16 batches of random uint8 arrays, half of
+      them padded, in bf16, at the online bucket (640x640) and at the config's
+      (384x640) that nocaps uses, the generator as the CLIs build it (the
+      config's EOS);
+    - tools.extract_features.collect_vis_features (the detector in bf16) over
+      an in-memory loader of four b16 384x640 batches, then two freezing-mode
+      XE steps at b64 (optimizer.batch_size x 4) on those float16 features:
+      K12 once a step (the model group: the detector gets no gradient), no
+      Swin or MSDA kernel.
+
+    K1, K2, K3, K10a and K10b are held to their plain versions at b16 in the
+    640x640 bucket, in fp32 and bf16, before its loop runs (in main)."""
+    config = default_caption_config()
+    m = config.model
+    vocab, layers, bos = m.vocab_size, m.cap_generator.n_layers, m.bos_idx
+    batch = 8
+    samples = synthetic_batch(batch)
+    rec: dict = {}
+
+    def counts_of(fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, caption_launches()
+
+    # -- the sequential and concat decoders ---------------------------------
+    for name in ("sequential", "concat"):
+        dconfig = default_caption_config().apply_overrides(
+            [f"model.cap_generator.decoder_name={name}"])
+        model = build_captioner(dconfig, device=DEV, dtype=torch.bfloat16, seed=0)
+        gen = make_caption_generator(model, beam_size=BEAM, max_len=STEPS, bos_idx=bos,
+                                     eos_idx=vocab)
+        gen(samples, batch)
+        torch.cuda.reset_peak_memory_stats()
+        out, counts = counts_of(lambda: gen(samples, batch))
+        check_launches(f"{name} b{batch} caption batch", counts, {**forward_launches(), "K11": 0})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = median_ms(lambda: gen(samples, batch))
+        out = out.cpu()
+        if tuple(out.shape) != (batch, STEPS) or out.min() < 0 or out.max() >= vocab:
+            fail(f"{name}: bad tokens, shape {tuple(out.shape)}")
+        print(f"[decoders] {name} b{batch} bf16 beam {BEAM} x {STEPS} steps at {HW[0]}x{HW[1]}: "
+              f"{ms:.1f} ms/batch (median of {TIMED_REPS}), {batch / ms * 1e3:.2f} images/s, "
+              f"peak {peak:.2f} GiB  [{card}]", flush=True)
+        del model, gen
+        model = build_captioner(dconfig, device=DEV, dtype=torch.float32, seed=0)
+        _, res_k = beam_run(model, samples, batch, bos, vocab, return_margins=True)
+        with plain_arm():
+            _, res_p = beam_run(model, samples, batch, bos, vocab)
+        same_tokens(f"{name} parity", res_k.sequences[:, 0], res_p.sequences[:, 0],
+                    res_k.margins.cpu())
+        del model, res_k, res_p
+        free_card()
+        state, step, tbatch = training_setup(dconfig, torch.bfloat16, TRAIN_BATCH)
+        step(state, tbatch)                                 # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        metrics = step(state, tbatch)[1]
+        loss = float(metrics["loss"])
+        step_ms = (time.perf_counter() - t0) * 1e3
+        counts = train_launches()
+        print(f"[decoders] {name} b{TRAIN_BATCH} bf16 XE step: loss {loss:.4f}, {step_ms:.1f} ms, "
+              f"K11 {tail_ops.LAUNCHES['decode_tail']}  [{card}]", flush=True)
+        check_launches(f"{name} b{TRAIN_BATCH} XE step", counts, train_want())
+        if not np.isfinite(loss) or tail_ops.LAUNCHES["decode_tail"]:
+            fail(f"{name} XE step: loss {loss}, K11 launches {tail_ops.LAUNCHES['decode_tail']}")
+        rec[name] = {"ms": ms, "peak_gib": peak, "xe_loss": loss, "xe_ms": step_ms,
+                     "launches": counts}
+        del state, step, tbatch, metrics
+        free_card()
+
+    # -- greedy, all-probs and the ensemble (the parallel decoder) ------------
+    model = build_captioner(config, device=DEV, dtype=torch.bfloat16, seed=0)
+
+    @torch.inference_mode()
+    def greedy(mdl):
+        vis = mdl.compute_vis(samples)
+        kv = mdl.precompute_vis_kv(vis)
+        return greedy_search(
+            lambda tok, t, v, c: mdl.decode_step(tok, t, v, c, vis_kv=kv, vis_fold=1),
+            mdl.init_cache(batch, STEPS), vis, batch, STEPS, bos, vocab)
+
+    greedy(model)
+    (seq, lp), counts = counts_of(lambda: greedy(model))
+    check_launches(f"greedy b{batch}", counts, {**forward_launches(), "K11": layers * STEPS})
+    ms = median_ms(lambda: greedy(model))
+    print(f"[decoders] greedy b{batch} bf16 x {STEPS} steps: {ms:.1f} ms/batch (median of "
+          f"{TIMED_REPS})  [{card}]", flush=True)
+    if tuple(seq.shape) != (batch, STEPS) or not torch.isfinite(lp).all():
+        fail(f"greedy: sequences {tuple(seq.shape)}, log-probs finite "
+             f"{bool(torch.isfinite(lp).all())}")
+    rec["greedy"] = {"ms": ms, "launches": counts}
+
+    def peak_run(**kw):
+        """(beam_run's result, launches, peak bytes above what was allocated
+        before), after a warm-up call."""
+        beam_run(model, samples, batch, bos, m.eos_idx, **kw)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (_, res), n = counts_of(lambda: beam_run(model, samples, batch, bos, m.eos_idx, **kw))
+        return res, n, torch.cuda.max_memory_allocated() - before
+
+    base, counts_base, peak0 = peak_run()
+    allp, counts, peak1 = peak_run(return_all_probs=True)
+    extra = (peak1 - peak0) / 2 ** 20
+    alp = allp.all_log_probs
+    print(f"[decoders] beam {BEAM} b{batch} bf16 return_all_probs with EOS {m.eos_idx}: "
+          f"all_log_probs {tuple(alp.shape)}, K11 {counts['K11']} (the default beam "
+          f"{counts_base['K11']}), peak memory above the resident {peak1 / 2 ** 20:.1f} MiB, "
+          f"the default beam's {peak0 / 2 ** 20:.1f} MiB ({extra:+.1f} MiB)  [{card}]",
+          flush=True)
+    if tuple(alp.shape) != (batch, 1, STEPS, vocab) or not torch.isfinite(alp).all():
+        fail(f"return_all_probs: all_log_probs {tuple(alp.shape)}")
+    if not torch.equal(allp.sequences, base.sequences):
+        fail("return_all_probs: its sequences differ from the default beam's")
+    if counts["K11"] != layers * STEPS:
+        fail(f"return_all_probs: K11 launched {counts['K11']} times: the search stopped early")
+    rec["all_probs"] = {"shape": list(alp.shape), "extra_peak_mib": extra,
+                        "peak_mib": peak1 / 2 ** 20, "default_peak_mib": peak0 / 2 ** 20,
+                        "k11_default": counts_base["K11"], "k11_all_probs": counts["K11"]}
+    del base, allp, alp
+
+    other = build_captioner(config, device=DEV, dtype=torch.bfloat16, seed=1)
+    ens = make_ensemble_generator([model, other], beam_size=BEAM, max_len=STEPS, bos_idx=bos,
+                                  eos_idx=vocab)
+    ens(samples, batch)
+    res, counts = counts_of(lambda: ens(samples, batch))
+    check_launches(f"ensemble of 2, b{batch}", counts,
+                   {**forward_launches(2), "K11": 2 * layers * STEPS})
+    ms = median_ms(lambda: ens(samples, batch))
+    print(f"[decoders] ensemble of 2 b{batch} bf16 beam {BEAM} x {STEPS}: {ms:.1f} ms/batch "
+          f"(median of {TIMED_REPS})  [{card}]", flush=True)
+    if tuple(res.sequences.shape) != (batch, 1, STEPS) or not torch.isfinite(res.scores).all():
+        fail(f"ensemble: sequences {tuple(res.sequences.shape)}")
+    rec["ensemble"] = {"ms": ms, "launches": counts}
+    del other, ens, res
+    free_card()
+
+    # fp32: greedy against the plain path; a one-member ensemble against the
+    # caption generator
+    model32 = build_captioner(config, device=DEV, dtype=torch.float32, seed=0)
+    seq_k = greedy(model32)[0]
+    with plain_arm():
+        seq_p = greedy(model32)[0]
+    margins = beam_run(model32, samples, batch, bos, vocab, beam=1, return_margins=True)[1].margins
+    same_tokens("greedy parity", seq_k, seq_p, margins.cpu())
+    kw = dict(beam_size=BEAM, max_len=STEPS, bos_idx=bos, eos_idx=vocab)
+    one = make_ensemble_generator([model32], **kw)(samples, batch).sequences[:, 0]
+    ref = make_caption_generator(model32, **kw)(samples, batch)
+    print(f"[decoders] fp32 one-member ensemble tokens equal make_caption_generator's: "
+          f"{bool(torch.equal(one, ref))}", flush=True)
+    if not torch.equal(one, ref):
+        fail("a one-member ensemble's tokens differ from make_caption_generator's")
+    del model32
+    free_card()
+
+    # -- the online and nocaps caption loops ----------------------------------
+    text_field = synthetic_text_field(vocab)
+    gen = make_caption_generator(model, beam_size=m.beam_size, max_len=m.beam_len, bos_idx=bos,
+                                 eos_idx=m.eos_idx)
+    nocaps_hw = tuple(config.dataset.transform_cfg.size)
+    for cli, hw in (("online", ONLINE_BUCKET), ("nocaps", nocaps_hw)):
+        batches = [(on_host(synthetic_batch(ONLINE_BATCH, 20 + j, hw)),
+                    list(range(j * ONLINE_BATCH, (j + 1) * ONLINE_BATCH))) for j in range(2)]
+        caption_batches(gen, batches[:1], text_field, device=DEV)     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        results, counts = counts_of(lambda: caption_batches(gen, batches, text_field, device=DEV))
+        per_batch = (time.perf_counter() - t0) * 1e3 / len(batches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = forward_launches(2)
+        print(f"[decoders] {cli} loop: 2 batches of {ONLINE_BATCH} at {hw[0]}x{hw[1]} bf16: "
+              f"{per_batch:.1f} ms/batch, peak {peak:.2f} GiB, launches {counts} (Swin and "
+              f"detector: {want})  [{card}]", flush=True)
+        if {k: counts[k] for k in want} != want or not counts["K11"]:
+            fail(f"{cli} loop: launches {counts}, want {want} and K11")
+        if ([r["image_id"] for r in results] != list(range(2 * ONLINE_BATCH))
+                or not all(isinstance(r["caption"], str) for r in results)):
+            fail(f"{cli} loop: results {results[:2]}")
+        rec[cli] = {"hw": list(hw), "ms_per_batch": per_batch, "peak_gib": peak,
+                    "launches": counts}
+    del gen, model
+    free_card()
+
+    # -- feature extraction, then the freezing mode's XE steps -----------------
+    detector = build_detector(config, device=DEV, dtype=torch.bfloat16, seed=0)
+    loader = [{"samples": on_host(synthetic_batch(TRAIN_BATCH, 30 + j)),
+               "image_id": list(range(j * TRAIN_BATCH, (j + 1) * TRAIN_BATCH))} for j in range(4)]
+    t0 = time.perf_counter()
+    feats, counts = counts_of(lambda: collect_vis_features(detector, [loader], DEV))
+    extract_s = time.perf_counter() - t0
+    check_launches("collect_vis_features over 4 b16 batches", {
+        k: counts[k] for k in ("K1", "K2", "K3", "K10a", "K10b")}, forward_launches(4))
+    fb = 4 * TRAIN_BATCH
+    shapes = {k: (v.shape, v.dtype) for k, v in feats.items()}
+    print(f"[decoders] collect_vis_features: {extract_s:.2f} s for {fb} images, {shapes}  "
+          f"[{card}]", flush=True)
+    if (list(feats["image_ids"]) != list(range(fb)) or feats["gri_feat"].dtype != np.float16
+            or feats["reg_feat"].shape != (fb, m.detector.num_queries, m.detector.d_model)
+            or not all(np.isfinite(feats[k]).all() for k in ("gri_feat", "reg_feat"))):
+        fail(f"collect_vis_features: {shapes}")
+    del detector
+    free_card()
+    model = build_captioner(config, device=DEV, dtype=torch.bfloat16, seed=0, train=True)
+    opt = optim_lib.build_optimizer(
+        model, model_lr=SCHED["init_lr"], backbone_lr=config.optimizer.xe_backbone_lr,
+        beta_1=config.optimizer.beta_1, beta_2=config.optimizer.beta_2)
+    state = xe_lib.TrainState(model, opt, global_steps=1,
+                              generator=torch.Generator(device=DEV).manual_seed(0))
+    step = xe_lib.make_xe_train_step(pad_idx=m.pad_idx, sched_cfg=SCHED)
+    # the loader's batch as the hdf5 reader gives it: numpy, features float16
+    fbatch = {"samples": {k: feats[k] for k in FEATURES},
+              "captions": training_captions(fb, config).cpu().numpy()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    step_ms, losses = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        metrics = step(state, to_device(fbatch, DEV))[1]
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = train_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[decoders] freezing mode: 2 XE steps b{fb} bf16 on float16 features: losses "
+          f"{losses}, {step_ms[0]:.1f} / {step_ms[1]:.1f} ms a step (the first warms up), peak "
+          f"{peak:.2f} GiB, launches {counts}  [{card}]", flush=True)
+    kernels = ("K1", "K2", "K3", "K4", "K5", "K6", "K10a", "K10b")
+    if counts["K12"] != 2 or any(counts[k] for k in kernels) or not np.isfinite(losses).all():
+        fail(f"freezing mode: launches {counts} (want K12 2, none of {kernels}), losses {losses}")
+    if any(p.grad is not None for p in model.detector.parameters()):
+        fail("freezing mode: a detector parameter got a gradient from cached features")
+    rec["extract"] = {"seconds": extract_s, "images": fb}
+    rec["freezing"] = {"batch": fb, "losses": losses, "step_ms": step_ms, "peak_gib": peak,
+                       "launches": counts}
+    RESULTS["decoders"] = rec
+    del model, opt, state
+    free_card()
 
 
 def phase_train_parity(batch: int) -> None:
@@ -2658,32 +3124,52 @@ def main() -> None:
           + "; ".join(f"{k} {r} / {sp}" for k, (r, sp) in resources.items()), flush=True)
 
     det = dict(stages=DET_STAGES, levels=DET_LEVELS, hw=DET_HW)
-    phase_kernels(args.batch)
-    phase_kernels(EVAL_BATCH, counted=False)      # the trainer's evaluation batch
-    phase_kernels(DET_BATCH, counted=False, **det)    # the detector's validation
-    phase_train_kernels(TRAIN_BATCH)
-    phase_train_kernels(SC_BATCH, counted=False)  # the SCST generation and update
-    phase_train_kernels(DET_BATCH, n_frozen=0, run="detector", **det)
-    phase_merge_kernels()
-    phase_dense_attention_kernel(args.batch)
-    phase_decode_kernel()
-    phase_msda_kernels()
-    phase_adam_kernel()
-    phase_yardsticks("caption", args.batch, STAGES, len(STAGES))
-    phase_yardsticks("train", TRAIN_BATCH, STAGES, FROZEN_STAGES - 1)
-    phase_yardsticks("detector", DET_BATCH, DET_STAGES, 0)
-    phase_slice(args.batch, card)
-    phase_slice_b128(card)
-    phase_parity(args.batch)
-    phase_train(card)
-    phase_trainer(card)
-    phase_detector(card, torch.float32)           # the CLI's compute type
-    phase_detector(card, torch.bfloat16)
-    if args.profile:
-        phase_profile(args.batch, card)
-    phase_train_parity(TRAIN_BATCH)
-    parity_seeds(TRAIN_BATCH, args.parity_seeds)
-    phase_detector_parity(DET_PARITY_BATCH)
+    online = dict(stages=ONLINE_STAGES, levels=ONLINE_LEVELS, hw=ONLINE_BUCKET)
+    phases = [
+        ("kernels", lambda: phase_kernels(args.batch)),
+        # the trainer's evaluation batch; the detector's validation; the online
+        # evaluation's 640x640 bucket, before phase_decoders_and_entry_points
+        # runs its loop there
+        ("kernels eval", lambda: phase_kernels(EVAL_BATCH, counted=False)),
+        ("kernels detector", lambda: phase_kernels(DET_BATCH, counted=False, **det)),
+        ("kernels online", lambda: phase_kernels(ONLINE_BATCH, counted=False, **online)),
+        ("train kernels", lambda: phase_train_kernels(TRAIN_BATCH)),
+        # the SCST generation and update
+        ("train kernels sc", lambda: phase_train_kernels(SC_BATCH, counted=False)),
+        ("train kernels detector",
+         lambda: phase_train_kernels(DET_BATCH, n_frozen=0, run="detector", **det)),
+        ("merge kernels", phase_merge_kernels),
+        ("merge kernels online", lambda: phase_merge_kernels(
+            paths=(("online", ONLINE_BATCH, ONLINE_STAGES, ONLINE_BUCKET),), counted=False)),
+        ("ln kernels", lambda: phase_ln_kernels(card)),
+        ("dense attention kernel", lambda: phase_dense_attention_kernel(args.batch)),
+        ("decode kernel", phase_decode_kernel),
+        ("msda kernels", phase_msda_kernels),
+        ("adam kernel", phase_adam_kernel),
+        ("yardsticks caption", lambda: phase_yardsticks("caption", args.batch, STAGES,
+                                                        len(STAGES))),
+        ("yardsticks train", lambda: phase_yardsticks("train", TRAIN_BATCH, STAGES,
+                                                      FROZEN_STAGES - 1)),
+        ("yardsticks detector", lambda: phase_yardsticks("detector", DET_BATCH, DET_STAGES, 0)),
+        ("slice", lambda: phase_slice(args.batch, card)),
+        ("slice b128", lambda: phase_slice_b128(card)),
+        ("parity", lambda: phase_parity(args.batch)),
+        ("train", lambda: phase_train(card)),
+        ("trainer", lambda: phase_trainer(card)),
+        ("decoders and entry points", lambda: phase_decoders_and_entry_points(card)),
+        ("detector fp32", lambda: phase_detector(card, torch.float32)),   # the CLI's type
+        ("detector bf16", lambda: phase_detector(card, torch.bfloat16)),
+        ("profile", lambda: phase_profile(args.batch, card) if args.profile else None),
+        ("train parity", lambda: phase_train_parity(TRAIN_BATCH)),
+        ("parity seeds", lambda: parity_seeds(TRAIN_BATCH, args.parity_seeds)),
+        ("detector parity", lambda: phase_detector_parity(DET_PARITY_BATCH)),
+    ]
+    seconds = {}
+    for name, run_phase in phases:
+        t0 = time.perf_counter()
+        run_phase()
+        seconds[name] = time.perf_counter() - t0
+        print(f"[time] {name}: {seconds[name]:.1f} s", flush=True)
 
     csrc = "grit_tpu_torch/csrc/"
     swin, msda = csrc + "swin_block.cu", csrc + "msda.cu"
@@ -2750,6 +3236,7 @@ def main() -> None:
         "per": f"one bf16 forward at each of the four Swin stage shapes of a b{args.batch} "
                f"{HW[0]}x{HW[1]} batch, a bias over every window",
         "bwd_ms": r["bwd_ms"], "bwd_plain_ms": r["bwd_plain_ms"], "bwd_bound_ms": r["bwd_bound_ms"],
+        "bwd_library_ms": r["bwd_library_ms"],
         "kernel_phase_launches": r["kernel_phase_launches"]})
     r = RESULTS["K12"]
     kernels.append({
@@ -2791,7 +3278,10 @@ def main() -> None:
                    "detector_bf16": RESULTS.get("detector_bf16"),
                    "detector_parity": RESULTS.get("detector_parity"),
                    "train_parity": RESULTS.get("train_parity"),
-                   "parity_seeds": RESULTS.get("parity_seeds")}, f, indent=1)
+                   "parity_seeds": RESULTS.get("parity_seeds"),
+                   "ln_kernels": RESULTS.get("ln_kernels"),
+                   "decoders": RESULTS.get("decoders"),
+                   "phase_seconds": seconds}, f, indent=1)
     # in the printed line a mapped body carries its kernel's launches on that
     # kernel's run and the numbers of one bf16 check at the 832x1344 shapes
     by_name = {k["name"]: k for k in kernels}

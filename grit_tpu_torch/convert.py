@@ -8,8 +8,11 @@ that the model recomputes or never uses are dropped
 arrays (the JAX package's parameters) to the port's state_dict.
 ``state_dict_to_params`` goes the other way, for a state_dict or a dict of
 gradients by parameter name, so that gradients and updated parameters
-compare leaf by leaf with the JAX package's trees.  ``decode_tail_weights``
-gives a decoder layer's 24 decode-tail weights, and ``adam_state_to_trees`` /
+compare leaf by leaf with the JAX package's trees.  The names carry every
+decoder's layers alike (``vis_att1`` / ``vis_att2`` of the parallel and
+sequential layers, ``vis_att`` of the concat layer, ``pwff``), so the three
+cross with no rule of their own.  ``decode_tail_weights`` gives a parallel
+decoder layer's 24 decode-tail weights, and ``adam_state_to_trees`` /
 ``adam_state_from_trees`` carry the optimizer's moments, in the JAX package's
 layouts as numpy.
 """

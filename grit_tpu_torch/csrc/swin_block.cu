@@ -398,6 +398,16 @@ int grit_ln_rows(const void* x, const void* g, const void* b, void* out, int row
   return launch_ln<float>(x, g, b, out, rows, C, window_mode, m, eps, st);
 }
 
+// K10a's LayerNorm launch alone (the first half of grit_ln_linear with
+// merge = 1), for timing it apart from the product: x [B, H, W, C], g, b f32
+// [4C], out [B ceil(H/2) ceil(W/2), 4C].
+int grit_ln_merge(const void* x, const void* g, const void* b, void* out, int rows, int H, int W,
+                  int C, float eps, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return launch_ln_merge<bf16>(x, g, b, out, rows, H, W, C, eps, st);
+  return launch_ln_merge<float>(x, g, b, out, rows, H, W, C, eps, st);
+}
+
 // out = epilogue(A [M, K] @ W[N, K]^T); bias [N] in the storage type, as
 // flax's Dense casts it.  bf16 needs N % 128 == 0 and K % 64 == 0 (gemm_sm90.cu),
 // fp32 N % 4 == 0 and K % 8 == 0 (the Python wrappers check the stricter

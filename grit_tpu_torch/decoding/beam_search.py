@@ -17,7 +17,11 @@ Decision parity with the reference beam search (models/caption/transformer.py
 
 Early exit: the loop stops once every beam of every image is frozen, which
 is decision-identical (grit_tpu/decoding/beam_search.py:41-51).  Deciding it
-reads one flag back from the device each step.
+reads one flag back from the device each step.  ``return_all_probs`` runs all
+``max_len`` steps instead: a frozen step's word log-probs are live model
+output, which a skipped step could not record.
+
+``greedy_search`` is beam 1.
 """
 
 from __future__ import annotations
@@ -33,6 +37,11 @@ class BeamResult(NamedTuple):
     sequences: torch.Tensor   # long [B, out_size, max_len]
     log_probs: torch.Tensor   # float [B, out_size, max_len] per-step word log-probs
     scores: torch.Tensor      # float [B, out_size] total sequence log-prob
+    # float [B, out_size, max_len, V], when requested: at each step, the word
+    # log-probs that the beam in each slot was chosen from (the slots as that
+    # step left them, not backtracked, as grit_tpu records them), the slots
+    # put in the final beam order
+    all_log_probs: Optional[torch.Tensor] = None
     # float [B, max_len]: per step, the smallest gap between adjacent
     # candidates among the top beam+1 (the step's decision margin; inf for
     # skipped steps), when requested
@@ -59,7 +68,8 @@ def _leaves(tree):
 
 def beam_search(decode_step: Callable, init_cache, vis_inputs, batch_size: int,
                 beam_size: int, max_len: int, bos_idx: int, eos_idx: int,
-                out_size: int = 1, return_margins: bool = False) -> BeamResult:
+                out_size: int = 1, return_all_probs: bool = False,
+                return_margins: bool = False) -> BeamResult:
     """decode_step(token [B*K, 1], t, vis, cache) -> (log_probs [B*K, V], cache).
 
     ``init_cache`` is beam-expanded [B*K, ...]; ``vis_inputs`` go to
@@ -74,11 +84,11 @@ def beam_search(decode_step: Callable, init_cache, vis_inputs, batch_size: int,
     prev_words = torch.full((b, k), bos_idx, dtype=torch.long, device=dev)
     cache = init_cache
     base = (torch.arange(b, device=dev) * k)[:, None]
-    words, parents, wlogp, margins = [], [], [], []
+    words, parents, wlogp, margins, all_logp = [], [], [], [], []
 
     for t in range(max_len):
         alive = (seq_mask > 0) & (prev_words != eos_idx)
-        if not bool((alive | (seq_logprob <= -999.0)).any()):
+        if not return_all_probs and not bool((alive | (seq_logprob <= -999.0)).any()):
             break   # all beams frozen: the remaining steps change nothing
         word_logprob, cache = decode_step(prev_words.reshape(b * k, 1), t, vis_inputs, cache)
         v = word_logprob.shape[-1]
@@ -105,6 +115,9 @@ def beam_search(decode_step: Callable, init_cache, vis_inputs, batch_size: int,
         words.append(sel_words)
         parents.append(sel_beam)
         wlogp.append(this_wlogp)
+        if return_all_probs:
+            all_logp.append(torch.gather(word_logprob, 1,
+                                         sel_beam[..., None].expand(-1, -1, v)))
 
     # steps skipped by the early exit record word 0, log-prob 0, identity parents
     ident = torch.arange(k, device=dev)[None].expand(b, k)
@@ -129,5 +142,18 @@ def beam_search(decode_step: Callable, init_cache, vis_inputs, batch_size: int,
     sel = order[..., None].expand(-1, -1, max_len)
     sequences = torch.gather(sequences, 1, sel)[:, :out_size]
     log_probs = torch.gather(log_probs, 1, sel)[:, :out_size]
-    return BeamResult(sequences, log_probs, scores,
+    all_log_probs = None
+    if return_all_probs:
+        alp = torch.stack(all_logp, 2)                            # [B, K, T, V]
+        all_log_probs = torch.gather(
+            alp, 1, order[..., None, None].expand(-1, -1, *alp.shape[2:]))[:, :out_size]
+    return BeamResult(sequences, log_probs, scores, all_log_probs,
                       torch.stack(margins, 1) if return_margins else None)
+
+
+def greedy_search(decode_step: Callable, init_cache, vis_inputs, batch_size: int,
+                  max_len: int, bos_idx: int, eos_idx: int):
+    """Greedy decode = beam 1; returns (sequences [B, T], log_probs [B, T])."""
+    res = beam_search(decode_step, init_cache, vis_inputs, batch_size, 1, max_len,
+                      bos_idx, eos_idx, out_size=1)
+    return res.sequences[:, 0], res.log_probs[:, 0]

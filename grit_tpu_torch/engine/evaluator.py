@@ -111,6 +111,18 @@ def evaluate_metrics(generate_fn: Callable, dataloader, text_field, *, device, e
     return scores, results, avg_time
 
 
+def caption_batches(generate_fn, batches, text_field, *, device) -> list[dict]:
+    """Caption every ``(ImageBatch, image ids)`` of ``batches`` (the online
+    and nocaps CLIs' loop; grit_tpu's eval_caption_online.py:55-68): the top
+    beam's tokens decoded to words, ``[{"image_id", "caption"}, ...]``."""
+    results = []
+    for images, ids in batches:
+        out = generate_fn(images.to(device), len(ids)).cpu().numpy()
+        results += [{"image_id": i, "caption": c}
+                    for i, c in zip(ids, text_field.decode(out))]
+    return results
+
+
 def inference_coco_test(generate_fn, dataloader, text_field, *, device, split: str = "test"):
     """Leaderboard json generation (caption_engine.py:233-284)."""
     _, results, _ = evaluate_metrics(generate_fn, dataloader, text_field, device=device,

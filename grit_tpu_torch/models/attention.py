@@ -3,7 +3,9 @@
 - ``Attention``: scaled dot-product attention with ``kv_fold``: q has f times
   as many rows as k/v, and every f consecutive q rows (the beams of one
   image) attend to the same k/v row, so decode-time visual K/V stay
-  per-image instead of beam-tiled.
+  per-image instead of beam-tiled.  The k/v are projected here unless
+  ``kv_projected`` (the parallel decoder's K/V, projected once a batch); the
+  sequential and concat decoders hand in the raw features at every step.
 - ``MultiHeadAttention``: attention + dropout + post-LN residual
   ``LN(q + dropout(attn(q, k, v)))`` (attention.py:166-184), with an optional
   fixed-shape KV cache [B, T_max, D] written at ``cache_index``.

@@ -1,22 +1,34 @@
 """Autoregressive caption generator over dual visual features.
 
-Math parity: reference models/caption/cap_generator.py, ``parallel`` decoder:
-token embedding + position table, N post-LN layers of self-attention and two
-cross-attentions (grid, region) fused by sigmoid gates, and a bias-free
-output Linear + log_softmax.  The reference computes BOTH gates with
-``fc_alpha1`` (cap_generator.py:48-49); ``replicate_alpha_bug`` (default
-True) keeps that for checkpoint parity.  ``pos_emb`` is a loaded parameter:
-the reference's init_weights overwrites the sinusoid table, so released
-checkpoints carry their own.
+Math parity: reference models/caption/cap_generator.py: token embedding +
+position table, N post-LN layers, and a bias-free output Linear +
+log_softmax.  Three layer variants (``decoder_name``), as grit_tpu:
+
+- ``parallel`` (default): self-attention, then two cross-attentions (grid,
+  region) fused by sigmoid gates.  The reference computes BOTH gates with
+  ``fc_alpha1`` (cap_generator.py:48-49); ``replicate_alpha_bug`` (default
+  True) keeps that for checkpoint parity;
+- ``sequential``: self-attention, grid cross-attention, region
+  cross-attention, FFN, one after the other;
+- ``concat``: one cross-attention over the grid and region features
+  concatenated.  The reference's concat branch reads a key that never exists
+  (``vis_inputs['grid_feat']``, cap_generator.py:151); here, as in grit_tpu,
+  it works on the concatenated features and masks (``_vis``).
+
+``pos_emb`` is a loaded parameter: the reference's init_weights overwrites
+the sinusoid table, so released checkpoints carry their own.
 
 - ``forward``: teacher forcing with a causal + pad mask;
-- ``decode_step``: one token against fixed-shape KV caches, with the
-  visual K/V projected once (``precompute_vis_kv``) and kept per image
-  (``vis_fold`` = beam size).  After its self-attention a layer's decode step
-  is one call of ``ops.decode_layer.fused_decode_layer_tail`` (kernel K11)
-  whenever no dropout is live and the tensors are on the GPU
-  (``use_fused_tail``); with live dropout it runs module by module, as
-  grit_tpu's deterministic-only fused tail.
+- ``decode_step``: one token against fixed-shape KV caches, the visual
+  inputs kept per image (``vis_fold`` = beam size; the cross-attentions fold
+  the beams into their query rows).  The parallel layers take their visual
+  K/V projected once (``precompute_vis_kv``); after its self-attention a
+  parallel layer's decode step is one call of
+  ``ops.decode_layer.fused_decode_layer_tail`` (kernel K11) whenever no
+  dropout is live and the tensors are on the GPU (``use_fused_tail``); with
+  live dropout it runs module by module, as grit_tpu's deterministic-only
+  fused tail.  The sequential and concat layers project the visual K/V at
+  every step, as grit_tpu's do, module by module.
 """
 
 from __future__ import annotations
@@ -97,9 +109,13 @@ class ParallelAttentionLayer(nn.Module):
                 *gate(gate2), *wb(self.pwff.fc1), *wb(self.pwff.fc2),
                 self.pwff.layer_norm.weight, self.pwff.layer_norm.bias)
 
-    def decode(self, x, mask_pad, mask_x, mask_y1, mask_y2, cache, t, vis_kv, vis_fold=1):
+    def decode(self, x, y1, y2, mask_pad, mask_x, mask_y1, mask_y2, cache, t, vis_kv=None,
+               vis_fold=1):
+        """``vis_kv``: ``precompute_vis_kv``'s output; projected here when None."""
         self_att, cache = self.self_att(x, x, x, mask_x, cache=cache, cache_index=t)
         self_att = self_att * mask_pad
+        if vis_kv is None:
+            vis_kv = self.precompute_vis_kv(y1, y2)
         (k1, v1), (k2, v2) = vis_kv["att1"], vis_kv["att2"]
         if use_fused_tail(self, self_att):
             out = decode_layer.fused_decode_layer_tail(
@@ -114,25 +130,89 @@ class ParallelAttentionLayer(nn.Module):
         return self._fuse(self_att, enc1, enc2, mask_pad), cache
 
 
+class SequentialAttentionLayer(nn.Module):
+    def __init__(self, d_model: int = 512, n_heads: int = 8, d_ff: int = 2048,
+                 dropout: float = 0.1):
+        super().__init__()
+        self.self_att = MultiHeadAttention(d_model, n_heads, dropout)
+        self.vis_att1 = MultiHeadAttention(d_model, n_heads, dropout)
+        self.vis_att2 = MultiHeadAttention(d_model, n_heads, dropout)
+        self.pwff = FeedForward(d_model, d_ff, dropout)
+
+    def _tail(self, out, y1, y2, mask_pad, mask_y1, mask_y2, vis_fold=1):
+        out = self.vis_att1(out, y1, y1, mask_y1, kv_fold=vis_fold) * mask_pad
+        out = self.vis_att2(out, y2, y2, mask_y2, kv_fold=vis_fold) * mask_pad
+        return self.pwff(out) * mask_pad
+
+    def forward(self, x, y1, y2, mask_pad, mask_x, mask_y1, mask_y2):
+        out = self.self_att(x, x, x, mask_x) * mask_pad
+        return self._tail(out, y1, y2, mask_pad, mask_y1, mask_y2)
+
+    def decode(self, x, y1, y2, mask_pad, mask_x, mask_y1, mask_y2, cache, t, vis_kv=None,
+               vis_fold=1):
+        out, cache = self.self_att(x, x, x, mask_x, cache=cache, cache_index=t)
+        return self._tail(out * mask_pad, y1, y2, mask_pad, mask_y1, mask_y2, vis_fold), cache
+
+
+class ConcatAttentionLayer(nn.Module):
+    """One cross-attention over the concatenated [grid; region] features,
+    which ``CaptionGenerator._vis`` hands in as ``y1`` / ``mask_y1``."""
+
+    def __init__(self, d_model: int = 512, n_heads: int = 8, d_ff: int = 2048,
+                 dropout: float = 0.1):
+        super().__init__()
+        self.self_att = MultiHeadAttention(d_model, n_heads, dropout)
+        self.vis_att = MultiHeadAttention(d_model, n_heads, dropout)
+        self.pwff = FeedForward(d_model, d_ff, dropout)
+
+    def _tail(self, out, y1, mask_pad, mask_y1, vis_fold=1):
+        out = self.vis_att(out, y1, y1, mask_y1, kv_fold=vis_fold) * mask_pad
+        return self.pwff(out) * mask_pad
+
+    def forward(self, x, y1, y2, mask_pad, mask_x, mask_y1, mask_y2):
+        out = self.self_att(x, x, x, mask_x) * mask_pad
+        return self._tail(out, y1, mask_pad, mask_y1)
+
+    def decode(self, x, y1, y2, mask_pad, mask_x, mask_y1, mask_y2, cache, t, vis_kv=None,
+               vis_fold=1):
+        out, cache = self.self_att(x, x, x, mask_x, cache=cache, cache_index=t)
+        return self._tail(out * mask_pad, y1, mask_pad, mask_y1, vis_fold), cache
+
+
+GENERATOR_LAYER = {
+    "parallel": ParallelAttentionLayer,
+    "sequential": SequentialAttentionLayer,
+    "concat": ConcatAttentionLayer,
+}
+
+
 class CaptionGenerator(nn.Module):
     def __init__(self, vocab_size: int, max_len: int, n_layers: int, pad_idx: int,
                  d_model: int = 512, n_heads: int = 8, d_ff: int = 2048,
-                 replicate_alpha_bug: bool = True, dropout: float = 0.1):
+                 replicate_alpha_bug: bool = True, dropout: float = 0.1,
+                 decoder_name: str = "parallel"):
         super().__init__()
-        self.pad_idx, self.d_model = pad_idx, d_model
+        if decoder_name not in GENERATOR_LAYER:
+            raise ValueError(f"decoder_name {decoder_name!r}: not one of {list(GENERATOR_LAYER)}")
+        self.pad_idx, self.d_model, self.decoder_name = pad_idx, d_model, decoder_name
         #: set by ``captioner.to_compute_dtype``; None = the dtype of the weights
         self.compute_dtype = None
         self.word_emb = nn.Embedding(vocab_size, d_model)
         self.pos_emb = nn.Embedding(max_len + 1, d_model)
         with torch.no_grad():
             self.pos_emb.weight.copy_(sinusoid_encoding_table(max_len + 1, d_model, 0))
-        self.layers = nn.ModuleList(
-            ParallelAttentionLayer(d_model, n_heads, d_ff, replicate_alpha_bug, dropout)
-            for _ in range(n_layers))
+        kwargs = dict(d_model=d_model, n_heads=n_heads, d_ff=d_ff, dropout=dropout)
+        if decoder_name == "parallel":
+            kwargs["replicate_alpha_bug"] = replicate_alpha_bug
+        self.layers = nn.ModuleList(GENERATOR_LAYER[decoder_name](**kwargs)
+                                    for _ in range(n_layers))
         self.fc = Linear(d_model, vocab_size, bias=False)
 
-    @staticmethod
-    def _vis(vis_inputs: dict):
+    def _vis(self, vis_inputs: dict):
+        if self.decoder_name == "concat":
+            y = torch.cat([vis_inputs["gri_feat"], vis_inputs["reg_feat"]], 1)
+            mask = torch.cat([vis_inputs["gri_mask"], vis_inputs["reg_mask"]], 3)
+            return y, y, mask, mask
         return (vis_inputs["gri_feat"], vis_inputs["reg_feat"],
                 vis_inputs["gri_mask"], vis_inputs["reg_mask"])
 
@@ -168,14 +248,19 @@ class CaptionGenerator(nn.Module):
                 "pad_hist": torch.zeros((batch, t_max), dtype=torch.bool, device=w.device)}
 
     def precompute_vis_kv(self, vis_inputs: dict):
+        """Per-layer projected visual K/V of the parallel decoder; None for
+        the others, which project at every step."""
+        if self.decoder_name != "parallel":
+            return None
         y1, y2, _, _ = self._vis(vis_inputs)
         return [layer.precompute_vis_kv(y1, y2) for layer in self.layers]
 
     def decode_step(self, token: torch.Tensor, t: int, vis_inputs: dict, cache: DecodeCache,
-                    *, vis_kv, vis_fold: int = 1):
+                    *, vis_kv=None, vis_fold: int = 1):
         """One step: token int [B, 1] -> (log-probs [B, V], cache).  ``cache``
         is updated in place.  ``vis_fold=f``: token/cache are beam-expanded
-        [B*f, ...] while vis_inputs/vis_kv stay per image [B, ...]."""
+        [B*f, ...] while vis_inputs/vis_kv stay per image [B, ...].
+        ``vis_kv``: ``precompute_vis_kv``'s output, or None."""
         is_pad = token == self.pad_idx
         dt = self._dtype()
         mask_pad = (~is_pad)[..., None].to(dt)
@@ -183,11 +268,11 @@ class CaptionGenerator(nn.Module):
         pad_hist[:, t] = is_pad[:, 0]
         mask_x = pad_hist[:, None, None, :]
         x = (self.word_emb(token) + self.pos_emb.weight[t + 1]).to(dt)
-        _, _, m1, m2 = self._vis(vis_inputs)
+        y1, y2, m1, m2 = self._vis(vis_inputs)
         layers = []
-        for layer, layer_cache, kv in zip(self.layers, cache["layers"], vis_kv):
-            x, layer_cache = layer.decode(x, mask_pad, mask_x, m1, m2, layer_cache, t, kv,
-                                          vis_fold)
+        for i, (layer, layer_cache) in enumerate(zip(self.layers, cache["layers"])):
+            x, layer_cache = layer.decode(x, y1, y2, mask_pad, mask_x, m1, m2, layer_cache, t,
+                                          None if vis_kv is None else vis_kv[i], vis_fold)
             layers.append(layer_cache)
         logits = self.fc(x)[:, 0]
         return torch.log_softmax(logits.float(), dim=-1), {"layers": layers,

@@ -32,8 +32,18 @@ class GRITCaptioner(nn.Module):
 
     def compute_vis(self, images) -> dict:
         """Detector (unless given a dict of cached detector features) + grid
-        network -> gri_feat/gri_mask/reg_feat/reg_mask."""
-        vis = self.detector(images) if isinstance(images, ImageBatch) else dict(images)
+        network -> gri_feat/gri_mask/reg_feat/reg_mask.  Cached features
+        (numpy or tensors; the freezing mode's hdf5 stores float16) move to
+        the model's device and its compute dtype, as grit_tpu's layers cast
+        them through their ``dtype``."""
+        if isinstance(images, ImageBatch):
+            vis = self.detector(images)
+        else:
+            gen = self.cap_generator
+            vis = {}
+            for k, v in images.items():
+                v = torch.as_tensor(v, device=gen.word_emb.weight.device)
+                vis[k] = v.to(gen._dtype()) if v.is_floating_point() else v
         gri, _ = self.grid_net(vis["gri_feat"], vis["gri_mask"])
         vis["gri_feat"] = gri[:, -1]
         return vis
@@ -56,7 +66,7 @@ class GRITCaptioner(nn.Module):
         return self.cap_generator.precompute_vis_kv(vis_inputs)
 
     def decode_step(self, token, t: int, vis_inputs: dict, cache: DecodeCache, *,
-                    vis_kv, vis_fold: int = 1):
+                    vis_kv=None, vis_fold: int = 1):
         return self.cap_generator.decode_step(token, t, vis_inputs, cache,
                                               vis_kv=vis_kv, vis_fold=vis_fold)
 
@@ -117,6 +127,42 @@ def to_compute_dtype(model: nn.Module, dtype: torch.dtype, *,
     return model
 
 
+def _device(device, who: str) -> torch.device:
+    device = torch.device(device or "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA device is available "
+                           "(pass device='cpu' to build on the CPU)")
+    return device
+
+
+def _detector(config) -> Detector:
+    m = config.model
+    det = m.detector
+    backbone = build_swin(m.get("backbone", "swin_base_win7_384_22k"),
+                          frozen_stages=int(m.get("frozen_stages", -1)),
+                          use_checkpoint=bool(m.get("use_checkpoint", False)))
+    det_module = DetectionModule(
+        d_model=det.d_model, n_heads=det.num_heads, num_layers=det.num_layers,
+        dim_feedforward=det.dim_feedforward, num_levels=det.num_levels,
+        num_points=det.num_points, num_classes=det.num_classes,
+        num_queries=det.num_queries, dropout=det.dropout)
+    return Detector(backbone, det_module, hidden_dim=m.d_model)
+
+
+def build_detector(config, *, device=None, dtype: torch.dtype = torch.float32,
+                   seed: int | None = 0) -> Detector:
+    """The captioner's detector alone (grit_tpu's ``build_detector``), in
+    ``eval()`` with its weights rounded to ``dtype``, for feature extraction.
+    ``seed`` draws the same weights as ``build_captioner``'s detector (its
+    parameters come first in the captioner's)."""
+    device = _device(device, "build_detector")
+    with device:
+        detector = _detector(config)
+    if seed is not None:
+        init_weights(detector, torch.Generator(device=device).manual_seed(seed))
+    return to_compute_dtype(detector, dtype).eval()
+
+
 def build_captioner(config, *, device=None, dtype: torch.dtype = torch.float32,
                     seed: int | None = 0, train: bool = False) -> GRITCaptioner:
     """Assemble the captioner from a caption config (grit_tpu_torch.config)
@@ -127,30 +173,23 @@ def build_captioner(config, *, device=None, dtype: torch.dtype = torch.float32,
     parameters; otherwise it is in ``eval()`` with its weights rounded to
     ``dtype``."""
     m = config.model
-    det = m.detector
-    if m.cap_generator.decoder_name != "parallel" or not (m.use_gri_feat and m.use_reg_feat):
+    if not (m.use_gri_feat and m.use_reg_feat):
+        # grit_tpu's CaptionGenerator._vis reads both features unconditionally
+        # (grit_tpu/models/cap_generator.py:326-334) and its detector leaves the
+        # missing one out, so its captioner fails with a KeyError without either
         raise NotImplementedError(
-            "only the 'parallel' decoder over grid and region features is ported")
-    device = torch.device(device or "cuda")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("build_captioner: no CUDA device is available "
-                           "(pass device='cpu' to build on the CPU)")
+            "the captioner needs both grid and region features (use_gri_feat and "
+            "use_reg_feat): the JAX package has no working captioner without either")
+    device = _device(device, "build_captioner")
     with device:
-        backbone = build_swin(m.get("backbone", "swin_base_win7_384_22k"),
-                              frozen_stages=int(m.get("frozen_stages", -1)),
-                              use_checkpoint=bool(m.get("use_checkpoint", False)))
-        det_module = DetectionModule(
-            d_model=det.d_model, n_heads=det.num_heads, num_layers=det.num_layers,
-            dim_feedforward=det.dim_feedforward, num_levels=det.num_levels,
-            num_points=det.num_points, num_classes=det.num_classes,
-            num_queries=det.num_queries, dropout=det.dropout)
         model = GRITCaptioner(
-            Detector(backbone, det_module, hidden_dim=m.d_model),
+            _detector(config),
             GridFeatureNetwork(m.grid_net.n_layers, d_in=m.grid_feat_dim,
                                d_model=m.d_model, n_heads=m.n_heads, dropout=m.dropout),
             CaptionGenerator(m.vocab_size, m.max_len, m.cap_generator.n_layers, m.pad_idx,
                              d_model=m.d_model, n_heads=m.n_heads, dropout=m.dropout,
-                             replicate_alpha_bug=bool(m.get("replicate_alpha_bug", True))))
+                             replicate_alpha_bug=bool(m.get("replicate_alpha_bug", True)),
+                             decoder_name=m.cap_generator.decoder_name))
     if seed is not None:
         init_weights(model, torch.Generator(device=device).manual_seed(seed))
     return to_compute_dtype(model, dtype, master_f32=train).train(train)

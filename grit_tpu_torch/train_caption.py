@@ -14,10 +14,15 @@ model computes in ``model.compute_dtype``: fp32 by default, as the config
 that grit_tpu's CLI reads; ``model.compute_dtype=bfloat16`` computes in bf16
 over f32 master parameters.
 
+The freezing mode (``optimizer.freezing_xe_epochs`` > 0 without
+``freeze_backbone``) trains on pre-extracted detector features; where
+``dataset.hdf5_path`` is absent, the CLI first extracts them with the loaded
+detector weights, in the compute dtype, through
+``tools/extract_features.py`` (grit_tpu's train_caption.py:115-142).
+
 One process, one device.  What waits for its own slice raises
 ``NotImplementedError``: the rank-specialised evaluation and the sharded batch
-(data parallel), and the automatic feature extraction of the freezing mode
-(``tools/extract_features.py``).
+(data parallel).
 """
 
 from __future__ import annotations
@@ -29,13 +34,10 @@ import sys
 import numpy as np
 import torch
 
-
-def _compute_dtype(config) -> torch.dtype:
-    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[config.model.compute_dtype]
+from grit_tpu_torch.eval_caption import compute_dtype as _compute_dtype
 
 
 def main(argv=None):
-    from grit_tpu_torch.config import default_caption_config
     from grit_tpu_torch.convert import load_reference_checkpoint
     from grit_tpu_torch.data.coco import build_coco_dataloaders
     from grit_tpu_torch.data.field import TextField
@@ -49,19 +51,12 @@ def main(argv=None):
                                              swin_frozen_stages_predicate)
     from grit_tpu_torch.engine.scst import make_generate_step, make_scst_update_step
     from grit_tpu_torch.engine.xe import TrainState, make_eval_loss_step, make_xe_train_step
-    from grit_tpu_torch.models.captioner import build_captioner
+    from grit_tpu_torch.eval_caption import caption_config, config_device
+    from grit_tpu_torch.models.captioner import build_captioner, build_detector
+    from grit_tpu_torch.tools.extract_features import extract_vis_features
 
-    argv = list(sys.argv[1:] if argv is None else argv)
-    if "--device" in argv:   # the same switch as inference_caption's
-        i = argv.index("--device")
-        argv[i:i + 2] = [f"exp.device={argv[i + 1]}"]
-    config = default_caption_config()
-    config.exp.device = "cuda"
-    config = config.apply_overrides(argv)
-    device = torch.device(config.exp.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("train_caption: no CUDA device is available "
-                           "(pass exp.device=cpu to train on the CPU)")
+    config = caption_config(sys.argv[1:] if argv is None else argv)
+    device = config_device(config, "train_caption")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError(
             "train_caption runs one process on one device: the data-parallel trainer "
@@ -106,10 +101,14 @@ def main(argv=None):
     mode = ("freezing" if config.optimizer.freezing_xe_epochs > 0
             and not config.optimizer.get("freeze_backbone") else "finetune")
     if mode == "freezing" and not os.path.exists(config.dataset.hdf5_path):
-        raise NotImplementedError(
-            f"{config.dataset.hdf5_path} is absent and the automatic feature extraction "
-            "(tools/extract_features.py) is not ported yet: extract the features with the "
-            "JAX package's tool, or train with optimizer.freezing_xe_epochs=0")
+        # train on pre-extracted features (reference train_caption.py:48-59):
+        # extract them now, with the loaded detector weights
+        print(f"{config.dataset.hdf5_path} absent -> extracting features")
+        detector = build_detector(config, device=device, dtype=_compute_dtype(config), seed=None)
+        detector.load_state_dict(model.detector.state_dict())
+        extract_loaders, _ = build_coco_dataloaders(config, mode="finetune", rank=0, world=1)
+        extract_vis_features(detector, extract_loaders, device, config.dataset.hdf5_path)
+        del detector
 
     dataloaders, _ = build_coco_dataloaders(config, mode=mode, rank=0, world=1)
     train_refs = [ex.text for ex in dataloaders["train"].dataset.examples]

@@ -147,7 +147,9 @@ def test_port_imports_no_jax():
         "          'detection.detector', 'detection.losses', 'detection.postprocess',\n"
         "          'detection.solver', 'detection.hooks', 'detection.loader',\n"
         "          'detection.datasets', 'detection.det_transforms', 'detection.coco_eval',\n"
-        "          'utils.boxes', 'utils.misc', 'train_detector'):\n"
+        "          'utils.boxes', 'utils.misc', 'train_detector', 'eval_caption',\n"
+        "          'eval_caption_online', 'eval_nocaps', 'models.ensemble',\n"
+        "          'tools.extract_features', 'tools.artemis_extract_features'):\n"
         "    assert 'grit_tpu_torch.' + m in sys.modules, m\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -165,6 +167,26 @@ def test_chip_smoke_imports_no_image_or_checkpoint_library():
             "assert not bad, bad\n"
             "assert 'grit_tpu_torch.engine.scst' in sys.modules\n"
             "assert 'grit_tpu_torch.detection.solver' in sys.modules\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_entry_points_import_no_image_or_hdf5_library():
+    """The evaluation CLIs, the feature-extraction tools, the ensemble and the
+    trainer import PIL and h5py inside the functions that read images or
+    write hdf5 (the card's machine may lack both): importing them loads
+    neither, nor JAX."""
+    code = ("import sys\n"
+            "import grit_tpu_torch.eval_caption, grit_tpu_torch.eval_caption_online\n"
+            "import grit_tpu_torch.eval_nocaps, grit_tpu_torch.models.ensemble\n"
+            "import grit_tpu_torch.tools.extract_features\n"
+            "import grit_tpu_torch.tools.artemis_extract_features\n"
+            "import grit_tpu_torch.train_caption, grit_tpu_torch.decoding.beam_search\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('PIL', 'h5py', 'jax', 'jaxlib', 'grit_tpu'))\n"
+            "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)

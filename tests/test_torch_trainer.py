@@ -338,9 +338,6 @@ def test_train_caption_cli_refuses_missing_cuda(data_root, monkeypatch, tmp_path
         main(["exp.name=nocuda"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["exp.name=nocuda", "--device", "cuda"])
-    with pytest.raises(NotImplementedError, match="feature extraction"):
-        main(["exp.name=nohdf5", "exp.device=cpu", "optimizer.freezing_xe_epochs=1", *TINY_MODEL,
-              f"model.vocab_size={data_root[1]}", SIZE])
 
 
 def test_train_caption_cli_trains_evaluates_and_resumes(data_root, monkeypatch, tmp_path, capsys):
