@@ -116,6 +116,18 @@ Phases, each of which must pass:
      by graph replay beside their bound and F.layer_norm (phase_ln_kernels);
      phase 9's K8 backward also beside SDPA's backward with the mask
      requiring grad.  Each phase's seconds are printed ([time] lines).
+ 14. the other Swin presets (after 10; the "presets" phases): large (C 192,
+     window 12), small and tiny (C 96, window 7), nano (C 64, window 7), at
+     full width on random weights.  K1, K2, K10a and K10b at each one's b8
+     caption shapes, K4 and K5 at swin_small's and swin_large's b16 XE
+     shapes and swin_tiny's b4 detector shapes, fp32 and bf16, against their
+     plain versions; the GEMM (its N and K tails), the core and the backward
+     (N = 49) at those shapes beside F.linear, SDPA and SDPA's backward; a b8
+     bf16 caption batch on each (beam 5, 20 steps, EOS off, launches
+     checked, profiled); fp32 captions of tiny and large token for token
+     with the plain path; a b16 bf16 XE step on small and large; swin_tiny
+     detector steps in fp32 and bf16 through Trainer.run_epoch; and
+     swin_tiny's fp32 training parity against float64 at b4.
 
 Prints the card's name and power limit as nvidia-smi reports them, a JSON
 line of per-kernel results (all 18 TPU kernel bodies: the eleven ported
@@ -124,8 +136,9 @@ inside K1, K2, K4, K5, K8 and K10a: gemm_bf16, win_attn and win_attn_bwd, and
 gemm_f32, win_attn_f32 and win_attn_bwd_f32), and last {"ok": true, "device": {...}}; the
 per-shape results go to chiprun_out/chip_smoke.json.  Exits non-zero, without
 that last line, when there is no CUDA device or any phase fails.  The JSON
-file also holds the LN kernels' rows, the decoders phase's numbers and each
-phase's seconds.
+file also holds the LN kernels' rows, the decoders phase's numbers, the
+presets' paths ("presets") and their kernels' sums a run ("yardsticks", by
+run and preset), and each phase's seconds.
 """
 
 from __future__ import annotations
@@ -171,7 +184,7 @@ try:
     from grit_tpu_torch.models.captioner import build_captioner, build_detector, to_compute_dtype
     from grit_tpu_torch.models.ensemble import make_ensemble_generator
     from grit_tpu_torch.models.layers import Dropout
-    from grit_tpu_torch.models.swin import SwinBlock
+    from grit_tpu_torch.models.swin import BACKBONES, SwinBlock
     from grit_tpu_torch.ops import _cuda
     from grit_tpu_torch.ops import decode_layer as tail_ops
     from grit_tpu_torch.ops import fused_adam as adam_ops
@@ -375,11 +388,12 @@ def esize(dtype) -> int:
     return 2 if dtype == torch.bfloat16 else 4
 
 
-def block_work(rows: int, c: int, heads: int, dtype, maps: int) -> tuple[float, float]:
+def block_work(rows: int, c: int, heads: int, dtype, maps: int,
+               window: int = WINDOW) -> tuple[float, float]:
     """K1 / K4: ``maps`` row-by-C tensors in and out, the four projection
     matrices once; the qkv and proj products and the two attention products."""
-    n = WINDOW * WINDOW
-    return ((maps * rows * c + 4 * c * c + 4 * c) * esize(dtype) + (2 * WINDOW - 1) ** 2 * heads * 4,
+    n = window * window
+    return ((maps * rows * c + 4 * c * c + 4 * c) * esize(dtype) + (2 * window - 1) ** 2 * heads * 4,
             8.0 * rows * c * c + 4.0 * rows * n * c)
 
 
@@ -428,18 +442,27 @@ def msda_work(args, dtype, backward: bool) -> tuple[float, float]:
     return nbytes, ops
 
 
+def no_time(fn, reps: int = 0) -> float:
+    """The timer of a check that is not timed."""
+    return 0.0
+
+
 def phase_kernels(batch: int, counted: bool = True, stages=None, levels=None,
-                  hw=None) -> None:
+                  hw=None, preset: str = "") -> None:
     """K1-K3 at the shapes a forward in eval() of ``batch`` images gives
     them: a caption forward at 384x640 or, with ``stages`` / ``levels`` /
     ``hw``, the detector's evaluation at 832x1344.  ``counted``: these are the
     calls of the b8 caption batch whose times add up to the per-run numbers;
-    otherwise a comparison only."""
+    otherwise a comparison only.  ``preset``: the stages are another Swin
+    preset's (its window), K1 and K2 checked and not timed, no K3 (the MSDA
+    widths do not change with the backbone)."""
     stages, levels, hw = stages or STAGES, levels or MSDA_LEVELS, hw or HW
-    print(f"[kernels] kernel vs plain at the {hw[0]}x{hw[1]} main-path shapes, b{batch}",
-          flush=True)
+    print(f"[kernels] kernel vs plain at the {hw[0]}x{hw[1]} main-path shapes, b{batch} "
+          f"{preset}", flush=True)
     g = torch.Generator(device=DEV).manual_seed(0)
-    tag = "" if counted else f" b{batch} {hw[0]}x{hw[1]}"
+    tag = ("" if counted else f" b{batch} {hw[0]}x{hw[1]}") + (f" {preset}" if preset else "")
+    timer = no_time if preset else cuda_ms
+    window = BACKBONES[preset]["window"] if preset else WINDOW
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=DEV) * scale
@@ -455,29 +478,32 @@ def phase_kernels(batch: int, counted: bool = True, stages=None, levels=None,
                      qkv_b=rnd(3 * c, scale=0.02).to(dtype),
                      proj_w=rnd(c, c, scale=c ** -0.5).to(dtype),
                      proj_b=rnd(c, scale=0.02).to(dtype),
-                     table=rnd((2 * WINDOW - 1) ** 2, heads))
-            for shift in (0, WINDOW // 2):
-                kw = dict(num_heads=heads, window=WINDOW, real_hw=real, shift=shift)
+                     table=rnd((2 * window - 1) ** 2, heads))
+            for shift in (0, window // 2):
+                kw = dict(num_heads=heads, window=window, real_hw=real, shift=shift)
                 out = wa.block_step(x, **p, **kw)
                 ref = wa.block_step_plain(x, **p, **kw)
                 # outputs at window-padding tokens are unspecified: compare the real map
                 compare("K1", f"{dn} {name}{tag} shift={shift}", out[:, :real[0], :real[1]],
                         ref[:, :real[0], :real[1]], dtype,
-                        cuda_ms(lambda: wa.block_step(x, **p, **kw)),
-                        cuda_ms(lambda: wa.block_step_plain(x, **p, **kw)),
-                        depth // 2 * counted, block_work(batch * hp * wp, c, heads, dtype, 2))
+                        timer(lambda: wa.block_step(x, **p, **kw)),
+                        timer(lambda: wa.block_step_plain(x, **p, **kw)),
+                        depth // 2 * counted,
+                        block_work(batch * hp * wp, c, heads, dtype, 2, window))
             rows = x.reshape(-1, c)
             m = [1 + rnd(c, scale=0.1), rnd(c, scale=0.1),
                  rnd(4 * c, c, scale=c ** -0.5).to(dtype), rnd(4 * c, scale=0.02).to(dtype),
                  rnd(c, 4 * c, scale=(4 * c) ** -0.5).to(dtype), rnd(c, scale=0.02).to(dtype)]
             compare("K2", f"{dn} {name}{tag}", wa.mlp(rows, *m), wa.mlp_plain(rows, *m), dtype,
-                    cuda_ms(lambda: wa.mlp(rows, *m)), cuda_ms(lambda: wa.mlp_plain(rows, *m)),
+                    timer(lambda: wa.mlp(rows, *m)), timer(lambda: wa.mlp_plain(rows, *m)),
                     depth * counted, mlp_work(rows.shape[0], c, dtype))
             compare("K2", f"{dn} {name}{tag} residual=False", wa.mlp(rows, *m, residual=False),
                     wa.mlp_plain(rows, *m, residual=False), dtype,
-                    cuda_ms(lambda: wa.mlp(rows, *m, residual=False)),
-                    cuda_ms(lambda: wa.mlp_plain(rows, *m, residual=False)), 0)
+                    timer(lambda: wa.mlp(rows, *m, residual=False)),
+                    timer(lambda: wa.mlp_plain(rows, *m, residual=False)), 0)
 
+        if preset:
+            continue
         args = msda_inputs(g, batch, levels, dtype)
         compare("K3", f"{dn} {hw[0]}x{hw[1]} pyramid{tag}", msda_ops.msda(*args),
                 msda_ops.msda_plain(*args), dtype, graph_ms(lambda: msda_ops.msda(*args)),
@@ -500,7 +526,8 @@ def msda_inputs(g, batch: int, levels, dtype):
 
 
 def phase_train_kernels(batch: int, counted: bool = True, stages=None, levels=None,
-                        hw=None, n_frozen: int = FROZEN_STAGES - 1, run: str = "train") -> None:
+                        hw=None, n_frozen: int = FROZEN_STAGES - 1, run: str = "train",
+                        preset: str = "") -> None:
     """Every kernel at the shapes one training step of ``batch`` images gives
     it: K1 and K2 (with its residual) on the padded map of the frozen stage 1;
     K4, K5 and K2 with ``residual=False`` (on the unpadded rows) at the three
@@ -510,12 +537,16 @@ def phase_train_kernels(batch: int, counted: bool = True, stages=None, levels=No
     checked too; otherwise (the b8 of the SCST update) a comparison only.
     With ``stages`` / ``levels`` / ``hw`` and ``n_frozen=0``, ``run="detector"``:
     the shapes of one detector training step at 832x1344, where every stage
-    trains."""
+    trains.  ``preset``: the stages are another Swin preset's (its window),
+    checked and not timed, no K3 / K6."""
     stages, levels, hw = stages or STAGES, levels or MSDA_LEVELS, hw or HW
     print(f"[kernels] kernels vs plain (autograd for the backwards) at the {hw[0]}x{hw[1]} "
-          f"shapes of one training step, b{batch}", flush=True)
+          f"shapes of one training step, b{batch} {preset}", flush=True)
     g = torch.Generator(device=DEV).manual_seed(1)
-    n = WINDOW * WINDOW
+    window = BACKBONES[preset]["window"] if preset else WINDOW
+    n = window * window
+    timer = no_time if preset else cuda_ms
+    tag = f" {preset}" if preset else ""
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=DEV) * scale
@@ -532,7 +563,7 @@ def phase_train_kernels(batch: int, counted: bool = True, stages=None, levels=No
                      qkv_b=rnd(3 * c, scale=0.02).to(dtype),
                      proj_w=rnd(c, c, scale=c ** -0.5).to(dtype),
                      proj_b=rnd(c, scale=0.02).to(dtype),
-                     table=rnd((2 * WINDOW - 1) ** 2, heads))
+                     table=rnd((2 * window - 1) ** 2, heads))
             m = [1 + rnd(c, scale=0.1), rnd(c, scale=0.1),
                  rnd(4 * c, c, scale=c ** -0.5).to(dtype), rnd(4 * c, scale=0.02).to(dtype),
                  rnd(c, 4 * c, scale=(4 * c) ** -0.5).to(dtype), rnd(c, scale=0.02).to(dtype)]
@@ -540,41 +571,42 @@ def phase_train_kernels(batch: int, counted: bool = True, stages=None, levels=No
             # that trains over its unpadded rows, the branch alone (drop-path is on)
             mrows = (x if frozen else x[:, :real[0], :real[1]]).reshape(-1, c)
             mkw = dict(residual=frozen)
-            compare("K2", f"{dn} {name} b{batch} residual={frozen}", wa.mlp(mrows, *m, **mkw),
-                    wa.mlp_plain(mrows, *m, **mkw), dtype,
-                    cuda_ms(lambda: wa.mlp(mrows, *m, **mkw)),
-                    cuda_ms(lambda: wa.mlp_plain(mrows, *m, **mkw)), depth * counted,
+            compare("K2", f"{dn} {name} b{batch}{tag} residual={frozen}",
+                    wa.mlp(mrows, *m, **mkw), wa.mlp_plain(mrows, *m, **mkw), dtype,
+                    timer(lambda: wa.mlp(mrows, *m, **mkw)),
+                    timer(lambda: wa.mlp_plain(mrows, *m, **mkw)), depth * counted,
                     mlp_work(mrows.shape[0], c, dtype), run)
             d_ao = rnd(rows, c).to(dtype)
-            for shift in (0, WINDOW // 2):
-                case = f"{dn} {name} b{batch} shift={shift}"
-                kw = dict(num_heads=heads, window=WINDOW, shift=shift)
+            for shift in (0, window // 2):
+                case = f"{dn} {name} b{batch}{tag} shift={shift}"
+                kw = dict(num_heads=heads, window=window, shift=shift)
                 if frozen:
                     ln = dict(norm_w=1 + rnd(c, scale=0.1), norm_b=rnd(c, scale=0.1))
                     out = wa.block_step(x, **ln, **p, **kw, real_hw=real)
                     ref = wa.block_step_plain(x, **ln, **p, **kw, real_hw=real)
                     compare("K1", case, out[:, :real[0], :real[1]], ref[:, :real[0], :real[1]],
-                            dtype, cuda_ms(lambda: wa.block_step(x, **ln, **p, **kw, real_hw=real)),
-                            cuda_ms(lambda: wa.block_step_plain(x, **ln, **p, **kw, real_hw=real)),
-                            depth // 2 * counted, block_work(rows, c, heads, dtype, 2), run)
+                            dtype, timer(lambda: wa.block_step(x, **ln, **p, **kw, real_hw=real)),
+                            timer(lambda: wa.block_step_plain(x, **ln, **p, **kw, real_hw=real)),
+                            depth // 2 * counted, block_work(rows, c, heads, dtype, 2, window),
+                            run)
                     continue
                 out, ao = wa.block_attention(x, **p, **kw, save_attn=True)
                 ref, ref_ao, qkv = wa.block_attention_plain(x, **p, **kw)
-                ms = cuda_ms(lambda: wa.block_attention(x, **p, **kw, save_attn=True))
-                plain_ms = cuda_ms(lambda: wa.block_attention_plain(x, **p, **kw))
+                ms = timer(lambda: wa.block_attention(x, **p, **kw, save_attn=True))
+                plain_ms = timer(lambda: wa.block_attention_plain(x, **p, **kw))
                 compare("K4", case + " branch", out, ref, dtype, ms, plain_ms,
-                        depth // 2 * counted, block_work(rows, c, heads, dtype, 3), run)
+                        depth // 2 * counted, block_work(rows, c, heads, dtype, 3, window), run)
                 compare("K4", case + " attn_out", ao, ref_ao, dtype, ms, plain_ms, 0)
 
                 geo = dict(batch=batch, hp=hp, wp=wp, **kw)
                 dqkv, dtable = wa.window_attention_bwd(qkv, d_ao, p["table"], **geo)
                 ref_dqkv, ref_dtable = wa.window_attention_bwd_plain(qkv, d_ao, p["table"], **geo)
-                ms = cuda_ms(lambda: wa.window_attention_bwd(qkv, d_ao, p["table"], **geo))
-                plain_ms = cuda_ms(
+                ms = timer(lambda: wa.window_attention_bwd(qkv, d_ao, p["table"], **geo))
+                plain_ms = timer(
                     lambda: wa.window_attention_bwd_plain(qkv, d_ao, p["table"], **geo), reps=3)
                 work = ((7 * rows * c) * esize(dtype)
-                        + ((hp // WINDOW) * (wp // WINDOW) * heads * n * n
-                           + (2 * WINDOW - 1) ** 2 * heads) * 4, 10.0 * rows * n * c)
+                        + ((hp // window) * (wp // window) * heads * n * n
+                           + (2 * window - 1) ** 2 * heads) * 4, 10.0 * rows * n * c)
                 for j, part in enumerate(("dq", "dk", "dv")):
                     compare("K5", f"{case} {part}", dqkv[:, j * c:(j + 1) * c],
                             ref_dqkv[:, j * c:(j + 1) * c], dtype, ms, plain_ms,
@@ -583,6 +615,8 @@ def phase_train_kernels(batch: int, counted: bool = True, stages=None, levels=No
                 compare("K5", case + " dtable", dtable, ref_dtable, dtype, ms, plain_ms, 0)
                 del ref_dqkv, ref_dtable, dqkv, ref, ref_ao, qkv
 
+        if preset:
+            continue
         pyramids = [(levels, f"{hw[0]}x{hw[1]} pyramid b{batch}", batch, DET_LAYERS * counted)]
         if counted and run == "train":
             pyramids.append((DET_LEVELS, "832x1344 pyramid", 2, 0))
@@ -622,7 +656,7 @@ def sdpa_bwd_ms(q, k, v, bias, gout, batch: int) -> float:
     return graph_ms(lambda: torch.autograd.grad(forward(), leaves, gout)) - graph_ms(forward)
 
 
-def phase_yardsticks(run: str, batch: int, stages, n_frozen: int) -> None:
+def phase_yardsticks(run: str, batch: int, stages, n_frozen: int, preset: str = "") -> None:
     """The kernels that do the work of K1, K2, K4, K5 and K10a at every shape
     at which one ``run`` of a main path launches them ("caption": a b8
     forward in eval(); "train": a b16 XE step, stages < ``n_frozen`` frozen;
@@ -637,15 +671,23 @@ def phase_yardsticks(run: str, batch: int, stages, n_frozen: int) -> None:
     core and backward (the type both training CLIs default to) beside SDPA and
     its backward in fp32, the backward's two calls bit-equal too.  Kernel and
     library times are device times (``graph_ms``), the plain versions'
-    eager."""
+    eager.  ``preset``: the same at another Swin preset's stages (its window
+    and last merge), whose times go to the cases and to this phase's own sums
+    a run, not to the kernels' per-run numbers."""
     import torch.nn.functional as F
 
     print(f"[yardsticks] the GEMM, attention core and backward at the {run} run's shapes, "
-          f"b{batch}, beside F.linear, SDPA + mask and its backward", flush=True)
+          f"b{batch} {preset}, beside F.linear, SDPA + mask and its backward", flush=True)
     g = torch.Generator(device=DEV).manual_seed(2)
     bf, f32 = torch.bfloat16, torch.float32
-    n = WINDOW * WINDOW
+    window, pos_dim = (BACKBONES[preset]["window"], BACKBONES[preset]["pos_dim"]) if preset \
+        else (WINDOW, 1024)
+    n = window * window
     training = run != "caption"
+    counted = not preset
+    tag_p = f" {preset}" if preset else ""
+    # this phase's own sums a run: (kernel, "ms" / "library_ms" / "bound_ms") -> ms
+    sums: dict = collections.defaultdict(float)
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=DEV) * scale
@@ -655,7 +697,7 @@ def phase_yardsticks(run: str, batch: int, stages, n_frozen: int) -> None:
         frozen = k < n_frozen
         rows_p, rows_u = batch * hp * wp, batch * real[0] * real[1]
         rows_m = batch * ((real[0] + 1) // 2) * ((real[1] + 1) // 2)
-        n_out = stages[k + 1][1] if k + 1 < len(stages) else 1024
+        n_out = stages[k + 1][1] if k + 1 < len(stages) else pos_dim
         x = rnd(batch, hp, wp, c).to(bf)
         a_p = x.reshape(-1, c)
         a_k2 = a_p if frozen else rnd(rows_u, c).to(bf)      # K2's rows
@@ -667,15 +709,15 @@ def phase_yardsticks(run: str, batch: int, stages, n_frozen: int) -> None:
         launches = []   # (label, calls a run, A, (W, bias), gemm kwargs)
         if frozen:      # K1 and K2 (with its residual) on the padded map
             launches.append(("K1 qkv", depth, a_p, wts["qkv"], qs))
-            for shift in (0, WINDOW // 2):
+            for shift in (0, window // 2):
                 launches.append((f"K1 proj shift={shift}", depth // 2, a_p, wts["proj"],
                                  dict(epilogue="resid_map", resid=x,
-                                      geo=(hp, wp, WINDOW, shift, *real))))
+                                      geo=(hp, wp, window, shift, *real))))
             launches.append(("K2 fc1", depth, a_k2, wts["fc1"], dict(epilogue="gelu")))
             launches.append(("K2 fc2", depth, h_k2, wts["fc2"], dict(epilogue="resid", resid=a_k2)))
         else:           # K4 on the padded map, K2 without its residual on the real rows
-            for shift in (0, WINDOW // 2):
-                geo = (hp, wp, WINDOW, shift, hp, wp)
+            for shift in (0, window // 2):
+                geo = (hp, wp, window, shift, hp, wp)
                 launches.append((f"K4 qkv shift={shift}", depth // 2, x, wts["qkv"],
                                  dict(qs, geo=geo, gather=True)))
                 launches.append((f"K4 proj shift={shift}", depth // 2, a_p, wts["proj"],
@@ -691,19 +733,27 @@ def phase_yardsticks(run: str, batch: int, stages, n_frozen: int) -> None:
             if "resid" in kw:
                 nbytes += m_rows * w.shape[0] * 2
             flops = 2.0 * m_rows * w.shape[0] * w.shape[1]
-            shape = f"{name} {label} {m_rows}x{w.shape[0]}x{w.shape[1]} b{batch}"
+            shape = f"{name} {label} {m_rows}x{w.shape[0]}x{w.shape[1]} b{batch}{tag_p}"
             for dt in (bf, f32):
                 a_d, w_d = a.to(dt), w.to(dt)
                 b_d = None if bias is None else bias.to(dt)
                 kw_d = dict(kw, resid=kw["resid"].to(dt)) if "resid" in kw else kw
                 a2 = a_d.reshape(m_rows, w.shape[1])
                 lib = graph_ms(lambda: F.linear(a2, w_d, b_d))
-                compare("gemm_bf16" if dt == bf else "gemm_f32",
-                        f"{'bf16' if dt == bf else 'fp32'} {shape}",
+                key = "gemm_bf16" if dt == bf else "gemm_f32"
+                ms = graph_ms(lambda: wa.gemm(a_d, w_d, b_d, **kw_d))
+                compare(key, f"{'bf16' if dt == bf else 'fp32'} {shape}",
                         wa.gemm(a_d, w_d, b_d, **kw_d), wa.gemm_plain(a_d, w_d, b_d, **kw_d), dt,
-                        graph_ms(lambda: wa.gemm(a_d, w_d, b_d, **kw_d)),
-                        cuda_ms(lambda: wa.gemm_plain(a_d, w_d, b_d, **kw_d), reps=3), calls,
-                        (nbytes * esize(dt) // 2, flops), run, library_ms=lib, per_run=True)
+                        ms, cuda_ms(lambda: wa.gemm_plain(a_d, w_d, b_d, **kw_d), reps=3),
+                        calls * counted, (nbytes * esize(dt) // 2, flops), run, library_ms=lib,
+                        per_run=True)
+                # the products with an N or K tail on the bf16 kernel's 128 x 64 tiles
+                tailed = dt == bf and (w.shape[0] % 128 or w.shape[1] % 64)
+                for k in (key, "gemm_bf16 tails") if tailed else (key,):
+                    sums[k, "ms"] += ms * calls
+                    sums[k, "library_ms"] += lib * calls
+                    sums[k, "bound_ms"] += calls * max(nbytes * esize(dt) // 2 / PEAK_BYTES,
+                                                       flops / PEAK_FLOPS[dt]) * 1e3
                 if dt == bf:
                     lin += lib * calls
                 else:
@@ -712,8 +762,8 @@ def phase_yardsticks(run: str, batch: int, stages, n_frozen: int) -> None:
         qkv = rnd(rows_p, 3 * c).to(bf)
         qkv[:, :c] = (qkv[:, :c].float() * (c // heads) ** -0.5).to(bf)
         d_ao = rnd(rows_p, c).to(bf)
-        table = rnd((2 * WINDOW - 1) ** 2, heads)
-        nw = (hp // WINDOW) * (wp // WINDOW)
+        table = rnd((2 * window - 1) ** 2, heads)
+        nw = (hp // window) * (wp // window)
         q, kk, v = (rnd(rows_p // n, heads, n, 32).to(bf) for _ in range(3))
         gout = rnd(rows_p // n, heads, n, 32).to(bf)
         mask = rnd(1, heads, n, n).to(bf)
@@ -727,22 +777,26 @@ def phase_yardsticks(run: str, batch: int, stages, n_frozen: int) -> None:
             lib32 = graph_ms(lambda: F.scaled_dot_product_attention(q32, k32, v32,
                                                                      attn_mask=mask.float()))
             lib32_bwd = sdpa_bwd_ms(q32, k32, v32, bias_w.float(), g32, batch)
-        for shift in (0, WINDOW // 2):
-            kw = dict(batch=batch, hp=hp, wp=wp, num_heads=heads, window=WINDOW, shift=shift)
-            tag = f"{name} {'K1' if frozen else 'K4'} core shift={shift} b{batch}"
+        for shift in (0, window // 2):
+            kw = dict(batch=batch, hp=hp, wp=wp, num_heads=heads, window=window, shift=shift)
+            tag = f"{name} {'K1' if frozen else 'K4'} core shift={shift} b{batch}{tag_p}"
             for dt in dtypes:
                 es = esize(dt)
                 qkv_d, d_ao_d = qkv.to(dt), d_ao.to(dt)
-                work = (rows_p * 4 * c * es + (2 * WINDOW - 1) ** 2 * heads * 4,
+                work = (rows_p * 4 * c * es + (2 * window - 1) ** 2 * heads * 4,
                         4.0 * rows_p * n * c)
-                compare("win_attn" if dt == bf else "win_attn_f32",
-                        f"{'bf16' if dt == bf else 'fp32'} {tag}",
+                key = "win_attn" if dt == bf else "win_attn_f32"
+                ms = graph_ms(lambda: wa.attention_core(qkv_d, table, **kw))
+                compare(key, f"{'bf16' if dt == bf else 'fp32'} {tag}",
                         wa.attention_core(qkv_d, table, **kw),
-                        wa.attention_core_plain(qkv_d, table, **kw), dt,
-                        graph_ms(lambda: wa.attention_core(qkv_d, table, **kw)),
+                        wa.attention_core_plain(qkv_d, table, **kw), dt, ms,
                         cuda_ms(lambda: wa.attention_core_plain(qkv_d, table, **kw), reps=3),
-                        depth // 2, work, run, library_ms=lib if dt == bf else lib32,
+                        depth // 2 * counted, work, run, library_ms=lib if dt == bf else lib32,
                         per_run=True)
+                sums[key, "ms"] += ms * (depth // 2)
+                sums[key, "library_ms"] += (lib if dt == bf else lib32) * (depth // 2)
+                sums[key, "bound_ms"] += (depth // 2) * max(work[0] / PEAK_BYTES,
+                                                            work[1] / PEAK_FLOPS[dt]) * 1e3
                 if dt == bf:
                     sdpa += lib * (depth // 2)
                 if frozen:
@@ -755,19 +809,32 @@ def phase_yardsticks(run: str, batch: int, stages, n_frozen: int) -> None:
                     fail(f"K5 {tag} {dt}: two calls on the same inputs differ")
                 ref = wa.window_attention_bwd_plain(qkv_d, d_ao_d, table, **kw)
                 bwd = "win_attn_bwd" if dt == bf else "win_attn_bwd_f32"
-                work = (7 * rows_p * c * es + (nw * heads * n * n + (2 * WINDOW - 1) ** 2 * heads)
+                work = (7 * rows_p * c * es + (nw * heads * n * n + (2 * window - 1) ** 2 * heads)
                         * 4, 10.0 * rows_p * n * c)
+                ms = graph_ms(lambda: wa.window_attention_bwd(qkv_d, d_ao_d, table, **kw))
+                lib_b = lib_bwd if dt == bf else lib32_bwd
                 compare(bwd, f"{'bf16' if dt == bf else 'fp32'} {tag} backward dqkv", out[0],
-                        ref[0], dt, graph_ms(lambda: wa.window_attention_bwd(qkv_d, d_ao_d, table,
-                                                                              **kw)),
+                        ref[0], dt, ms,
                         cuda_ms(lambda: wa.window_attention_bwd_plain(qkv_d, d_ao_d, table, **kw),
                                 reps=3),
-                        depth // 2, work, run, library_ms=lib_bwd if dt == bf else lib32_bwd,
-                        per_run=True)
+                        depth // 2 * counted, work, run, library_ms=lib_b, per_run=True)
+                sums[bwd, "ms"] += ms * (depth // 2)
+                sums[bwd, "library_ms"] += lib_b * (depth // 2)
+                sums[bwd, "bound_ms"] += (depth // 2) * max(work[0] / PEAK_BYTES,
+                                                            work[1] / PEAK_FLOPS[dt]) * 1e3
                 compare(bwd, f"{'bf16' if dt == bf else 'fp32'} {tag} backward dtable", out[1],
                         ref[1], dt, 0.0, 0.0, 0)
                 del out, again, ref
         del qkv, d_ao, q, kk, v, gout, bias_w
+    if preset:
+        # a run of the preset's path: each kernel's time, its library call's and
+        # its bound, summed over the launches at these shapes
+        totals = {f"{k} {what}": v for (k, what), v in sorted(sums.items())}
+        YARDSTICKS[f"{run} {preset}"] = {"batch": batch, **totals}
+        print(f"[yardsticks] {run} {preset} b{batch}, a run: " + ", ".join(
+            f"{k} {sums[k, 'ms']:.3f} ms (library {sums[k, 'library_ms']:.3f}, bound "
+            f"{sums[k, 'bound_ms']:.3f})" for k in sorted({k for k, _ in sums})), flush=True)
+        return
     YARDSTICKS[run] = {"linear_ms": lin, "linear_f32_ms": lin32, "sdpa_ms": sdpa, "batch": batch}
     msg = (f"[yardsticks] {run}: bf16 GEMM {RESULTS['gemm_bf16'][run]['ms']:.3f} ms a run "
            f"(F.linear {lin:.3f}), fp32 GEMM {RESULTS['gemm_f32'][run]['ms']:.3f} ms "
@@ -1203,7 +1270,7 @@ def grads_of(fn, leaves, gout):
     return torch.autograd.grad(fn(*leaves), leaves, gout)
 
 
-def phase_merge_kernels(paths=None, counted: bool = True) -> None:
+def phase_merge_kernels(paths=None, counted: bool = True, preset: str = "") -> None:
     """K10a (PatchMerging: 2x2 gather, LayerNorm over 4C, reduction) and K10b
     (the patch-embed LayerNorm) against their plain versions, fp32 and bf16,
     forward and the gradient of every input against the plain version's
@@ -1212,9 +1279,12 @@ def phase_merge_kernels(paths=None, counted: bool = True) -> None:
     pads 13x21 to 14x22), or at ``paths`` ((run, batch, stages, bucket), ...;
     ``counted=False``: a comparison only).  Library yardsticks, used nowhere
     in the port: F.layer_norm + F.linear on the gathered rows for K10a,
-    F.layer_norm for K10b."""
+    F.layer_norm for K10b.  ``preset``: the stages are another Swin
+    preset's (its last merge), checked and not timed."""
     import torch.nn.functional as F
 
+    timer = no_time if preset else cuda_ms
+    pos_dim = BACKBONES[preset]["pos_dim"] if preset else 1024
     print("[kernels] K10a (PatchMerging LN + reduction) and K10b (patch-embed LN) vs plain",
           flush=True)
     g = torch.Generator(device=DEV).manual_seed(5)
@@ -1228,23 +1298,23 @@ def phase_merge_kernels(paths=None, counted: bool = True) -> None:
         dn = "fp32" if dtype == torch.float32 else "bf16"
         es = esize(dtype)
         for run, batch, stages, hw in paths:
-            tag = f"b{batch} {hw[0]}x{hw[1]}"
+            tag = f"b{batch} {hw[0]}x{hw[1]}" + (f" {preset}" if preset else "")
             rows, c = batch * (hw[0] // 4) * (hw[1] // 4), stages[0][1]
             x = (rnd(rows, c) * 2 + 0.5).to(dtype)
             ln = [1 + rnd(c, scale=0.1), rnd(c, scale=0.1)]
             gout = rnd(rows, c).to(dtype)
             out, ref = wa.layernorm_rows(x, *ln), wa.layernorm_rows_plain(x, *ln)
-            lib = cuda_ms(lambda: F.layer_norm(x, (c,), ln[0].to(dtype), ln[1].to(dtype), 1e-5))
+            lib = timer(lambda: F.layer_norm(x, (c,), ln[0].to(dtype), ln[1].to(dtype), 1e-5))
             compare("K10b", f"{dn} {tag}", out, ref, dtype,
-                    cuda_ms(lambda: wa.layernorm_rows(x, *ln)),
-                    cuda_ms(lambda: wa.layernorm_rows_plain(x, *ln)), int(counted),
+                    timer(lambda: wa.layernorm_rows(x, *ln)),
+                    timer(lambda: wa.layernorm_rows_plain(x, *ln)), int(counted),
                     (2.0 * rows * c * es + 8 * c, 8.0 * rows * c), run, library_ms=lib)
             for part, a, b in zip(("dx", "dscale", "dbias"),
                                   grads_of(wa.layernorm_rows, [x, *ln], gout),
                                   grads_of(wa.layernorm_rows_plain, [x, *ln], gout)):
                 compare("K10b", f"{dn} {tag} {part}", a, b, dtype, 0.0, 0.0, 0)
             for k, (name, c, _, (h, w), _, _) in enumerate(stages):
-                n_out = stages[k + 1][1] if k + 1 < len(stages) else 1024
+                n_out = stages[k + 1][1] if k + 1 < len(stages) else pos_dim
                 x = rnd(batch, h, w, c).to(dtype)
                 ln = [1 + rnd(4 * c, scale=0.1), rnd(4 * c, scale=0.1)]
                 wt = rnd(n_out, 4 * c, scale=(4 * c) ** -0.5).to(dtype)
@@ -1257,10 +1327,10 @@ def phase_merge_kernels(paths=None, counted: bool = True) -> None:
                                                  ln[1].to(dtype), 1e-5), wt)
 
                 compare("K10a", f"{dn} {name} {tag}", out, ref, dtype,
-                        cuda_ms(lambda: wa.patch_merge(x, *ln, wt)),
-                        cuda_ms(lambda: wa.patch_merge_plain(x, *ln, wt)), int(counted),
+                        timer(lambda: wa.patch_merge(x, *ln, wt)),
+                        timer(lambda: wa.patch_merge_plain(x, *ln, wt)), int(counted),
                         ((batch * h * w * c + mrows * n_out + 4 * c * n_out) * es + 32 * c,
-                         2.0 * mrows * 4 * c * n_out), run, library_ms=cuda_ms(library))
+                         2.0 * mrows * 4 * c * n_out), run, library_ms=timer(library))
                 gout = rnd(*out.shape).to(dtype)
                 for part, a, b in zip(("dx", "dscale", "dbias", "dweight"),
                                       grads_of(wa.patch_merge, [x, *ln, wt], gout),
@@ -1308,6 +1378,7 @@ def phase_ln_kernels(card: str) -> None:
     for batch in (8, 128):
         acc = {k: {"ms": 0.0, "bytes": 0.0, "library_ms": 0.0, "launches": 0}
                for k in ("ln_rows_kernel", "ln_merge_kernel")}
+        acc["ln_merge_kernel"]["max_rel_err"] = 0.0   # against the plain LN, over the stages
 
         def add(kernel, calls, ms, nbytes, lib_ms):
             a = acc[kernel]
@@ -1354,6 +1425,7 @@ def phase_ln_kernels(card: str) -> None:
             err = ((y4.float() - ref).abs().max() / ref.abs().max()).item()
             if not err <= TOL[bf]:
                 fail(f"ln_merge_kernel b{batch} {name}: max rel err {err:.3e} > {TOL[bf]:.0e}")
+            acc["ln_merge_kernel"]["max_rel_err"] = max(acc["ln_merge_kernel"]["max_rel_err"], err)
             add("ln_merge_kernel", 1, graph_ms(merge), 2.0 * (batch * h * wd * c + mrows * 4 * c)
                 + 32 * c, graph_ms(lambda: F.layer_norm(rows4, (4 * c,), w4.to(bf), b4.to(bf),
                                                          eps)))
@@ -1364,7 +1436,9 @@ def phase_ln_kernels(card: str) -> None:
             print(f"[ln] {kernel} b{batch} bf16 caption forward: {a['ms']:.3f} ms over "
                   f"{a['launches']} launches (graph replay), bound {a['bound_ms']:.3f} ms by "
                   f"bytes ({a['bound_share']:.0%} of it), F.layer_norm on the same rows "
-                  f"{a['library_ms']:.3f} ms  [{card}]", flush=True)
+                  f"{a['library_ms']:.3f} ms" + (f", max rel err {a['max_rel_err']:.3e} against "
+                                                  f"the plain LN" if "max_rel_err" in a else "")
+                  + f"  [{card}]", flush=True)
         out[f"b{batch}"] = acc
     want = forward_launches()
     if (out["b8"]["ln_rows_kernel"]["launches"] != want["K1"] + want["K2"] + want["K10b"]
@@ -1498,13 +1572,14 @@ def caption_launches() -> dict:
             "K10b": wa.LAUNCHES["layernorm_rows"], "K11": tail_ops.LAUNCHES["decode_tail"]}
 
 
-def forward_launches(forwards: int = 1) -> dict:
+def forward_launches(forwards: int = 1, stages=None) -> dict:
     """What ``forwards`` Swin and detector forwards in eval() launch: each
     block one K1 and one K2, each decoder layer one K3, a PatchMerging a
-    stage, one patch-embed norm."""
-    blocks = sum(s[-1] for s in STAGES)
+    stage, one patch-embed norm.  ``stages``: the Swin's (default Swin-B's)."""
+    stages = stages or STAGES
+    blocks = sum(s[-1] for s in stages)
     return {"K1": blocks * forwards, "K2": blocks * forwards, "K3": DET_LAYERS * forwards,
-            "K10a": len(STAGES) * forwards, "K10b": forwards}
+            "K10a": len(stages) * forwards, "K10b": forwards}
 
 
 def reset_launches() -> None:
@@ -1596,9 +1671,10 @@ def phase_slice_b128(card: str, batch: int = 128) -> None:
     del model, gen
 
 
-def profile_run(fn, title: str, path: str) -> None:
+def profile_run(fn, title: str, path: str, lines_shown: int = 22) -> dict:
     """torch.profiler over one call of ``fn``: device busy time and the
-    kernels that take it, written to chiprun_out/<path>."""
+    kernels that take it, written to chiprun_out/<path> (the first
+    ``lines_shown`` lines printed) -> wall and busy ms, idle share, launches."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1624,7 +1700,9 @@ def profile_run(fn, title: str, path: str) -> None:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", path), "w") as f:
         f.write("\n".join(lines) + "\n")
-    print("[profile] " + "\n[profile] ".join(lines[:22]), flush=True)
+    print("[profile] " + "\n[profile] ".join(lines[:lines_shown]), flush=True)
+    return {"wall_ms": wall * 1e3, "busy_ms": busy * 1e3, "idle_share": 1 - busy / wall,
+            "launches": sum(r[1] for r in rows)}
 
 
 def phase_profile(batch: int, card: str) -> None:
@@ -1858,15 +1936,17 @@ def train_launches() -> dict:
             "K12": adam_ops.LAUNCHES["adam"], **core_launches()}
 
 
-def train_want() -> dict:
-    """What one bf16 XE step of ``training_setup`` launches."""
-    frozen = sum(s[-1] for s in STAGES[:FROZEN_STAGES - 1])
-    trained = sum(s[-1] for s in STAGES[FROZEN_STAGES - 1:])
+def train_want(stages=None) -> dict:
+    """What one bf16 XE step of ``training_setup`` launches (``stages``: its
+    Swin's, default Swin-B's)."""
+    stages = stages or STAGES
+    frozen = sum(s[-1] for s in stages[:FROZEN_STAGES - 1])
+    trained = sum(s[-1] for s in stages[FROZEN_STAGES - 1:])
     return {"K1": frozen, "K2": frozen + trained, "K3": DET_LAYERS, "K4": trained,
-            "K5": trained, "K6": DET_LAYERS, "K10a": len(STAGES), "K10b": 1,
+            "K5": trained, "K6": DET_LAYERS, "K10a": len(stages), "K10b": 1,
             "K12": 2,   # one Adam launch per parameter group
             # two GEMM launches in each of K1, K2 and K4, one in K10a
-            "gemm_bf16": 2 * (frozen + (frozen + trained) + trained) + len(STAGES),
+            "gemm_bf16": 2 * (frozen + (frozen + trained) + trained) + len(stages),
             "win_attn": frozen + trained, "win_attn_bwd": trained}
 
 
@@ -2182,12 +2262,13 @@ def float64_arm():
         torch.Tensor.float, adam_ops.adam_update = saved, saved_adam
 
 
-def parity_arm(arm: str, batch: int):
+def parity_arm(arm: str, batch: int, config=None):
     """One fp32 XE step, dropouts off, from the seed's weights and batch,
     through the kernels ("kernel"), the plain versions ("plain") or the plain
     versions in float64 ("float64") -> (loss, {name: gradient}, {name:
-    (update, learning rate or None, the parameter's max before)})."""
-    config = default_caption_config()
+    (update, learning rate or None, the parameter's max before)}).  ``config``:
+    the caption config (default ``default_caption_config()``)."""
+    config = (config or default_caption_config()).copy()
     # the float64 arm recomputes each Swin block in its backward: the same
     # arithmetic in less memory
     config.model.use_checkpoint = arm == "float64"
@@ -2223,7 +2304,7 @@ def parity_arm(arm: str, batch: int):
              for n, p in model.named_parameters()})
 
 
-def module_grad_errors(batch: int) -> dict[str, tuple[float, str]]:
+def module_grad_errors(batch: int, config=None) -> dict[str, tuple[float, str]]:
     """The backward of every module that holds a kernel with a backward,
     kernel against plain, on the same inputs and the same output gradient:
     one plain-path forward and backward of the whole model records each
@@ -2235,7 +2316,7 @@ def module_grad_errors(batch: int) -> dict[str, tuple[float, str]]:
     stage and per decoder layer, the worst gradient leaf (parameters and the
     inputs that carry gradients upstream) as a share of the leaf's max, and
     its name."""
-    state, _, tbatch = training_setup(default_caption_config(), torch.float32, batch,
+    state, _, tbatch = training_setup(config or default_caption_config(), torch.float32, batch,
                                       dropouts=False)
     model = state.model.train()
     swin = model.detector.backbone
@@ -2575,18 +2656,19 @@ def phase_decoders_and_entry_points(card: str) -> None:
     free_card()
 
 
-def phase_train_parity(batch: int) -> None:
+def phase_train_parity(batch: int, config=None, label: str = "") -> None:
     """fp32, dropouts and drop-path off, the training step's own batch: one
     XE step through the kernels, one through the plain versions, and one
     through the plain versions in float64, from the same weights and batch;
     the float64 step is the yardstick of both.  Then every module that holds
     a kernel with a backward alone on the same inputs, where nothing can flip
-    and the bound is tight."""
+    and the bound is tight.  ``config`` / ``label``: another caption config
+    (another Swin preset), its results under "train_parity <label>"."""
     (loss_k, grad_k, upd_k), (loss_p, grad_p, _), (loss_r, grad_r, _) = (
-        parity_arm(arm, batch) for arm in ("kernel", "plain", "float64"))
+        parity_arm(arm, batch, config) for arm in ("kernel", "plain", "float64"))
     torch.cuda.empty_cache()
     rel_k, rel_p = abs(loss_k - loss_r) / abs(loss_r), abs(loss_p - loss_r) / abs(loss_r)
-    print(f"[train parity] fp32 b{batch} loss against float64: kernel rel err {rel_k:.3e}, "
+    print(f"[train parity] fp32 b{batch} {label} loss against float64: kernel rel err {rel_k:.3e}, "
           f"plain {rel_p:.3e} (tol {LOSS_TOL:.0e})")
     if not np.isfinite(loss_k) or rel_k > LOSS_TOL:
         fail(f"training parity: loss rel err {rel_k:.3e} > {LOSS_TOL:.0e}")
@@ -2625,14 +2707,14 @@ def phase_train_parity(batch: int) -> None:
     for group, (k_err, p_err, a_err, name) in worst.items():
         print(f"[train parity]   {group:<18} kernel {k_err:.3e}  plain {p_err:.3e}  "
               f"adam {a_err:.3e}  ({name})", flush=True)
-    alone = module_grad_errors(batch)
+    alone = module_grad_errors(batch, config)
     print(f"[train parity] each module alone on the same inputs and output gradient, kernels "
           f"against plain, worst gradient leaf (tol {SAME_INPUT_TOL:.0e}):")
     for group, (err, name) in alone.items():
         print(f"[train parity]   {group:<18} {err:.3e}  ({name})", flush=True)
         if not err <= SAME_INPUT_TOL:
             failures.append(f"{name} alone: gradient err {err:.3e} > {SAME_INPUT_TOL:.0e}")
-    RESULTS["train_parity"] = {
+    RESULTS["train_parity" + (f" {label}" if label else "")] = {
         "loss_rel_err": rel_k, "plain_loss_rel_err": rel_p,
         "groups": {g: {"kernel": v[0], "plain": v[1], "adam": v[2], "leaf": v[3]}
                    for g, v in worst.items()},
@@ -2704,7 +2786,8 @@ def detector_targets(batch: int, num_classes: int, offset: int = 0) -> dict:
     return out
 
 
-def detector_setup(dtype, *, dropouts: bool = True, use_checkpoint: bool = False, seed: int = 0):
+def detector_setup(dtype, *, dropouts: bool = True, use_checkpoint: bool = False, seed: int = 0,
+                   backbone: str | None = None):
     """The detector trainer a user would build (``train_detector.main``'s
     recipe) at full width: the model in train() with f32 master parameters
     computing in ``dtype``, the whole Swin training, the criterion, the
@@ -2712,9 +2795,11 @@ def detector_setup(dtype, *, dropouts: bool = True, use_checkpoint: bool = False
     and the train step.  The norms' scales and biases are perturbed from the
     seed: with the initial zero biases a padded pixel is an all-zero row at
     every LayerNorm it meets, each of which multiplies its gradient by
-    eps^-1/2 = 316."""
+    eps^-1/2 = 316.  ``backbone``: a Swin preset other than the config's."""
     config = default_detection_config()
     config.model.use_checkpoint = use_checkpoint
+    if backbone:
+        config.model.backbone = backbone
     model, criterion = build_detection_model(config, dtype, device=DEV, seed=seed)
     g = torch.Generator(device=DEV).manual_seed(seed + 1)
     with torch.no_grad():
@@ -2736,7 +2821,7 @@ def detector_setup(dtype, *, dropouts: bool = True, use_checkpoint: bool = False
     return config, state, criterion, step
 
 
-def phase_detector(card: str, dtype) -> None:
+def phase_detector(card: str, dtype, backbone: str | None = None, full: bool = True) -> None:
     """Detector pre-training at full width (``default_detection_config()``:
     Swin-B window 12 training whole, d512, 6 deformable layers, 150 queries,
     1849 classes, aux losses, box refinement), random weights from a seed, b4
@@ -2746,24 +2831,27 @@ def phase_detector(card: str, dtype) -> None:
     step by step; inside each epoch ``Valider.run_epoch`` -> ``postprocess`` ->
     ``CocoEvaluator`` over two batches in eval(); the checkpoint hook's
     ``detector_last`` restored into a freshly built model and optimizer, after
-    which one more step from each must give the same loss."""
+    which one more step from each must give the same loss.  ``backbone``:
+    another Swin preset; ``full=False``: no validation and no restore, one
+    profiled step instead."""
     import tempfile
 
-    dn = "fp32" if dtype == torch.float32 else "bf16"
-    config, state, criterion, step = detector_setup(dtype)
+    dn = ("fp32" if dtype == torch.float32 else "bf16") + (f" {backbone}" if backbone else "")
+    config, state, criterion, step = detector_setup(dtype, backbone=backbone)
     model = state.model
     num_classes = config.model.detector.num_classes
     groups = [g["name"] for g in state.optimizer.param_groups]
-    blocks = sum(s[-1] for s in DET_STAGES)
+    det_stages = preset_stages(backbone, DET_HW) if backbone else DET_STAGES
+    blocks = sum(s[-1] for s in det_stages)
     bf = dtype == torch.bfloat16     # the GEMM, core and backward of the step's type
-    gemms = 4 * blocks + len(DET_STAGES)
+    gemms = 4 * blocks + len(det_stages)
     want_step = {"K1": 0, "K2": blocks, "K3": DET_LAYERS, "K4": blocks, "K5": blocks,
-                 "K6": DET_LAYERS, "K10a": len(DET_STAGES), "K10b": 1, "K12": len(groups),
+                 "K6": DET_LAYERS, "K10a": len(det_stages), "K10b": 1, "K12": len(groups),
                  "gemm_bf16": bf * gemms, "win_attn": bf * blocks, "win_attn_bwd": bf * blocks,
                  "gemm_f32": (1 - bf) * gemms, "win_attn_f32": (1 - bf) * blocks,
                  "win_attn_bwd_f32": (1 - bf) * blocks}
     want_eval = {"K1": blocks, "K2": blocks, "K3": DET_LAYERS, "K4": 0, "K5": 0, "K6": 0,
-                 "K10a": len(DET_STAGES), "K10b": 1, "K12": 0,
+                 "K10a": len(det_stages), "K10b": 1, "K12": 0,
                  "gemm_bf16": bf * gemms, "win_attn": bf * blocks, "win_attn_bwd": 0,
                  "gemm_f32": (1 - bf) * gemms, "win_attn_f32": (1 - bf) * blocks,
                  "win_attn_bwd_f32": 0}
@@ -2826,7 +2914,7 @@ def phase_detector(card: str, dtype) -> None:
                  # saves at the end of the second epoch: detector_epoch_1 and detector_last
                  det_hooks.CheckpointHook(workdir, every=2)]
         trainer = det_solver.Trainer(counted_step, state, [train_batch(0)], device=DEV, seed=0,
-                                     hooks=hooks, validers=[valider])
+                                     hooks=hooks, validers=[valider] if full else [])
         trainer.run_epoch(0)                         # warm-up: one step and a validation
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2844,31 +2932,54 @@ def phase_detector(card: str, dtype) -> None:
         size_mb = os.path.getsize(os.path.join(workdir, "checkpoints", "detector_last",
                                                ckpt_lib.STATE_FILE)) / 2 ** 20
         saved = sorted(os.listdir(os.path.join(workdir, "checkpoints")))
-        _, state2, _, _ = detector_setup(dtype, seed=1)
-        restored = ckpt_lib.restore_checkpoint(workdir, "detector_last")
-        ckpt_lib.load_train_state(state2, restored)
+        if full:
+            _, state2, _, _ = detector_setup(dtype, seed=1)
+            restored = ckpt_lib.restore_checkpoint(workdir, "detector_last")
+            ckpt_lib.load_train_state(state2, restored)
 
     print(f"[detector {dn}] optimizer groups {groups}; launches of each of {DET_STEPS} training "
-          f"steps: {per_step[0]} (want {want_step}); of a validation epoch of 2 batches: "
-          f"{per_eval[0]} (want 2 x {want_eval})")
+          f"steps: {per_step[0]} (want {want_step})" + (
+              f"; of a validation epoch of 2 batches: {per_eval[0]} (want 2 x {want_eval})"
+              if full else ""))
     if any(c != want_step for c in per_step) or len(per_step) != DET_STEPS:
         fail(f"detector {dn}: launches per training step {per_step} != {want_step}")
-    if per_eval != [{k: 2 * v for k, v in want_eval.items()}]:
-        fail(f"detector {dn}: launches of the validation epoch {per_eval} != 2 x {want_eval}")
     for i, m in enumerate(losses):
         print(f"[detector {dn}] step {i}: " + " ".join(f"{k} {v:.4f}" for k, v in m.items()))
     if not all(np.isfinite(list(m.values())).all() for m in losses):
         fail(f"detector {dn}: non-finite training metrics {losses}")
+    for name, prm in model.named_parameters():
+        if prm.dtype != torch.float32 or not torch.isfinite(prm).all():
+            fail(f"detector {dn}: parameter {name} is {prm.dtype} or non-finite")
+    if saved != ["detector_epoch_1", "detector_last"]:
+        fail(f"detector {dn}: checkpoints {saved}")
+    if not full:
+        nxt = train_batch(9)
+        images = nxt["samples"].to(DEV)
+        targets = {k: torch.from_numpy(v).to(DEV) for k, v in nxt["targets"].items()}
+        targets["labels"] = targets["labels"].long()
+        step(state, images, targets)
+        torch.cuda.synchronize()
+        prof = profile_run(lambda: step(state, images, targets),
+                           f"b{DET_BATCH} {dn} detector training step at {DET_HW[0]}x{DET_HW[1]} "
+                           f"[{card}]", f"profile_detector_{dn.replace(' ', '_')}.txt", 6)
+        med = sorted(step_ms)[len(step_ms) // 2]
+        print(f"[detector {dn}] b{DET_BATCH} {dn} detector step at {DET_HW[0]}x{DET_HW[1]}, the "
+              f"whole Swin training: {med:.1f} ms/step (median of {step_ms} on the stream), "
+              f"peak {peak:.2f} GiB; profiled step: device busy {prof['busy_ms']:.1f} ms, idle "
+              f"share {prof['idle_share']:.3f}  [{card}]", flush=True)
+        RESULTS[f"detector_{dn}"] = {
+            "batch": DET_BATCH, "step_ms": step_ms, "host_ms": host_ms, "peak_gib": peak,
+            "launches_per_step": per_step[0], "losses": losses, "profile": prof}
+        return
+    if per_eval != [{k: 2 * v for k, v in want_eval.items()}]:
+        fail(f"detector {dn}: launches of the validation epoch {per_eval} != 2 x {want_eval}")
     res = trainer.epoch_results
     print(f"[detector {dn}] Valider -> postprocess -> CocoEvaluator over 2 batches of "
           f"{DET_BATCH} in eval(): {eval_s[-1] / 2 * 1e3:.1f} ms/batch, {json.dumps(res)}")
     if "mAP" not in res or not np.isfinite(list(res.values())).all():
         fail(f"detector {dn}: validation summary {res}")
-    if saved != ["detector_epoch_1", "detector_last"] or restored["epoch"] != 1:
-        fail(f"detector {dn}: checkpoints {saved}, epoch {restored['epoch']}")
-    for name, prm in model.named_parameters():
-        if prm.dtype != torch.float32 or not torch.isfinite(prm).all():
-            fail(f"detector {dn}: parameter {name} is {prm.dtype} or non-finite")
+    if restored["epoch"] != 1:
+        fail(f"detector {dn}: restored epoch {restored['epoch']}")
 
     # one more step from the trained state and from the restored one
     nxt = train_batch(9)
@@ -3056,6 +3167,190 @@ def phase_detector_parity(batch: int) -> None:
         fail("detector parity: " + "; ".join(failures[:10]))
 
 
+# ---------------------------------------------------------------------------
+# the other Swin presets: large (C 192, window 12), small and tiny (C 96,
+# window 7), nano (C 64, window 7), at full width on random weights
+# ---------------------------------------------------------------------------
+PRESETS = ("swin_large_win7_384_22k", "swin_small", "swin_tiny", "swin_nano")
+LARGE = "swin_large_win7_384_22k"
+PRESET_PARITY_BATCH = 4
+
+
+def preset_stages(name: str, hw) -> list:
+    """A preset's stage maps at image size ``hw`` (H/4 ... H/32), each padded
+    to window multiples, as STAGES lists them: (name, C, heads, real (h, w),
+    padded (Hp, Wp), depth)."""
+    bb = BACKBONES[name]
+    win, h, w = bb["window"], hw[0] // 4, hw[1] // 4
+    stages = []
+    for i, (depth, heads) in enumerate(zip(bb["depths"], bb["num_heads"])):
+        stages.append((f"stage{i + 1}", bb["embed_dim"] * 2 ** i, heads, (h, w),
+                       (-(-h // win) * win, -(-w // win) * win), depth))
+        h, w = (h + 1) // 2, (w + 1) // 2
+    return stages
+
+
+def preset_config(name: str):
+    """The caption config on another preset: ``model.backbone`` and the grid
+    net's input width, ``model.grid_feat_dim``, set to the preset's pos_dim."""
+    config = default_caption_config()
+    config.model.backbone = name
+    config.model.grid_feat_dim = BACKBONES[name]["pos_dim"]
+    return config
+
+
+def phase_preset_kernels() -> None:
+    """K1, K2, K10a and K10b at the b8 384x640 caption shapes of each preset;
+    K4, K5 (and the frozen stage's K1, K2) at the b16 XE shapes of swin_small
+    (window 7) and swin_large (window 12), and at the b4 832x1344 detector
+    shapes of swin_tiny, where every stage trains: each in fp32 and bf16
+    against its plain version (checks, not timed: phase_preset_yardsticks
+    times the GEMM, core and backward launches at these shapes)."""
+    for name in PRESETS:
+        stages = preset_stages(name, HW)
+        phase_kernels(8, counted=False, stages=stages, preset=name)
+        phase_merge_kernels(paths=(("caption", 8, stages, HW),), counted=False, preset=name)
+    for name in ("swin_small", LARGE):
+        phase_train_kernels(TRAIN_BATCH, counted=False, stages=preset_stages(name, HW),
+                            preset=name)
+    phase_train_kernels(DET_BATCH, counted=False, stages=preset_stages("swin_tiny", DET_HW),
+                        hw=DET_HW, n_frozen=0, run="detector", preset="swin_tiny")
+
+
+def phase_preset_yardsticks() -> None:
+    """The GEMM (its N and K tails), the attention core and, at the training
+    runs, the attention backward (N = 49) at the presets' shapes, each against
+    its plain version, timed beside F.linear, SDPA + mask and SDPA's backward:
+    a b8 caption forward of each width family (nano C 64, tiny C 96, large C
+    192), a b16 XE step of swin_small and a b4 832x1344 detector step of
+    swin_tiny."""
+    for name in ("swin_nano", "swin_tiny", LARGE):
+        stages = preset_stages(name, HW)
+        phase_yardsticks("caption", 8, stages, len(stages), preset=name)
+    phase_yardsticks("train", TRAIN_BATCH, preset_stages("swin_small", HW), FROZEN_STAGES - 1,
+                     preset="swin_small")
+    phase_yardsticks("detector", DET_BATCH, preset_stages("swin_tiny", DET_HW), 0,
+                     preset="swin_tiny")
+
+
+def phase_preset_slice(name: str, card: str, batch: int = 8) -> None:
+    """Caption inference on a preset at full width, random weights (seed 0),
+    b8 bf16 384x640, beam 5, 20 steps, EOS off, through
+    ``make_caption_generator``: the launches of one batch checked (K1 and K2
+    = sum(depths)), then the median of 3 timed batches and one profiled."""
+    config = preset_config(name)
+    vocab = config.model.vocab_size
+    model = build_captioner(config, device=DEV, dtype=torch.bfloat16, seed=0)
+    samples = synthetic_batch(batch)
+    gen = make_caption_generator(model, beam_size=BEAM, max_len=STEPS,
+                                 bos_idx=config.model.bos_idx, eos_idx=vocab)
+    gen(samples, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = gen(samples, batch)
+    torch.cuda.synchronize()
+    stages = preset_stages(name, HW)
+    blocks = sum(s[-1] for s in stages)
+    counts = {**caption_launches(), **core_launches(), **f32_launches()}
+    want = {**forward_launches(stages=stages), "K11": config.model.cap_generator.n_layers * STEPS,
+            "gemm_bf16": 4 * blocks + len(stages), "win_attn": blocks, "win_attn_bwd": 0,
+            "gemm_f32": 0, "win_attn_f32": 0, "win_attn_bwd_f32": 0}
+    print(f"[preset {name}] launches in one b{batch} caption batch: {counts} (want {want})")
+    if counts != want:
+        fail(f"preset {name}: caption launch counts {counts} != {want}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = gen(samples, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out = out.cpu()
+    if tuple(out.shape) != (batch, STEPS) or out.min() < 0 or out.max() >= vocab:
+        fail(f"preset {name}: bad tokens, shape {tuple(out.shape)}")
+    prof = profile_run(lambda: gen(samples, batch), f"b{batch} bf16 caption batch {name} [{card}]",
+                       f"profile_{name}.txt", 6)
+    med = sorted(times)[1]
+    print(f"[preset {name}] b{batch} bf16 beam {BEAM} x {STEPS} steps at {HW[0]}x{HW[1]}: "
+          f"{med * 1e3:.1f} ms/batch (median of 3: {', '.join(f'{t * 1e3:.1f}' for t in times)}), "
+          f"peak {peak:.2f} GiB; profiled: device busy {prof['busy_ms']:.1f} ms, idle share "
+          f"{prof['idle_share']:.3f}  [{card}]", flush=True)
+    RESULTS[f"slice {name}"] = {"batch": batch, "seconds": times, "peak_gib": peak,
+                                "launches": counts, "profile": prof}
+
+
+def phase_preset_parity(name: str, batch: int = 8) -> None:
+    """The preset's captioner in fp32, kernel path against plain path on the
+    same b8 batch: gri_feat (the backbone's last map through the grid net)
+    and each deformable decoder layer on the same inputs within FEATURE_TOL,
+    captions token for token (near-ties excepted).  reg_feat, run freely, is
+    reported: the random-weight decoder multiplies the backbone's ~2e-6 by
+    2-4.5 at each of its layers (see REG_FEAT_TOL), and the larger
+    backbones' maps reach it with more (swin_large: 1.1e-3)."""
+    config = preset_config(name)
+    model = build_captioner(config, device=DEV, dtype=torch.float32, seed=0)
+    samples = synthetic_batch(batch)
+
+    def run():
+        return beam_run(model, samples, batch, config.model.bos_idx, config.model.vocab_size,
+                        return_margins=True)
+
+    vis_k, res_k = run()
+    with plain_arm():
+        vis_p, res_p = run()
+    errs = decoder_layer_errors(model, samples)
+    print(f"[preset {name}] fp32 decoder state max rel err by layer, same inputs: "
+          + " ".join(f"{e:.3e}" for e in errs))
+    print(f"[preset {name}] fp32 reg_feat run freely: max rel err "
+          f"{max_rel(vis_k['reg_feat'], vis_p['reg_feat']):.3e} (reported)")
+    for what, feat, rel in (("gri_feat", vis_k["gri_feat"],
+                             max_rel(vis_k["gri_feat"], vis_p["gri_feat"])),
+                            ("decoder layers on the same inputs", vis_k["reg_feat"], max(errs))):
+        print(f"[preset {name}] fp32 {what}: max rel err {rel:.3e} (tol {FEATURE_TOL:.0e})",
+              flush=True)
+        if not torch.isfinite(feat).all() or rel > FEATURE_TOL:
+            fail(f"preset {name}: fp32 {what} max rel err {rel:.3e} > {FEATURE_TOL:.0e}")
+    same_tokens(f"preset {name}", res_k.sequences[:, 0], res_p.sequences[:, 0],
+                res_k.margins.cpu())
+
+
+def phase_preset_train(name: str, card: str) -> None:
+    """One XE step at full width on a preset, b16 bf16 over f32 masters,
+    ``frozen_stages=2``, dropouts and drop-path on, through
+    ``make_xe_train_step``: a warm-up step, one step whose launches are
+    checked (K4 and K5 once a training block), one profiled step."""
+    state, step, tbatch = training_setup(preset_config(name), torch.bfloat16, TRAIN_BATCH)
+    losses = [float(step(state, tbatch)[1]["loss"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses.append(float(step(state, tbatch)[1]["loss"]))     # synchronises
+    step_s = time.perf_counter() - t0
+    counts = {**train_launches(), **f32_launches()}
+    want = {**train_want(preset_stages(name, HW)), "gemm_f32": 0, "win_attn_f32": 0,
+            "win_attn_bwd_f32": 0}
+    print(f"[preset {name}] launches in one b{TRAIN_BATCH} XE step: {counts} (want {want})")
+    if counts != want:
+        fail(f"preset {name}: XE launch counts {counts} != {want}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_run(lambda: step(state, tbatch), f"b{TRAIN_BATCH} bf16 XE step {name} [{card}]",
+                       f"profile_train_{name}.txt", 6)
+    if not np.isfinite(losses).all():
+        fail(f"preset {name}: XE losses {losses}")
+    for pname, prm in state.model.named_parameters():
+        if prm.dtype != torch.float32 or not torch.isfinite(prm).all():
+            fail(f"preset {name}: parameter {pname} is {prm.dtype} or non-finite")
+    print(f"[preset {name}] b{TRAIN_BATCH} bf16 XE step at {HW[0]}x{HW[1]}, frozen_stages="
+          f"{FROZEN_STAGES}: losses {losses}, the counted step {step_s * 1e3:.1f} ms, peak "
+          f"{peak:.2f} GiB; profiled: device busy {prof['busy_ms']:.1f} ms, idle share "
+          f"{prof['idle_share']:.3f}  [{card}]", flush=True)
+    RESULTS[f"train {name}"] = {"batch": TRAIN_BATCH, "losses": losses, "step_s": step_s,
+                                "peak_gib": peak, "launches": counts, "profile": prof}
+    del state, step, tbatch
+
+
 def ptxas_report() -> dict:
     """{kernel instance: (registers a thread, spilled bytes)} from the
     ``-Xptxas -v`` lines of each source's build log; an instance is named by
@@ -3159,6 +3454,19 @@ def main() -> None:
         ("decoders and entry points", lambda: phase_decoders_and_entry_points(card)),
         ("detector fp32", lambda: phase_detector(card, torch.float32)),   # the CLI's type
         ("detector bf16", lambda: phase_detector(card, torch.bfloat16)),
+        # the other Swin presets: their kernels' shapes, then their paths
+        ("presets kernels", phase_preset_kernels),
+        ("presets yardsticks", phase_preset_yardsticks),
+        ("presets caption", lambda: [phase_preset_slice(name, card) for name in PRESETS]),
+        ("presets parity", lambda: [phase_preset_parity(name) for name in ("swin_tiny", LARGE)]),
+        ("presets train", lambda: [phase_preset_train(name, card)
+                                   for name in ("swin_small", LARGE)]),
+        ("presets detector fp32", lambda: phase_detector(
+            card, torch.float32, backbone="swin_tiny", full=False)),
+        ("presets detector bf16", lambda: phase_detector(
+            card, torch.bfloat16, backbone="swin_tiny", full=False)),
+        ("presets train parity", lambda: phase_train_parity(
+            PRESET_PARITY_BATCH, preset_config("swin_tiny"), "swin_tiny")),
         ("profile", lambda: phase_profile(args.batch, card) if args.profile else None),
         ("train parity", lambda: phase_train_parity(TRAIN_BATCH)),
         ("parity seeds", lambda: parity_seeds(TRAIN_BATCH, args.parity_seeds)),
@@ -3281,6 +3589,11 @@ def main() -> None:
                    "parity_seeds": RESULTS.get("parity_seeds"),
                    "ln_kernels": RESULTS.get("ln_kernels"),
                    "decoders": RESULTS.get("decoders"),
+                   "presets": {k: v for k, v in RESULTS.items()
+                               if any(k.startswith(p) for p in ("slice swin", "train swin",
+                                                                "detector_fp32 swin",
+                                                                "detector_bf16 swin",
+                                                                "train_parity swin"))},
                    "phase_seconds": seconds}, f, indent=1)
     # in the printed line a mapped body carries its kernel's launches on that
     # kernel's run and the numbers of one bf16 check at the 832x1344 shapes

@@ -39,8 +39,16 @@
 // - one tile a block, two blocks an SM (288 threads and ~98 KB of shared
 //   memory each), so that one block's epilogue overlaps the other's main
 //   loop (walking the tiles persistently was slower on an H100).
-// Needs N % 128 == 0 and K % 64 == 0 (the Python wrappers check it; every
-// Swin-B product meets it).
+// Takes N % 8 == 0 and K % 8 == 0 (the Python wrappers check it; every
+// product of the five Swin presets meets it): TMA's 16-byte global row stride
+// and the epilogue's 8-column lanes.  N and K need not fill whole tiles: the
+// tensor maps carry the real N and K, so TMA fills the boxes beyond them with
+// zeros (and still counts the whole box in the barrier's transaction bytes),
+// the gathered A loads zero-fill beyond K, the grid covers N's last partial
+// column tile, and the epilogue predicates each 8-column lane (bias and
+// residual reads, stores) on col < N; the bias epilogue's TMA store clips at N
+// by itself.  A partial tile computes its zero columns all the same: at N =
+// 288 (C 96's qkv) the last of three column tiles is a quarter used.
 #include <cuda.h>
 
 #include "common.cuh"
@@ -199,7 +207,7 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_bf16_sm90_kernel(
   unsigned char* ring_ptr = smem_raw + (ring - raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;  // column tiles fastest: blocks in flight share A's rows
-  const int ktiles = K / BK;
+  const int ktiles = (K + BK - 1) / BK;  // the last k step's columns beyond K are zeros
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -243,8 +251,10 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_bf16_sm90_kernel(
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = gr + 16 * i;
-      const bf16* p = src[i] >= 0 ? A + src[i] * K + kt * BK + gc * 8 : A;
-      cp_async16(sa + r * 128 + ((gc ^ (r & 7)) << 4), p, src[i] >= 0 ? 16u : 0u);
+      // K % 8 == 0: the 16-byte chunk lies wholly inside or beyond K
+      const bool in = src[i] >= 0 && kt * BK + gc * 8 < K;
+      const bf16* p = in ? A + src[i] * K + kt * BK + gc * 8 : A;
+      cp_async16(sa + r * 128 + ((gc ^ (r & 7)) << 4), p, in ? 16u : 0u);
     }
     cp_async_arrive(bars + 8 * stage);
   };
@@ -299,13 +309,14 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_bf16_sm90_kernel(
   if constexpr (MODE == EPI_BIAS) {
     // bias and column scale: in registers, one rounding, the bf16 tile into
     // the ring as two [128 x 64] boxes in the 128-byte swizzle, out by TMA
-    // (which clips the rows beyond M)
+    // (which clips the rows beyond M and the columns beyond N; a box wholly
+    // beyond N is not stored)
     const int r0 = wg * 64 + (warp & 3) * 16 + g;  // r0 % 8 == g
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int col = n0 + 8 * j + 2 * q;
       float b0 = 0.0f, b1 = 0.0f;
-      if (bias != nullptr) {
+      if (bias != nullptr && col < N) {  // N % 8 == 0: a pair lies wholly inside or beyond N
         const __nv_bfloat162 b2 = *reinterpret_cast<const __nv_bfloat162*>(bias + col);
         b0 = __low2float(b2);
         b1 = __high2float(b2);
@@ -329,7 +340,7 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_bf16_sm90_kernel(
     asm volatile("bar.sync 1, 256;" ::: "memory");
     if (tid == 0) {
       tma_store(&tm_out, ring, n0, m0);
-      tma_store(&tm_out, ring + BM * 128, n0 + 64, m0);
+      if (n0 + 64 < N) tma_store(&tm_out, ring + BM * 128, n0 + 64, m0);
       asm volatile("cp.async.bulk.commit_group;" ::: "memory");
       asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");  // the ring outlives the reads
     }
@@ -363,16 +374,17 @@ __global__ void __launch_bounds__(THREADS, 2) gemm_bf16_sm90_kernel(
     my_pad = pad;
   }
   const int c8 = (lane & 15) * 8, col = n0 + c8;
+  const bool col_in = col < N;  // N % 8 == 0: the lane's 8 columns lie wholly inside or beyond N
   const bf16* __restrict__ resid = static_cast<const bf16*>(e.resid);
   bf16* __restrict__ out = static_cast<bf16*>(e.out);
   float bv[8];
-  if (bias != nullptr) unpack8(*reinterpret_cast<const uint4*>(bias + col), bv);
+  if (bias != nullptr && col_in) unpack8(*reinterpret_cast<const uint4*>(bias + col), bv);
 #pragma unroll
   for (int it = 0; it < 8; ++it) {
     const int rr = (lane >> 4) + 2 * it;
     const long long orow = __shfl_sync(0xffffffffu, my_orow, rr);
     const int pad = __shfl_sync(0xffffffffu, my_pad, rr);
-    if (row_base + rr >= M) continue;
+    if (row_base + rr >= M || !col_in) continue;
     const float4 lo = *reinterpret_cast<const float4*>(stage + rr * LDC + c8);
     const float4 hi = *reinterpret_cast<const float4*>(stage + rr * LDC + c8 + 4);
     float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
@@ -441,7 +453,7 @@ int launch(const CUtensorMap& ta, const CUtensorMap& tw, const CUtensorMap& to, 
     if (err != cudaSuccess) return (int)err;
     smem_set = true;
   }
-  dim3 grid(N / BN, (M + BM - 1) / BM);
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   gemm_bf16_sm90_kernel<MODE, GATHER><<<grid, THREADS, SMEM_BYTES, st>>>(ta, tw, to, A, M, N, K, e);
   return (int)cudaGetLastError();
 }
@@ -451,7 +463,8 @@ int launch(const CUtensorMap& ta, const CUtensorMap& tw, const CUtensorMap& to, 
 int launch_gemm_bf16(const bf16* A, const bf16* W, int M, int N, int K, const Epi& e,
                      cudaStream_t st) {
   if (M <= 0) return 0;
-  if (N % BN || K % BK || (e.a_gather && e.mode != EPI_BIAS)) return (int)cudaErrorInvalidValue;
+  if (N <= 0 || K <= 0 || N % 8 || K % 8 || (e.a_gather && e.mode != EPI_BIAS))
+    return (int)cudaErrorInvalidValue;
   // A, W and (for the bias epilogue, stored by TMA) the output
   CUtensorMap ta, tw, to;
   int err = tensor_map(&tw, W, N, K);

@@ -409,8 +409,8 @@ int grit_ln_merge(const void* x, const void* g, const void* b, void* out, int ro
 }
 
 // out = epilogue(A [M, K] @ W[N, K]^T); bias [N] in the storage type, as
-// flax's Dense casts it.  bf16 needs N % 128 == 0 and K % 64 == 0 (gemm_sm90.cu),
-// fp32 N % 4 == 0 and K % 8 == 0 (the Python wrappers check the stricter
+// flax's Dense casts it.  bf16 needs N % 8 == 0 and K % 8 == 0 (gemm_sm90.cu),
+// fp32 N % 4 == 0 and K % 16 == 0 (the Python wrappers check the same
 // GEMM_TILES).  With a_gather, A is the map and row r of the product reads map
 // token win_row_to_token(r).
 int grit_gemm(const void* A, const void* W, const void* bias, void* out, const void* resid,
@@ -442,8 +442,8 @@ int grit_window_attn(const void* qkv, const void* table, void* out, int num_wind
 
 // K5 (bf16: win_attn_bwd_mma.cu; fp32: win_attn_f32.cu): qkv, dqkv
 // [batch * nW * win^2, 3C]; dout [.., C]; table f32 [(2win-1)^2, heads]; dbias
-// f32 [chunks, nW, heads, win^2, win^2], dS summed over each of `chunks`
-// balanced chunks of the batch.
+// f32 [chunks, nW, heads, win^2, win^2 rounded up to a multiple of 4], dS
+// summed over each of `chunks` balanced chunks of the batch.
 int grit_window_attn_bwd(const void* qkv, const void* dout, const void* table, void* dqkv,
                          void* dbias, int batch, int chunks, int C, int heads, float scale,
                          int Hp, int Wp, int win, int shift, int dtype, void* stream) {

@@ -45,6 +45,12 @@
 // Keys and queries are padded to whole 16-row strips (masked keys, zero rows);
 // the two N x N tiles bound N: shared memory for NS = 9 strips (N <= 144) is
 // 2 x 46 KB of rows, 2 x 44 KB of tiles and 12 KB of stage, one block an SM.
+// N may be odd (window 7: N = 49, in the NS = 4 instance): a row of the bias
+// gradient is padded to LDB(N) = N rounded up to a multiple of 4 floats, so
+// that a thread's column pair (j, j + 1) stays 8-byte aligned and inside its
+// row even where j + 1 = N; the pad column takes the masked key's dS, which
+// is 0, and the wrapper reads the real N columns.  An even window has N % 4
+// == 0 and no pad.  K8's dense bias is read in pairs and keeps N % 4 == 0.
 #include "mma_tiles.cuh"
 
 namespace grit {
@@ -53,6 +59,9 @@ namespace {
 constexpr int HD = 32;       // head dim
 constexpr int LDS = HD + 8;  // bf16 row stride of q, k, v, dO in shared memory: 80 bytes
 constexpr int RMW_TILES = 6;  // score tiles of the bias gradient read before they are written
+
+// the row stride of the bias gradient [chunks, nW, heads, N, LDB(N)] (floats)
+__host__ __device__ constexpr int ldb_of(int n) { return (n + 3) & ~3; }
 
 template <int NS>
 constexpr size_t bwd_smem_bytes(int tw2, bool dense) {
@@ -66,7 +75,7 @@ constexpr size_t bwd_smem_bytes(int tw2, bool dense) {
 // rounded for S (DENSE: K8's unscaled q); scale multiplies dS before its
 // rounding; dK = kscale (dS scale)^T Q with Q as stored (kscale = qscale /
 // scale).  table f32 [(2w-1)^2, heads] (!DENSE) or dense f32 [dense_windows,
-// heads, N, N] (DENSE); dbias f32 [chunks, nW, heads, N, N].
+// heads, N, N] (DENSE); dbias f32 [chunks, nW, heads, N, LDB(N)].
 template <int NS, bool DENSE>
 __global__ void __launch_bounds__(32 * NS, 1) win_attn_bwd_mma_kernel(
     const bf16* __restrict__ qp, const bf16* __restrict__ kp, const bf16* __restrict__ vp,
@@ -86,12 +95,12 @@ __global__ void __launch_bounds__(32 * NS, 1) win_attn_bwd_mma_kernel(
   // per key: its offset in the table (jy (2w-1) + jx) | its region << 16; -1 beyond N
   int* kinfo = reinterpret_cast<int*>(stg + NS * 16 * LDS);
   float* tab = reinterpret_cast<float*>(kinfo + NP);  // [(2w-1)^2]: the head's table column
-  const int win = m.win, n = win * win, tw = 2 * win - 1, tw2 = tw * tw;
+  const int win = m.win, n = win * win, ldb = ldb_of(n), tw = 2 * win - 1, tw2 = tw * tw;
   const int w = blockIdx.x, h = blockIdx.y, per_img = gridDim.x;
   const int b_begin = (int)((long long)blockIdx.z * batch / gridDim.z);
   const int b_end = (int)((long long)(blockIdx.z + 1) * batch / gridDim.z);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* db = dbias + (((size_t)blockIdx.z * per_img + w) * heads + h) * n * n;
+  float* db = dbias + (((size_t)blockIdx.z * per_img + w) * heads + h) * n * ldb;
 
   // q, k, v and dO rows of image b's window, 16 bytes a thread; padding rows are zeros
   auto load = [&](int b, bf16* dst) {
@@ -202,7 +211,7 @@ __global__ void __launch_bounds__(32 * NS, 1) win_attn_bwd_mma_kernel(
       const int j = nt * 8 + 2 * t4;
       const int info0 = kinfo[j], info1 = kinfo[j + 1];
       if (DENSE) {
-        if (info1 >= 0) {  // n is even: j and j + 1 are both keys
+        if (info1 >= 0) {  // DENSE has n % 4 == 0: j and j + 1 are both keys
           const float2 ba = *reinterpret_cast<const float2*>(dw + (size_t)ia * n + j);
           const float2 bb = *reinterpret_cast<const float2*>(dw + (size_t)ib * n + j);
           s[nt][0] += ba.x;
@@ -307,15 +316,15 @@ __global__ void __launch_bounds__(32 * NS, 1) win_attn_bwd_mma_kernel(
     {
       const bool first = b == b_begin;
       const bool ok_a = i0 + g < n, ok_b = i0 + g + 8 < n;
-      float* dba = db + (size_t)(i0 + g) * n + 2 * t4;
-      float* dbb = dba + 8 * (size_t)n;
+      float* dba = db + (size_t)(i0 + g) * ldb + 2 * t4;
+      float* dbb = dba + 8 * (size_t)ldb;
 #pragma unroll
       for (int nt0 = 0; nt0 < NT; nt0 += RMW_TILES) {
         float2 oa[RMW_TILES], ob[RMW_TILES];
 #pragma unroll
         for (int j = 0; j < RMW_TILES; ++j) {
           const int nt = nt0 + j;
-          // n is even: both keys of a pair are in or out
+          // a pair with its first key inside N lies inside the padded row
           const bool in = nt < NT && nt * 8 + 2 * t4 < n;
           oa[j] = in && ok_a && !first ? *reinterpret_cast<const float2*>(dba + nt * 8)
                                        : make_float2(0.0f, 0.0f);
@@ -467,7 +476,7 @@ int launch_win_attn_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const 
                              float* dbias, int batch, int chunks, int C, int heads, WinMap m,
                              cudaStream_t st) {
   const int n = m.win * m.win;
-  if (C != heads * HD || n > 144 || n % 2 || chunks < 1 || chunks > batch)
+  if (C != heads * HD || n > 144 || (dense != nullptr && n % 4) || chunks < 1 || chunks > batch)
     return (int)cudaErrorInvalidValue;
 #define GRIT_WAB_LAUNCH(NS)                                                                  \
   return dense != nullptr                                                                     \

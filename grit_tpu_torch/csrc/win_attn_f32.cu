@@ -60,7 +60,13 @@
 //   chunks in a fixed order, so the table gradient is the same bit for bit
 //   from call to call).
 // The strip count is a template argument: the core takes 4, 9 or 16 strips
-// (N <= 64, 144, 256), as the bf16 core; the backward 4 or 9 (N <= 144).
+// (N <= 64, 144, 256), as the bf16 core; the backward 4 or 9 (N <= 144).  N
+// may be odd (window 7: N = 49): the backward's bias-gradient rows are
+// padded to LDB(N) = N rounded up to a multiple of 4 floats, so that its
+// 16-byte read-modify-writes stay aligned and inside the row; the pad columns
+// take the masked keys' dS, which is 0, and the wrapper reads the real N
+// columns.  An even window has N % 4 == 0 and no pad; K8's dense bias keeps
+// N % 4 == 0.
 #include "common.cuh"
 
 namespace grit {
@@ -71,6 +77,9 @@ constexpr int LDQ = HD + 2;   // q, k, v and dO rows in shared memory
 constexpr int TC = 3;         // 16-key blocks of P the core stages at a time
 constexpr int LDPT = 20;      // a key's row of the core's transposed P strip: 16 queries + 4
 constexpr int LDM_PAD = 4;    // the backward's N x N tile: rows of NP + 4 floats
+
+// the row stride of the bias gradient [chunks, nW, heads, N, LDB(N)] (floats)
+__host__ __device__ constexpr int ldb_of(int n) { return (n + 3) & ~3; }
 
 template <int NS>
 constexpr size_t core_smem_bytes(int tw2) {
@@ -307,7 +316,7 @@ __global__ void __launch_bounds__(32 * NS, NS <= 9 ? 2 : 1) win_attn_f32_kernel(
 // one tensor, or three tensors); dout: rows of stride C.  qscale multiplies q
 // at the load (1 for K5's pre-scaled q; DENSE: K8's scale); dQ = scale dS K,
 // dK = dS^T (q qscale); table / dense as the core's; dbias f32 [chunks, nW,
-// heads, N, N], each chunk's dS summed over its images in order.
+// heads, N, LDB(N)], each chunk's dS summed over its images in order.
 template <int NS, bool DENSE>
 __global__ void __launch_bounds__(32 * NS, 1) win_attn_bwd_f32_kernel(
     const float* __restrict__ qp, const float* __restrict__ kp, const float* __restrict__ vp,
@@ -316,7 +325,7 @@ __global__ void __launch_bounds__(32 * NS, 1) win_attn_bwd_f32_kernel(
     float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
     float* __restrict__ dbias, int batch, int C, int heads, WinMap m) {
   constexpr int NP = 16 * NS, LDM = NP + LDM_PAD;
-  constexpr int RMW = 2 * NS;  // float4s of the bias gradient a thread (NP^2 / 4 / (32 NS))
+  constexpr int RMW = 2 * NS;  // float4s of the bias gradient a thread (>= N LDB(N) / 4 / (32 NS))
   extern __shared__ __align__(16) float smf[];
   float* Qs = smf;                  // [q, k, v, dO][NP][LDQ]
   float* Ks = Qs + NP * LDQ;
@@ -325,12 +334,12 @@ __global__ void __launch_bounds__(32 * NS, 1) win_attn_bwd_f32_kernel(
   float* Ms = Gs + NP * LDQ;        // [NP][LDM]: P, then dS
   int* kinfo = reinterpret_cast<int*>(Ms + NP * LDM);  // [NP]
   float* tab = reinterpret_cast<float*>(kinfo + NP);   // [(2w-1)^2]
-  const int n = m.win * m.win, n4 = n / 4;
+  const int n = m.win * m.win, ldb = ldb_of(n), n4 = ldb / 4;
   const int w = blockIdx.x, h = blockIdx.y, per_img = gridDim.x;
   const int b_begin = (int)((long long)blockIdx.z * batch / gridDim.z);
   const int b_end = (int)((long long)(blockIdx.z + 1) * batch / gridDim.z);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* db = dbias + (((size_t)blockIdx.z * per_img + w) * heads + h) * n * n;
+  float* db = dbias + (((size_t)blockIdx.z * per_img + w) * heads + h) * n * ldb;
   const float* dw = DENSE ? dense + ((size_t)(w % dense_windows) * heads + h) * n * n : nullptr;
 
   key_info<NP, DENSE>(kinfo, tab, table, m, w, h, heads, tid, 32 * NS);
@@ -437,7 +446,7 @@ __global__ void __launch_bounds__(32 * NS, 1) win_attn_bwd_f32_kernel(
     for (int it = 0; it < RMW; ++it) {
       const int idx = tid + 32 * NS * it, row = idx / n4, c4 = idx - row * n4;
       acc[it] = idx < n * n4 && !first
-                    ? *reinterpret_cast<const float4*>(db + (size_t)row * n + 4 * c4)
+                    ? *reinterpret_cast<const float4*>(db + (size_t)row * ldb + 4 * c4)
                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
     zero4x4(o);
@@ -454,7 +463,7 @@ __global__ void __launch_bounds__(32 * NS, 1) win_attn_bwd_f32_kernel(
       const int idx = tid + 32 * NS * it, row = idx / n4, c4 = idx - row * n4;
       if (idx < n * n4) {
         const float4 d = *reinterpret_cast<const float4*>(Ms + row * LDM + 4 * c4);
-        *reinterpret_cast<float4*>(db + (size_t)row * n + 4 * c4) =
+        *reinterpret_cast<float4*>(db + (size_t)row * ldb + 4 * c4) =
             make_float4(acc[it].x + d.x, acc[it].y + d.y, acc[it].z + d.z, acc[it].w + d.w);
       }
     }
@@ -526,7 +535,7 @@ int launch_win_attn_bwd_f32(const float* q, const float* k, const float* v, cons
                             float* dbias, int batch, int chunks, int C, int heads, WinMap m,
                             cudaStream_t st) {
   const int n = m.win * m.win;
-  if (C != heads * HD || n > 144 || n % 4 || chunks < 1 || chunks > batch)
+  if (C != heads * HD || n > 144 || (dense != nullptr && n % 4) || chunks < 1 || chunks > batch)
     return (int)cudaErrorInvalidValue;
 #define GRIT_WABF_LAUNCH(NS)                                                                   \
   return dense != nullptr                                                                      \

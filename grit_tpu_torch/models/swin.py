@@ -43,11 +43,23 @@ from grit_tpu_torch.ops import window_attention as wa
 
 LN_EPS = 1e-5
 
-# backbone presets, as grit_tpu.models.swin.BACKBONES
+# backbone presets, as grit_tpu.models.swin.BACKBONES (the reference's size
+# menu).  All have head dim 32.  A caption model on another preset than base
+# needs model.grid_feat_dim set to its pos_dim (large 1536, small and tiny
+# 768, nano 512), as the JAX config does not derive it either
 BACKBONES = {
     "swin_base_win7_384_22k": dict(embed_dim=128, depths=(2, 2, 18, 2),
                                    num_heads=(4, 8, 16, 32), window=12, pos_dim=1024,
                                    drop_path_rate=0.3),
+    "swin_large_win7_384_22k": dict(embed_dim=192, depths=(2, 2, 18, 2),
+                                    num_heads=(6, 12, 24, 48), window=12, pos_dim=1536,
+                                    drop_path_rate=0.3),
+    "swin_small": dict(embed_dim=96, depths=(2, 2, 18, 2), num_heads=(3, 6, 12, 24), window=7,
+                       pos_dim=768, drop_path_rate=0.3),
+    "swin_tiny": dict(embed_dim=96, depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24), window=7,
+                      pos_dim=768, drop_path_rate=0.2),
+    "swin_nano": dict(embed_dim=64, depths=(2, 2, 6, 2), num_heads=(2, 4, 8, 16), window=7,
+                      pos_dim=512, drop_path_rate=0.2),
     "swin_test": dict(embed_dim=16, depths=(1, 1), num_heads=(2, 2), window=4, pos_dim=64,
                       drop_path_rate=0.0),
 }

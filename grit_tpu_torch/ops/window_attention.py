@@ -67,16 +67,17 @@ LAUNCHES = {"block_step": 0, "mlp": 0, "block_attention": 0, "window_attention_b
 
 #: the GEMM's epilogues (csrc/common.cuh)
 EPILOGUES = {"bias": 0, "gelu": 1, "resid": 2, "resid_map": 3, "map": 4}
-#: (N, K) multiples that the GEMM kernels tile: bf16's wgmma kernel takes
-#: 128-column output tiles and 64-deep K steps; fp32's SIMT kernel masks its
-#: 128- or 64-column tiles in whole float4s over 8-deep K steps, and is held
-#: to the 64 and 16 its earlier tile needed until the other Swin presets
-#: bring K tails
-GEMM_TILES = {torch.bfloat16: (128, 64), torch.float32: (64, 16)}
-#: K5 and K8's backward take even windows up to 12 (N <= 144): the bf16
-#: kernel's two N x N bf16 tiles and its double-buffered rows, and the fp32
-#: kernel's Q, K, V, dO and N x N f32 tile, fill a block's 227 KB of shared
-#: memory; both read bias pairs (or fours) of columns
+#: (N, K) multiples that the GEMM kernels take: bf16's wgmma kernel
+#: (128-column tiles, 64-deep K steps) zero-fills its tiles beyond N and K,
+#: and needs N and K in whole 16-byte rows and 8-column epilogue lanes; fp32's
+#: SIMT kernel masks its 128- or 64-column tiles in whole float4s over
+#: 16-deep K steps.  Every product of the five Swin presets meets both
+GEMM_TILES = {torch.bfloat16: (8, 8), torch.float32: (4, 16)}
+#: K5 takes windows up to 12 (N <= 144), odd ones too: the bf16 kernel's two
+#: N x N bf16 tiles and its double-buffered rows, and the fp32 kernel's Q, K,
+#: V, dO and N x N f32 tile, fill a block's 227 KB of shared memory.  K8's
+#: backward, on no model path, reads its dense bias in pairs (or fours) of
+#: columns and keeps N % 4 == 0
 _MAX_BWD_WINDOW = 12
 #: both backward kernels run one block an SM; each splits the batch into
 #: chunks (one block each) until a launch has about this many waves of blocks
@@ -88,15 +89,15 @@ def _dtype_name(dt) -> str:
 
 
 def check_gemm_shape(n_out: int, k_in: int, dtype, what: str = "gemm") -> None:
-    """Raise ``ValueError`` unless a product [M, k_in] x [n_out, k_in]^T in
-    ``dtype`` tiles the GEMM kernels (``GEMM_TILES``).  Every wrapper checks
-    each product it launches with this before it launches."""
+    """Raise ``ValueError`` unless the GEMM kernel of ``dtype`` takes a
+    product [M, k_in] x [n_out, k_in]^T (``GEMM_TILES``).  Every wrapper
+    checks each product it launches with this before it launches."""
     if dtype not in GEMM_TILES:
         raise ValueError(f"{what}: unsupported dtype {dtype}")
     tn, tk = GEMM_TILES[dtype]
-    if n_out % tn or k_in % tk:
-        raise ValueError(f"{what}: a product of {k_in} -> {n_out} columns does not tile the "
-                         f"{_dtype_name(dtype)} GEMM (out % {tn}, in % {tk})")
+    if n_out <= 0 or k_in <= 0 or n_out % tn or k_in % tk:
+        raise ValueError(f"{what}: the {_dtype_name(dtype)} GEMM does not take a product of "
+                         f"{k_in} -> {n_out} columns (out % {tn}, in % {tk})")
 
 
 def _ln_fast(xf: torch.Tensor, w, b, eps: float) -> torch.Tensor:
@@ -499,9 +500,10 @@ def window_attention_bwd(qkv, d_ao, table, *, batch: int, hp: int, wp: int, num_
     ``csrc/win_attn_bwd_mma.cu``; fp32: ``csrc/win_attn_f32.cu``; the batch
     split into ``bwd_batch_chunks`` chunks) sums the bias
     gradient over each chunk's images per window of the image, [chunks, nW,
-    heads, N, N] f32; the sum over chunks and windows and the scatter into
-    the table's rows are plain torch in a fixed order, as the table gather is
-    outside the TPU kernel too.  CPU tensors run the plain version; CUDA
+    heads, N, N rounded up to a multiple of 4] f32; the sum over chunks and
+    windows and the scatter of the real N columns into the table's rows are
+    plain torch in a fixed order, as the table gather is outside the TPU
+    kernel too.  Windows up to 12, odd or even.  CPU tensors run the plain version; CUDA
     tensors launch the kernel or raise."""
     if qkv.device.type == "cpu":
         return window_attention_bwd_plain(qkv, d_ao, table, batch=batch, hp=hp, wp=wp,
@@ -515,9 +517,9 @@ def window_attention_bwd(qkv, d_ao, table, *, batch: int, hp: int, wp: int, num_
         raise ValueError(f"window_attention_bwd: unsupported dtype {dt}")
     if c != 32 * num_heads:
         raise ValueError(f"window_attention_bwd: head dim must be 32, got {c}/{num_heads}")
-    if window > _MAX_BWD_WINDOW or window % 2:
-        raise ValueError(f"window_attention_bwd: window {window} is odd or exceeds "
-                         f"{_MAX_BWD_WINDOW} (the block's shared memory; bias columns in pairs)")
+    if window > _MAX_BWD_WINDOW:
+        raise ValueError(f"window_attention_bwd: window {window} exceeds {_MAX_BWD_WINDOW} "
+                         f"(the block's shared memory)")
     if hp % window or wp % window or rows != batch * nw * n:
         raise ValueError(f"window_attention_bwd: {rows} rows for {batch} maps of {hp}x{wp}")
     _cuda.require(qkv, "qkv", dt, (rows, 3 * c))
@@ -526,14 +528,16 @@ def window_attention_bwd(qkv, d_ao, table, *, batch: int, hp: int, wp: int, num_
     lib = _cuda.library()
     chunks = _bwd_chunks(qkv, batch, nw * num_heads)
     dqkv = torch.empty_like(qkv)
-    dbias = torch.empty((chunks, nw, num_heads, n, n), dtype=torch.float32, device=qkv.device)
+    # bias-gradient rows padded to whole fours of columns (an odd window's N)
+    dbias = torch.empty((chunks, nw, num_heads, n, -(-n // 4) * 4), dtype=torch.float32,
+                        device=qkv.device)
     _cuda.check(lib.grit_window_attn_bwd(
         qkv.data_ptr(), d_ao.data_ptr(), table.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(),
         batch, chunks, c, num_heads, (c // num_heads) ** -0.5, hp, wp, window, shift,
         _cuda.DTYPE_CODE[dt], _cuda.stream()), "window_attention_bwd")
     LAUNCHES["window_attention_bwd"] += 1
     LAUNCHES["win_attn_bwd_" + _dtype_name(dt)] += 1
-    return dqkv, _table_grad(dbias.sum((0, 1)), window)
+    return dqkv, _table_grad(dbias.sum((0, 1))[..., :n], window)
 
 
 class _BlockAttentionFn(torch.autograd.Function):

@@ -533,10 +533,14 @@ def test_every_shipped_swin_product_passes_the_gemm_guard(which):
             twa.check_gemm_shape(n_out, k_in, dtype, name)
 
 
-@pytest.mark.parametrize("n_out,k_in,dtype", [(96, 128, torch.bfloat16), (384, 96, torch.bfloat16),
-                                              (200, 64, torch.float32),
+@pytest.mark.parametrize("n_out,k_in,dtype", [(100, 128, torch.bfloat16),
+                                              (384, 100, torch.bfloat16),
+                                              (202, 64, torch.float32), (128, 72, torch.float32),
                                               (128, 128, torch.float16)])
 def test_gemm_guard_refuses_shapes_that_do_not_tile(n_out, k_in, dtype):
+    """The guard refuses what the kernels do not take: bf16 rows that are no
+    whole 16 bytes (N or K % 8), fp32 columns in no whole float4 (N % 4) or
+    K in no whole 16-deep step, and other dtypes."""
     with pytest.raises(ValueError):
         twa.check_gemm_shape(n_out, k_in, dtype)
 
