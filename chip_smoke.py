@@ -128,6 +128,20 @@ Phases, each of which must pass:
      with the plain path; a b16 bf16 XE step on small and large; swin_tiny
      detector steps in fp32 and bf16 through Trainer.run_epoch; and
      swin_tiny's fp32 training parity against float64 at b4.
+ 15. data parallel (after 14; phase_data_parallel): two ranks under
+     DistributedDataParallel at full width, started by
+     grit_tpu_torch.parallel.distributed.run_ranks after the kernels are
+     built here, on two cards over NCCL or, with one card, both on it over
+     gloo (passed explicitly: NCCL refuses a card twice), against one process
+     on the same inputs: the rank-specialised caption evaluation (valid on
+     rank 0, test on rank 1, scores exchanged), an fp32 XE step at b16 global
+     (8 a rank), three timed bf16 XE steps (launches as one process's step;
+     --profile: the all-reduce's device and host time), an fp32 SCST update
+     at b8 global, the sharded detector validation merged to one process's
+     mAP, and an fp32 detector step at b4 832x1344 global with one process's
+     Hungarian assignments; then NCCL at world 1 through maybe_initialize
+     from torchrun's variables (an all-reduce of the XE gradient's size) and
+     grit_tpu_torch.dryrun.dryrun_multichip(2, "cuda").
 
 Prints the card's name and power limit as nvidia-smi reports them, a JSON
 line of per-kernel results (all 18 TPU kernel bodies: the eleven ported
@@ -164,6 +178,7 @@ try:
 
     from grit_tpu_torch.config import default_caption_config, default_detection_config
     from grit_tpu_torch.decoding.beam_search import beam_search, greedy_search
+    from grit_tpu_torch.dryrun import dryrun_multichip, one_process_xe_step
     from grit_tpu_torch.data.field import TextField
     from grit_tpu_torch.data.metrics import Cider, PTBTokenizer
     from grit_tpu_torch.data.vocab import SPECIALS, Vocab
@@ -178,7 +193,7 @@ try:
     from grit_tpu_torch.engine import scst as scst_lib
     from grit_tpu_torch.engine import xe as xe_lib
     from grit_tpu_torch.engine.evaluator import (caption_batches, evaluate_metrics,
-                                                 make_caption_generator)
+                                                 evaluate_splits, make_caption_generator)
     from grit_tpu_torch.eval_caption_online import ONLINE_BATCH, ONLINE_BUCKET
     from grit_tpu_torch.models import cap_generator as cap_generator_lib
     from grit_tpu_torch.models.captioner import build_captioner, build_detector, to_compute_dtype
@@ -190,6 +205,9 @@ try:
     from grit_tpu_torch.ops import fused_adam as adam_ops
     from grit_tpu_torch.ops import msda as msda_ops
     from grit_tpu_torch.ops import window_attention as wa
+    from grit_tpu_torch.parallel import distributed as dist_lib
+    from grit_tpu_torch.parallel.mesh import (exclude_untrained, global_sum, shard_batch,
+                                              wrap_data_parallel)
     from grit_tpu_torch.tools.extract_features import FEATURES, collect_vis_features
     from grit_tpu_torch.utils.nested import ImageBatch, to_device
 except ImportError as exc:  # e.g. run outside a checkout of the repo
@@ -2786,6 +2804,19 @@ def detector_targets(batch: int, num_classes: int, offset: int = 0) -> dict:
     return out
 
 
+@torch.no_grad()
+def perturb_norms(model, seed: int) -> None:
+    """Add N(0, 0.1) from ``seed`` to every LayerNorm's and GroupNorm's scale
+    and bias: with the initial zero biases a padded pixel is an all-zero row
+    at every LayerNorm it meets, each of which multiplies its gradient by
+    eps^-1/2 = 316."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    for mod in model.modules():
+        if isinstance(mod, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
+            mod.weight.add_(torch.randn(mod.weight.shape, generator=g, device=DEV) * 0.1)
+            mod.bias.add_(torch.randn(mod.bias.shape, generator=g, device=DEV) * 0.1)
+
+
 def detector_setup(dtype, *, dropouts: bool = True, use_checkpoint: bool = False, seed: int = 0,
                    backbone: str | None = None):
     """The detector trainer a user would build (``train_detector.main``'s
@@ -2801,16 +2832,12 @@ def detector_setup(dtype, *, dropouts: bool = True, use_checkpoint: bool = False
     if backbone:
         config.model.backbone = backbone
     model, criterion = build_detection_model(config, dtype, device=DEV, seed=seed)
-    g = torch.Generator(device=DEV).manual_seed(seed + 1)
-    with torch.no_grad():
-        for mod in model.modules():
-            if isinstance(mod, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
-                mod.weight.add_(torch.randn(mod.weight.shape, generator=g, device=DEV) * 0.1)
-                mod.bias.add_(torch.randn(mod.bias.shape, generator=g, device=DEV) * 0.1)
-            elif not dropouts and isinstance(mod, Dropout):
-                mod.p = 0.0
-            elif not dropouts and isinstance(mod, SwinBlock):
-                mod.drop_path_rate = 0.0
+    perturb_norms(model, seed + 1)
+    for mod in model.modules():
+        if not dropouts and isinstance(mod, Dropout):
+            mod.p = 0.0
+        elif not dropouts and isinstance(mod, SwinBlock):
+            mod.drop_path_rate = 0.0
     o = config.optimizer
     opt = optim_lib.build_detector_optimizer(
         model, lr=o.lr, lr_backbone=o.lr_backbone, sp_lr=o.sp_lr, weight_decay=o.weight_decay,
@@ -3351,6 +3378,584 @@ def phase_preset_train(name: str, card: str) -> None:
     del state, step, tbatch
 
 
+# ---------------------------------------------------------------------------
+# data parallel: two ranks under DistributedDataParallel against one process
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+DP_DEADLINE = 600.0     # seconds the ranks may take; past it they are killed
+DP_TIMED_STEPS = 3
+DP_EVAL_BATCH = 8
+
+
+#: of a leaf's max gradient: below it (or below 1e-6, where a gradient that is
+#: zero in exact arithmetic, as an attention key bias's, holds f32 noise) the
+#: sign of Adam's first step is noise
+DP_GRAD_FLOOR = 1e-5
+
+
+def dp_held(optimizer) -> list:
+    return [p for g in optimizer.param_groups for p in g["params"]]
+
+
+def dp_xe_setup(config, batch: int):
+    """``training_setup`` in fp32, dropouts off, the norms perturbed as the
+    detector's (``perturb_norms``: else the padded images' gradients grow
+    316x at every LayerNorm, to 1e10 at full width)."""
+    state, _, tbatch = training_setup(config, torch.float32, batch, dropouts=False)
+    perturb_norms(state.model, 1)
+    return state, tbatch
+
+
+def dp_scst_probe(part: dict, m):
+    """The XE probe on a SCST part's first image and first beam."""
+    caps = torch.cat([torch.full((1, 1), m.bos_idx, device=DEV), part["sequences"][:1, 0]], 1)
+    return xe_lib.xe_probe([{"samples": part["samples"], "captions": caps}], pad_idx=m.pad_idx)
+
+
+def dp_scst_inputs(config):
+    """SC_BATCH images' beams (EOS at varying steps) and rewards, from a seed."""
+    m = config.model
+    rng = np.random.default_rng(5000 + BATCH_SEED)
+    seqs = rng.integers(4, m.vocab_size, (SC_BATCH, BEAM, STEPS))
+    for i in range(SC_BATCH):
+        seqs[i, i % BEAM, 6 + i:] = m.eos_idx
+    rewards = (rng.random((SC_BATCH, BEAM)) * 2).astype(np.float32)
+    return synthetic_batch(SC_BATCH, 3), torch.from_numpy(seqs).to(DEV), torch.from_numpy(rewards)
+
+
+def dp_eval_model(config):
+    return build_captioner(config, device=DEV, dtype=torch.bfloat16, seed=0)
+
+
+def dp_caption_generator(model, config):
+    m = config.model
+    return make_caption_generator(model, beam_size=BEAM, max_len=STEPS, bos_idx=m.bos_idx,
+                                  eos_idx=m.vocab_size)
+
+
+def dp_update_error(model, ref: dict) -> tuple[float, float, str]:
+    """(the worst |p - p_ref| in learning rates where the one-process gradient
+    is above DP_GRAD_FLOOR of its leaf's max and 1e-6, the worst elsewhere,
+    the leaf of the first) over the leaves the one process trained, beyond
+    one f32 rounding of the parameter."""
+    worst, noise, where = 0.0, 0.0, ""
+    for name, p in model.named_parameters():
+        if name not in ref["params"]:
+            continue
+        want = ref["params"][name].to(p.device)
+        # beyond one f32 rounding of the parameter: updates that agree within
+        # UPDATE_TOL may still round to neighbouring floats
+        err = ((p.detach() - want).abs() - torch.finfo(torch.float32).eps * want.abs()
+               ).clamp(min=0) / ref["lr"][name]
+        big = ref["big"][name].to(p.device)
+        if bool(big.any()) and float(err[big].max()) > worst:
+            worst, where = float(err[big].max()), name
+        if bool((~big).any()):
+            noise = max(noise, float(err[~big].max()))
+    return worst, noise, where
+
+
+def dp_ranks_equal(model) -> bool:
+    """Whether every rank's trainable parameters equal rank 0's bit for bit."""
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters() if p.requires_grad])
+    other = flat.clone()
+    torch.distributed.broadcast(other, 0)
+    same = torch.tensor([float(torch.equal(flat, other))], device=flat.device)
+    torch.distributed.all_reduce(same, op=torch.distributed.ReduceOp.MIN)
+    return bool(same.item())
+
+
+def dp_collective_ms(fn) -> dict:
+    """torch.profiler over one call of ``fn``: the device time of the
+    collectives' kernels (NCCL) and of the copies gloo makes of CUDA tensors,
+    the host time in the all-reduce calls, the device busy time and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    nccl = copies = busy = host = 0.0
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0)
+        if dev > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            if not e.key.startswith("Optimizer."):
+                busy += dev
+            if "nccl" in e.key.lower():
+                nccl += dev
+            elif "memcpy" in e.key.lower() and ("dtoh" in e.key.lower() or "htod" in e.key.lower()):
+                copies += dev
+        elif (e.device_type == torch.autograd.DeviceType.CPU
+              and ("all_reduce" in e.key.lower() or "allreduce" in e.key.lower())):
+            host = max(host, e.cpu_time_total)
+    return {"wall_ms": wall * 1e3, "busy_ms": busy / 1e3, "idle_share": 1 - busy / 1e3 / (wall * 1e3),
+            "nccl_kernel_ms": nccl / 1e3, "copy_ms": copies / 1e3, "allreduce_host_ms": host / 1e3}
+
+
+def dp_parts(tree, **pad) -> list:
+    """The global batch's rows in the ranks' groups (rank r: rows r, r + 2, ...)."""
+    return [shard_batch(tree, r, DP_WORLD, **pad) for r in range(DP_WORLD)]
+
+
+def dp_reference_xe(config) -> dict:
+    """One process's fp32 XE step over the global batch in the ranks' row
+    groups, accumulated (``dryrun.one_process_xe_step``): each group's
+    kernels run at a rank's shapes (cuBLAS and cuDNN choose their kernels by
+    the batch, so one forward of all 16 rows rounds differently, and MSDA
+    floors and ReLU gates can flip), with the ranks' set of trained
+    parameters (``exclude_untrained``)."""
+    m = config.model
+    state, batch = dp_xe_setup(config, TRAIN_BATCH)
+    model, opt = state.model, state.optimizer
+    parts = dp_parts(batch, int_fill=m.pad_idx, int_first=m.bos_idx)
+    exclude_untrained(model, trained=dp_held(opt),
+                      probe=xe_lib.xe_probe(parts[:1], pad_idx=m.pad_idx))
+    loss = one_process_xe_step(state, parts, pad_idx=m.pad_idx, sched_cfg=SCHED)
+    lr = {id(p): g["lr"] for g in opt.param_groups for p in g["params"]}
+    out = {"loss": loss, "params": {}, "big": {}, "lr": {}}
+    for name, p in model.named_parameters():
+        if id(p) in lr and p.grad is not None:
+            out["params"][name] = p.detach().cpu()
+            floor = max(1e-6, DP_GRAD_FLOOR * float(p.grad.abs().max()))
+            out["big"][name] = (p.grad.abs() > floor).cpu()
+            out["lr"][name] = lr[id(p)]
+    return out
+
+
+def dp_reference_scst(config) -> dict:
+    """One process's fp32 SCST update over the global batch in the ranks'
+    row groups, accumulated (see ``dp_reference_xe``)."""
+    m, o = config.model, config.optimizer
+    state, _ = dp_xe_setup(config, SC_BATCH)
+    model, opt = state.model, state.optimizer
+    samples, seqs, rewards = dp_scst_inputs(config)
+    parts = dp_parts({"samples": samples, "sequences": seqs, "rewards": rewards.to(DEV)})
+    exclude_untrained(model, trained=dp_held(opt), probe=dp_scst_probe(parts[0], m))
+    model.train()
+    opt.param_groups[0]["lr"], opt.param_groups[1]["lr"] = o.sc_lr, o.sc_backbone_lr
+    opt.zero_grad(set_to_none=True)
+    denom = torch.tensor(float(SC_BATCH * BEAM), device=DEV)
+    sums = {"loss": 0.0, "reward": 0.0, "reward_baseline": 0.0}
+    for p in parts:
+        logp = scst_lib.sequence_log_probs(model, p["samples"], p["sequences"],
+                                           bos_idx=m.bos_idx, eos_idx=m.eos_idx)
+        baseline = p["rewards"].mean(-1, keepdim=True)
+        loss = (-logp.mean(-1) * (p["rewards"] - baseline)).sum() / denom
+        loss.backward()
+        sums["loss"] += float(loss)
+        sums["reward"] += float(p["rewards"].sum() / denom)
+        sums["reward_baseline"] += float(baseline.sum() * BEAM / denom)
+    opt.step()
+    return sums
+
+
+def dp_reference_detector(images, targets, assigns) -> dict:
+    """One process's fp32 detector step over the global batch in the ranks'
+    row groups, accumulated, normalised by the whole batch's box count, then
+    clipped and stepped as ``make_detector_train_step`` does."""
+    config, state, criterion, _ = detector_setup(torch.float32, dropouts=False)
+    model, opt = state.model, state.optimizer
+    parts = dp_parts({"samples": images, "targets": targets})
+    exclude_untrained(model, trained=dp_held(opt),
+                      probe=det_solver.detector_probe(criterion, parts[:1]))
+    model.train()
+    optim_lib.apply_detector_lr(opt, 1.0, 1.0)
+    opt.zero_grad(set_to_none=True)
+    boxes = targets["valid"].sum().float()
+    loss = 0.0
+    for r, p in enumerate(parts):
+        part = criterion.total_loss(criterion(model(p["samples"], training=True), p["targets"],
+                                              assigns=assigns[:, r::DP_WORLD].contiguous(),
+                                              num_boxes=boxes))
+        part.backward()
+        loss += float(part)
+    params = [p for g in opt.param_groups for p in g["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    norm = det_solver.clip_grad_norm(params, config.optimizer.clip_max_norm)
+    opt.step()
+    return {"loss": loss, "grad_norm": float(norm)}
+
+
+def dp_references(work: str) -> dict:
+    """One process on this card, the inputs the ranks will share and what
+    they must reproduce: the rank-specialised evaluation's splits and
+    scores; the fp32 XE step, the SCST update and the detector step, each
+    over the global batch in the ranks' row groups (held) and in one forward
+    (reported); the detector's sharded validation.  Written to
+    ``work``/ref.pt; returns the scalars."""
+    config = default_caption_config()
+    m = config.model
+    ref: dict = {}
+
+    # -- the evaluation's splits: references made from one process's captions
+    model = dp_eval_model(config)
+    gen = dp_caption_generator(model, config)
+    text_field = synthetic_text_field(m.vocab_size)
+    rng = np.random.default_rng(6000 + BATCH_SEED)
+    splits, scores = {}, {}
+    for j, split in enumerate(("valid", "test")):
+        samples = on_host(synthetic_batch(DP_EVAL_BATCH, 20 + j))
+        ids = list(range(j * DP_EVAL_BATCH, (j + 1) * DP_EVAL_BATCH))
+        caps = text_field.decode(gen(samples.to(DEV), DP_EVAL_BATCH).cpu().numpy())
+        refs = [[" ".join(w if rng.random() > 1 / 3 else f"w{rng.integers(0, 1000)}"
+                          for w in (c.split() or ["w0"])) for _ in range(5)] for c in caps]
+        splits[split] = [{"samples": samples, "image_id": ids, "captions": refs}]
+        scores[split] = evaluate_metrics(gen, splits[split], text_field, device=DEV,
+                                         verbose=False)[0]
+    ref["eval"] = {"splits": splits, "scores": scores}
+    del model, gen
+    free_card()
+
+    # -- the fp32 XE step and the SCST update: one forward, then row groups
+    state, batch = dp_xe_setup(config, TRAIN_BATCH)
+    step = xe_lib.make_xe_train_step(pad_idx=m.pad_idx, sched_cfg=SCHED)
+    single = {"xe_loss": float(step(state, batch)[1]["loss"])}
+    del state, step, batch
+    free_card()
+    ref["xe"] = dp_reference_xe(config)
+    free_card()
+    state, _ = dp_xe_setup(config, SC_BATCH)
+    samples, seqs, rewards = dp_scst_inputs(config)
+    update = scst_lib.make_scst_update_step(bos_idx=m.bos_idx, eos_idx=m.eos_idx,
+                                            model_lr=config.optimizer.sc_lr,
+                                            backbone_lr=config.optimizer.sc_backbone_lr)
+    single["scst_loss"] = float(update(state, samples, seqs, rewards.numpy(), SC_BATCH)[1]["loss"])
+    del state, update
+    free_card()
+    ref["scst"] = dp_reference_scst(config)
+    free_card()
+
+    # -- the detector: sharded validation of the initial weights, one step in
+    # one forward (its Hungarian assignments serve every arm), then row groups
+    _, state, criterion, step = detector_setup(torch.float32, dropouts=False)
+    model = state.model
+    first = CocoEvaluator({})
+    det_solver.Valider(lambda: model, dp_detector_shards(), lambda: first,
+                       device=DEV).run_epoch(0)
+    gt = {}
+    for i, p in first.preds.items():     # each image's three best detections as its boxes
+        top = np.argsort(-p["scores"])[:3]
+        gt[i] = {"boxes": p["boxes"][top], "labels": p["labels"][top]}
+    whole = CocoEvaluator(gt)
+    whole.preds = dict(first.preds)
+    ref["det_eval"] = {"gt": gt, "summary": whole.summarize()}
+    images = detector_images(DET_BATCH).to(DEV)
+    targets = {k: torch.from_numpy(v).to(DEV)
+               for k, v in detector_targets(DET_BATCH, criterion.num_classes).items()}
+    targets["labels"] = targets["labels"].long()
+    with torch.no_grad():
+        assigns = criterion.match_levels(model(images, training=True), targets)
+    _, metrics = step(state, images, targets, assigns=assigns)
+    single.update(det_loss=float(metrics["loss"]), det_grad_norm=float(metrics["grad_norm"]))
+    del state, model, criterion, step, metrics
+    free_card()
+    ref["det"] = {**dp_reference_detector(images, targets, assigns), "assigns": assigns.cpu()}
+    free_card()
+    torch.save(ref, os.path.join(work, "ref.pt"))
+    return {"xe_loss": ref["xe"]["loss"], "scst": ref["scst"],
+            "det_loss": ref["det"]["loss"], "det_grad_norm": ref["det"]["grad_norm"],
+            "det_eval": ref["det_eval"]["summary"], "eval": scores, "one_forward": single}
+
+
+def dp_detector_shards(rank_: int | None = None) -> list:
+    """The sharded validation's batches: four images in the 832x1344 bucket,
+    rank r's shard rows r, r + 2 (one b2 batch each); None: both shards, in
+    rank order, for one process."""
+    images = detector_images(DET_BATCH, offset=7)
+    out = []
+    for r in range(DP_WORLD) if rank_ is None else (rank_,):
+        out.append({"samples": shard_batch(images, r, DP_WORLD),
+                    "orig_sizes": np.tile([[DET_HW[0], DET_HW[1]]], (DET_BATCH // DP_WORLD, 1)),
+                    "image_id": list(range(DET_BATCH))[r::DP_WORLD]})
+    return out
+
+
+def dp_rank(work: str, profile: bool) -> dict:
+    """One rank of phase_data_parallel (started by ``run_ranks``): each run of
+    the main paths on this rank's share of the global batch, the model under
+    DistributedDataParallel, held against the one-process references in
+    ``work``/ref.pt by the parent; without TF32, as the parent (``run_ranks``
+    passes its settings on)."""
+    r, w = dist_lib.rank(), dist_lib.world_size()
+    ref = torch.load(os.path.join(work, "ref.pt"), weights_only=False)
+    config = default_caption_config()
+    m = config.model
+    out: dict = {"rank": r, "card": torch.cuda.current_device()}
+
+    # -- rank-specialised evaluation: valid on rank 0, test on rank 1
+    model = dp_eval_model(config)
+    out["eval"] = evaluate_splits(dp_caption_generator(model, config), ref["eval"]["splits"],
+                                  synthetic_text_field(m.vocab_size), device=DEV)
+    del model
+    free_card()
+
+    # -- fp32 XE step, dropouts off, 8 rows a rank
+    state, batch = dp_xe_setup(config, TRAIN_BATCH)
+    step = xe_lib.make_xe_train_step(pad_idx=m.pad_idx, sched_cfg=SCHED)
+    model = state.model
+    mine = shard_batch(batch, int_fill=m.pad_idx, int_first=m.bos_idx)
+    state.model = wrap_data_parallel(model, DEV, trained=dp_held(state.optimizer),
+                                     probe=xe_lib.xe_probe([mine], pad_idx=m.pad_idx))
+    _, metrics = step(state, mine)
+    out["ddp"] = type(state.model).__name__
+    out["xe_loss"] = float(global_sum(metrics["loss"]))
+    out["xe_update"] = dp_update_error(model, ref["xe"])
+    out["xe_ranks_equal"] = dp_ranks_equal(model)
+    out["allreduce_bytes"] = 4 * sum(p.numel() for p in model.parameters() if p.requires_grad)
+    del state, step, batch, model, mine, metrics
+    free_card()
+
+    # -- bf16 XE steps, dropouts on (each rank its own masks), timed
+    state, step, batch = training_setup(config, torch.bfloat16, TRAIN_BATCH, seed=0)
+    model = state.model
+    state.generator = torch.Generator(device=DEV).manual_seed(r)
+    mine = shard_batch(batch, int_fill=m.pad_idx, int_first=m.bos_idx)
+    state.model = wrap_data_parallel(model, DEV, trained=dp_held(state.optimizer),
+                                     probe=xe_lib.xe_probe([mine], pad_idx=m.pad_idx))
+    step(state, mine)                                     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    _, metrics = step(state, mine)
+    torch.cuda.synchronize()
+    out["launches"], out["want"] = train_launches(), train_want()
+    losses, times = [float(global_sum(metrics["loss"]))], []
+    for _ in range(DP_TIMED_STEPS):
+        dist_lib.barrier("timed_step")
+        t0 = time.perf_counter()
+        _, metrics = step(state, mine)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(global_sum(metrics["loss"])))
+    out["bf16"] = {"ms": times, "losses": losses,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if profile:
+        dist_lib.barrier("profiled_step")
+        out["bf16"]["profile"] = dp_collective_ms(lambda: step(state, mine))
+    del state, step, batch, model, mine, metrics
+    free_card()
+
+    # -- SCST update, fp32, dropouts off, 4 images a rank
+    state, _ = dp_xe_setup(config, SC_BATCH)
+    model = state.model
+    samples, seqs, rewards = dp_scst_inputs(config)
+    mine = shard_batch({"samples": samples, "sequences": seqs, "rewards": rewards})
+    state.model = wrap_data_parallel(model, DEV, trained=dp_held(state.optimizer),
+                                     probe=dp_scst_probe(mine, m))
+    update = scst_lib.make_scst_update_step(bos_idx=m.bos_idx, eos_idx=m.eos_idx,
+                                            model_lr=config.optimizer.sc_lr,
+                                            backbone_lr=config.optimizer.sc_backbone_lr)
+    _, metrics = update(state, mine["samples"], mine["sequences"], mine["rewards"].numpy(),
+                        SC_BATCH // w)
+    out["scst"] = {k: float(global_sum(v)) for k, v in metrics.items()}
+    del state, model, update, metrics, mine
+    free_card()
+
+    # -- the detector: this rank's validation shard, merged; then an fp32 step
+    _, state, criterion, step = detector_setup(torch.float32, dropouts=False)
+    model = state.model
+    out["det_eval"] = det_solver.Valider(
+        lambda: model, dp_detector_shards(r), lambda: CocoEvaluator(ref["det_eval"]["gt"]),
+        device=DEV).run_epoch(0)
+    images = detector_images(DET_BATCH)
+    targets = {k: torch.from_numpy(v) for k, v in
+               detector_targets(DET_BATCH, criterion.num_classes).items()}
+    targets["labels"] = targets["labels"].long()
+    mine = to_device(shard_batch({"samples": images, "targets": targets}), DEV)
+    state.model = wrap_data_parallel(model, DEV, trained=dp_held(state.optimizer),
+                                     probe=det_solver.detector_probe(criterion, [mine]))
+    _, metrics = step(state, mine["samples"], mine["targets"],
+                      assigns=ref["det"]["assigns"][:, r::w].contiguous().to(DEV))
+    out["det_loss"] = float(global_sum(metrics["loss"]))
+    out["det_grad_norm"] = float(metrics["grad_norm"])
+    out["det_ranks_equal"] = dp_ranks_equal(model)
+    return out
+
+
+def dp_world_one_steps(profile: bool) -> dict:
+    """One process, no DDP: the bf16 XE step at a rank's rows (b8, rank 0's
+    share), timed as the ranks time theirs."""
+    config = default_caption_config()
+    m = config.model
+    state, step, batch = training_setup(config, torch.bfloat16, TRAIN_BATCH)
+    mine = shard_batch(batch, 0, DP_WORLD, int_fill=m.pad_idx, int_first=m.bos_idx)
+    step(state, mine)                                     # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(DP_TIMED_STEPS):
+        t0 = time.perf_counter()
+        step(state, mine)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = {"ms": times}
+    if profile:
+        out["profile"] = dp_collective_ms(lambda: step(state, mine))
+    del state, step, batch, mine
+    free_card()
+    return out
+
+
+def dp_nccl_world_one() -> dict:
+    """NCCL started on this card through ``maybe_initialize`` from the
+    variables torchrun sets for one rank: an all-reduce of the XE step's
+    gradient size (the bytes DDP moves a step), device time by CUDA events."""
+    import torch.distributed as dist
+
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(dist_lib.free_port()), "RANK": "0",
+           "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        r, w = dist_lib.maybe_initialize(DEV)
+        backend = dist.get_backend()
+        elements = RESULTS["data_parallel"]["allreduce_bytes"] // 4
+        buf = torch.ones(elements, device=DEV)
+        dist.all_reduce(buf)                              # warm-up (communicator)
+        ms = cuda_ms(lambda: dist.all_reduce(buf), reps=5)
+        ok = bool((buf == 1).all())
+        dist.destroy_process_group()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return {"rank": r, "world": w, "backend": backend, "allreduce_ms": ms,
+            "elements": elements, "sum_ok": ok}
+
+
+def phase_data_parallel(card: str, profile: bool) -> None:
+    """Two ranks under DistributedDataParallel at full width (Swin-B, the
+    default caption and detection configs, random weights from seed 0,
+    in-memory loaders), against one process on the same inputs: on two cards
+    over NCCL when there are two, else both on this card over gloo (NCCL
+    refuses a card twice).  The kernel library is built before the ranks
+    start.  Checked: the rank-specialised evaluation (valid on rank 0, test
+    on rank 1, both ranks holding both splits' scores, each one process's);
+    an fp32 XE step at b16 global (loss LOSS_TOL, every updated leaf within
+    UPDATE_TOL of its learning rate where the one-process gradient is above
+    DP_GRAD_FLOOR of the leaf's max and 1e-6, and within two elsewhere; the
+    ranks' parameters bit-equal); three timed bf16 XE steps (kernel launches as one
+    process's step); an SCST update at b8 global (loss LOSS_TOL); the sharded
+    detector validation (merged mAP exactly one process's); an fp32 detector
+    step at b4 global with one process's Hungarian assignments (loss and
+    clipped norm LOSS_TOL).  The one-process steps that updates and norms are
+    held to run the global batch in the ranks' row groups, accumulated, with
+    the ranks' set of trained parameters (``dp_reference_xe``); the losses
+    are also held to one forward of the whole batch.  Then NCCL at world 1
+    through ``maybe_initialize``, and ``dryrun_multichip(2, "cuda")``."""
+    import shutil
+    import tempfile
+
+    two_cards = torch.cuda.device_count() >= DP_WORLD
+    backend = "nccl" if two_cards else "gloo"
+    print(f"[dp] {DP_WORLD} ranks " + ("on two cards over NCCL" if two_cards else
+          "on this one card over gloo, passed explicitly (NCCL refuses a card twice): "
+          "their times measure correctness, not scaling"), flush=True)
+    free_card()
+    world1 = dp_world_one_steps(profile)
+    print(f"[dp] one process, no DDP: b{TRAIN_BATCH // DP_WORLD} bf16 XE step "
+          f"{sorted(world1['ms'])[1]:.1f} ms (median of {len(world1['ms'])}: "
+          f"{', '.join(f'{t:.1f}' for t in world1['ms'])})"
+          + (f"; profiled: {json.dumps(world1['profile'])}" if "profile" in world1 else "")
+          + f"  [{card}]", flush=True)
+    work = tempfile.mkdtemp(prefix="grit_dp_")
+    try:
+        t0 = time.perf_counter()
+        want = dp_references(work)
+        ref_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        try:
+            outs = dist_lib.run_ranks("chip_smoke:dp_rank", DP_WORLD, args=(work, profile),
+                                      device=DEV, backend=backend,
+                                      local_ranks=None if two_cards else [0] * DP_WORLD,
+                                      deadline=DP_DEADLINE, threads=2)
+        except RuntimeError as exc:
+            fail(f"data parallel: {str(exc)[-6000:]}")
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)   # noqa: E731
+    one = want["one_forward"]
+    print(f"[dp] one process, the global batch in one forward: XE loss {one['xe_loss']:.9f}, "
+          f"SCST loss {one['scst_loss']:.9f}, detector loss {one['det_loss']:.7f}, grad norm "
+          f"{one['det_grad_norm']:.6e}; in the ranks' row groups (held below): "
+          f"{want['xe_loss']:.9f}, {want['scst']['loss']:.9f}, {want['det_loss']:.7f}, "
+          f"{want['det_grad_norm']:.6e}", flush=True)
+    for o in outs:
+        r = o["rank"]
+        worst, noise, where = o["xe_update"]
+        print(f"[dp] rank {r} (card {o['card']}, {o['ddp']}): fp32 XE loss {o['xe_loss']:.9f} "
+              f"(one process {want['xe_loss']:.9f}, {rel(o['xe_loss'], want['xe_loss']):.2e}), "
+              f"update {worst:.2e} lr ({where}), {noise:.2e} lr where the gradient is noise, "
+              f"ranks bit-equal {o['xe_ranks_equal']}; SCST loss {o['scst']['loss']:.9f} "
+              f"(one process {want['scst']['loss']:.9f}); detector loss {o['det_loss']:.7f} "
+              f"({want['det_loss']:.7f}), grad norm {o['det_grad_norm']:.6e} "
+              f"({want['det_grad_norm']:.6e})", flush=True)
+        if o["ddp"] != "DistributedDataParallel":
+            fail(f"data parallel: rank {r} trained a {o['ddp']}, not a DDP wrapper")
+        for what, got, refs in (("XE", o["xe_loss"], (want["xe_loss"], one["xe_loss"])),
+                                 ("SCST", o["scst"]["loss"], (want["scst"]["loss"],
+                                                              one["scst_loss"])),
+                                 ("detector", o["det_loss"], (want["det_loss"],
+                                                              one["det_loss"]))):
+            if any(rel(got, x) > LOSS_TOL for x in refs):
+                fail(f"data parallel: rank {r}'s {what} loss {got} != one process's {refs}")
+        if worst > UPDATE_TOL or noise > 2:
+            fail(f"data parallel: rank {r}'s XE update {worst:.3e} / {noise:.3e} learning "
+                 f"rates from one process's ({where})")
+        if not (o["xe_ranks_equal"] and o["det_ranks_equal"]):
+            fail("data parallel: the ranks' parameters differ after a step")
+        for k in ("loss", "reward", "reward_baseline"):
+            if rel(o["scst"][k], want["scst"][k]) > LOSS_TOL:
+                fail(f"data parallel: rank {r}'s SCST {k} {o['scst'][k]} != {want['scst'][k]}")
+        if (rel(o["det_loss"], want["det_loss"]) > LOSS_TOL
+                or rel(o["det_grad_norm"], want["det_grad_norm"]) > LOSS_TOL):
+            fail(f"data parallel: rank {r}'s detector step {o['det_loss']}, "
+                 f"{o['det_grad_norm']} != {want['det_loss']}, {want['det_grad_norm']}")
+        if o["eval"] != want["eval"]:
+            fail(f"data parallel: rank {r}'s evaluation scores {o['eval']} != one process's "
+                 f"{want['eval']}")
+        if o["det_eval"] != want["det_eval"] or not want["det_eval"]["mAP"] > 0:
+            fail(f"data parallel: rank {r}'s merged detector validation {o['det_eval']} != "
+                 f"one process's {want['det_eval']}")
+        if o["launches"] != o["want"]:
+            fail(f"data parallel: rank {r}'s bf16 step launched {o['launches']}, want "
+                 f"{o['want']}")
+        b = o["bf16"]
+        print(f"[dp] rank {r}: b{TRAIN_BATCH // DP_WORLD} bf16 XE step {sorted(b['ms'])[1]:.1f} "
+              f"ms (median of {len(b['ms'])}: {', '.join(f'{t:.1f}' for t in b['ms'])}), "
+              f"losses {', '.join(f'{x:.4f}' for x in b['losses'])}, peak "
+              f"{b['peak_gib']:.2f} GiB, launches as one process's step"
+              + (f"; profiled: {json.dumps(b['profile'])}" if "profile" in b else "")
+              + f"  [{card}]", flush=True)
+    print(f"[dp] the evaluation: valid on rank 0, test on rank 1, both ranks hold "
+          f"{json.dumps({k: v['CIDEr'] for k, v in want['eval'].items()})} (CIDEr, one "
+          f"process's); merged detector mAP {want['det_eval']['mAP']:.6f} on both ranks",
+          flush=True)
+    RESULTS["data_parallel"] = {
+        "backend": backend, "two_cards": two_cards, "references_s": ref_s, "ranks_s": ranks_s,
+        "world_one_steps": world1,
+        "allreduce_bytes": outs[0]["allreduce_bytes"], "one_process": want,
+        "ranks": [{k: v for k, v in o.items() if k not in ("eval", "want")} for o in outs]}
+    nccl = dp_nccl_world_one()
+    print(f"[dp] maybe_initialize at world 1 from torchrun's variables: {nccl['backend']}, "
+          f"rank {nccl['rank']} of {nccl['world']}; all-reduce of {nccl['elements']} "
+          f"f32 ({4 * nccl['elements'] / 2 ** 20:.0f} MiB) {nccl['allreduce_ms']:.3f} ms "
+          f"device  [{card}]", flush=True)
+    if nccl["backend"] != "nccl" or not nccl["sum_ok"]:
+        fail(f"data parallel: world-1 NCCL {nccl}")
+    RESULTS["data_parallel"]["nccl_world_one"] = nccl
+    free_card()
+    RESULTS["data_parallel"]["dryrun"] = dryrun_multichip(DP_WORLD, device=DEV)
+
+
 def ptxas_report() -> dict:
     """{kernel instance: (registers a thread, spilled bytes)} from the
     ``-Xptxas -v`` lines of each source's build log; an instance is named by
@@ -3467,6 +4072,7 @@ def main() -> None:
             card, torch.bfloat16, backbone="swin_tiny", full=False)),
         ("presets train parity", lambda: phase_train_parity(
             PRESET_PARITY_BATCH, preset_config("swin_tiny"), "swin_tiny")),
+        ("data parallel", lambda: phase_data_parallel(card, args.profile)),
         ("profile", lambda: phase_profile(args.batch, card) if args.profile else None),
         ("train parity", lambda: phase_train_parity(TRAIN_BATCH)),
         ("parity seeds", lambda: parity_seeds(TRAIN_BATCH, args.parity_seeds)),
@@ -3589,6 +4195,7 @@ def main() -> None:
                    "parity_seeds": RESULTS.get("parity_seeds"),
                    "ln_kernels": RESULTS.get("ln_kernels"),
                    "decoders": RESULTS.get("decoders"),
+                   "data_parallel": RESULTS.get("data_parallel"),
                    "presets": {k: v for k, v in RESULTS.items()
                                if any(k.startswith(p) for p in ("slice swin", "train swin",
                                                                 "detector_fp32 swin",

@@ -258,8 +258,14 @@ class CocoLoader:
         return idx[self.rank::self.world]
 
     def __len__(self):
-        n = len(self._indices())
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        """Batches a rank runs: the one-process count at the global batch
+        ``batch_size * world``, the same on every rank (a rank that ran one
+        batch more would wait for the others in the next collective).  Batch
+        t of rank r is ``idx[r::world][B*t : B*(t+1)]``, so the ranks' batch t
+        together is ``idx[world*B*t : world*B*(t+1)]``: without ``drop_last``
+        a rank's share of the last batch may be short or empty."""
+        n, per_step = len(self.dataset), self.batch_size * self.world
+        return n // per_step if self.drop_last else -(-n // per_step)
 
     def _load_image(self, path: str):
         from PIL import Image
@@ -268,6 +274,10 @@ class CocoLoader:
             return self.transform(im)
 
     def _make_batch(self, items):
+        if not items:   # a rank's empty share of the last batch: no rows, no samples
+            return {"samples": None, "image_id": [],
+                    "captions": (pad_captions([], self.max_len) if self.mode == "paired"
+                                 else [])}
         batch: dict = {}
         if self.mode == "paired":
             image_ids = [ex.image_id for ex in items]

@@ -32,6 +32,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from grit_tpu_torch.parallel.distributed import allgather_pyobj
+
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 RECALL_THRS = np.linspace(0.0, 1.0, 101)
 # (name, lo, hi) with cocoeval's inclusive-bound convention
@@ -103,9 +105,15 @@ class CocoEvaluator:
                 self.preds[int(img_id)] = {k: np.asarray(v) for k, v in res.items()}
 
     def synchronize_between_processes(self):
-        """Merge predictions across processes (engine/utils.py:102-142).  One
-        process holds every prediction already: the identity.  The sharded
-        evaluation of a data-parallel run is not ported yet (ROADMAP.md)."""
+        """Merge the ranks' predictions (engine/utils.py:102-142): each rank
+        saw its own shard, so the dicts have different keys; they travel
+        pickled (``parallel.distributed.allgather_pyobj``) and merge into one
+        on every rank, whose mAP is then one process's.  One rank: the
+        identity."""
+        merged = {}
+        for shard in allgather_pyobj(self.preds):
+            merged.update(shard)
+        self.preds = merged
 
     # ------------------------------------------------------------------
     def _cell(self, img_id: int, cat: int):

@@ -10,6 +10,10 @@ Provided hooks mirror the reference set:
   fallback writes scalars to a jsonl), ProgressHook (:193-213);
 - WarmupLRHook / EpochLRHook (:159-190): per-step linear warmup and
   per-epoch MultiStep decay, applied by mutating the solver's lr scale.
+
+Under data parallel every rank runs every hook (the logging hooks reduce the
+metrics over the ranks when they read them), and rank 0 alone writes files
+and prints.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import json
 import os
 import time
 from typing import Any, Optional
+
+from grit_tpu_torch.parallel.distributed import is_main_process
 
 
 class Hook:
@@ -61,7 +67,7 @@ class CheckpointHook(Hook):
         # prune beyond top-k (reference hooks.py:91-99)
         for _, old in self.saved[self.topk:]:
             path = os.path.join(self.workdir, "checkpoints", old)
-            if os.path.isdir(path):
+            if is_main_process() and os.path.isdir(path):
                 import shutil
 
                 shutil.rmtree(path, ignore_errors=True)
@@ -75,15 +81,19 @@ class TextLoggingHook(Hook):
 
     def after_step(self, solver):
         if solver.step_in_epoch % self.every == 0:
+            metrics = solver.read_metrics()
+            if not is_main_process():
+                return
             msg = (f"epoch {solver.epoch} it {solver.step_in_epoch}: "
-                   + " ".join(f"{k}={float(v):.4f}" for k, v in solver.step_metrics.items()))
+                   + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
             with open(self.path, "a") as f:
                 f.write(msg + "\n")
             print(msg)
 
     def after_epoch(self, solver):
-        with open(self.path, "a") as f:
-            f.write(f"epoch {solver.epoch} results: {solver.epoch_results}\n")
+        if is_main_process():
+            with open(self.path, "a") as f:
+                f.write(f"epoch {solver.epoch} results: {solver.epoch_results}\n")
 
 
 class ScalarWriterHook(Hook):
@@ -96,7 +106,9 @@ class ScalarWriterHook(Hook):
     def after_step(self, solver):
         if solver.step_in_epoch % self.every == 0:
             rec = {"step": solver.global_step, "epoch": solver.epoch}
-            rec.update({k: float(v) for k, v in solver.step_metrics.items()})
+            rec.update(solver.read_metrics())
+            if not is_main_process():
+                return
             with open(self.path, "a") as f:
                 f.write(json.dumps(rec) + "\n")
 
@@ -110,7 +122,8 @@ class ProgressHook(Hook):
         self._t0 = time.time()
 
     def after_step(self, solver):
-        if solver.step_in_epoch % self.every == 0 and solver.step_in_epoch > 0:
+        if (solver.step_in_epoch % self.every == 0 and solver.step_in_epoch > 0
+                and is_main_process()):
             rate = solver.step_in_epoch / (time.time() - self._t0)
             print(f"epoch {solver.epoch}: {solver.step_in_epoch}/{solver.steps_per_epoch} "
                   f"({rate:.2f} it/s)")

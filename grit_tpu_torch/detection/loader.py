@@ -6,7 +6,8 @@ Parity: the reference feeds the detector through ``DistributedSampler`` +
 
 - per-process sharding by ``indices[rank::world]`` after a seed+epoch
   shuffle (DistributedSampler semantics; the caption loader,
-  grit_tpu_torch/data/coco.py, uses the same scheme);
+  grit_tpu_torch/data/coco.py, uses the same scheme), with as many batches
+  on every rank as one process would run at ``batch_size * world``;
 - a thread pool decodes + transforms the batch's images concurrently
   (``num_workers``, reference ``optimizer.num_workers``), and ``prefetch``
   batches build concurrently on a batch-level pool, emitted strictly in
@@ -86,8 +87,13 @@ class DetectionLoader:
         return idx[self.rank::self.world]
 
     def __len__(self):
-        n = len(self._indices())
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        """The one-process count at the global batch ``batch_size * world``,
+        the same on every rank (``data.coco.CocoLoader.__len__``).  Training
+        drops the short tail: a padded image would add background focal-loss
+        terms.  In validation a rank's share of the last batch may be short or
+        empty (no ``image_id``)."""
+        n, per_step = len(self.dataset), self.batch_size * self.world
+        return n // per_step if self.drop_last else -(-n // per_step)
 
     def _load_item(self, i: int):
         from grit_tpu_torch.detection.det_transforms import seed_item_rng
@@ -101,6 +107,8 @@ class DetectionLoader:
         return arr, tgt
 
     def _make_batch(self, rows) -> dict:
+        if not len(rows):
+            return {"samples": None, "orig_sizes": np.zeros((0, 2), np.int64), "image_id": []}
         items = list(self._pool().map(self._load_item, rows))
         imgs = [arr for arr, _ in items]
         tgts = [tgt for _, tgt in items]

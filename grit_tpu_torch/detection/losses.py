@@ -24,8 +24,13 @@ Losses (od_losses.py:40-65, 91-116, 118-130, 206-227):
 - attributes: the weighted BCE of od_losses.py:141-177 (inside/outside
   class-balance terms), used when attribute targets are present.
 
-``num_boxes`` is the batch's count of ground-truth boxes, clamped to >= 1.
-All losses are computed in f32 whatever the model's compute dtype.
+``num_boxes`` is the GLOBAL batch's count of ground-truth boxes, summed over
+the ranks and then clamped to >= 1, as the reference's all-reduce
+(od_losses.py:259-268) and grit_tpu's global count under GSPMD have it; the
+attribute loss's positive and negative counts are global too.  Each rank's
+losses are so its shares of the global batch's (the losses themselves on one
+rank).  The host matching stays per image, on each rank.  All losses are
+computed in f32 whatever the model's compute dtype.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from grit_tpu_torch.parallel.mesh import global_sum
 from grit_tpu_torch.utils.boxes import box_cxcywh_to_xyxy, generalized_box_iou
 
 BIG_COST = 1e6
@@ -208,7 +214,8 @@ class SetCriterion:
                               safe_assign[..., None].expand(-1, -1, attr_logits.shape[-1]))
         tgt = targets["attributes"].float()
         bce = sigmoid_ce(logits, tgt) * matched
-        n_pos, n_neg = (tgt * matched).sum(), ((1 - tgt) * matched).sum()
+        n_pos, n_neg = global_sum(torch.stack([(tgt * matched).sum(),
+                                               ((1 - tgt) * matched).sum()]))
         inside = torch.where(n_pos > 0, (bce * tgt).sum() / n_pos.clamp(min=1), 0.0)
         outside = torch.where(n_neg > 0, (bce * (1 - tgt)).sum() / n_neg.clamp(min=1), 0.0)
         return {"loss_attr": inside + outside}
@@ -222,12 +229,16 @@ class SetCriterion:
             torch.stack([outputs["pred_boxes"]] + [a["pred_boxes"] for a in aux]),
             targets["labels"], targets["boxes"], targets["valid"], **self.cost)
 
-    def __call__(self, outputs: dict, targets: dict, assigns=None) -> dict:
+    def __call__(self, outputs: dict, targets: dict, assigns=None, num_boxes=None) -> dict:
         """outputs: {pred_logits, pred_boxes, [aux_outputs], [attr_logits]} ->
         the per-loss dict (incl. per-aux-layer '_i' entries).  ``assigns``
         [L, B, G] replaces the matching (comparisons feed one arm's
-        assignment to another)."""
-        num_boxes = targets["valid"].bool().sum().float().clamp(min=1.0)
+        assignment to another).  ``num_boxes``: the box count to normalise
+        by, where one process runs a global batch in parts (default: this
+        batch's, summed over the ranks)."""
+        if num_boxes is None:
+            num_boxes = global_sum(targets["valid"].bool().sum().float())
+        num_boxes = torch.as_tensor(num_boxes, dtype=torch.float32).clamp(min=1.0)
         aux = outputs.get("aux_outputs", [])
         if assigns is None:
             assigns = self.match_levels(outputs, targets)

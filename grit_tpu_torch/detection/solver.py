@@ -9,6 +9,15 @@ A step runs eagerly: forward, the criterion (one round trip to the host for
 the Hungarian assignments of every prediction level), backward, a global-norm
 clip in plain torch, and the five-group ``Adam`` step through K12.  Hooks
 drive the learning rates through the solver's scales.
+
+Data parallel: ``state.model`` is the rank's ``DistributedDataParallel``; the
+criterion normalises by the global box count, each rank backpropagates its
+share of the loss times world, and the clip reads the gradients after DDP's
+all-reduce, so every rank clips the same global norm.  The logged metrics are
+summed (the losses, which are shares) or averaged (the others) over the ranks
+where a hook reads them (``SolverBase.read_metrics``).  The ``Valider``
+evaluates the rank's shard of the validation set on the local model and
+merges the predictions through ``CocoEvaluator.synchronize_between_processes``.
 """
 
 from __future__ import annotations
@@ -21,7 +30,9 @@ from grit_tpu_torch.detection.postprocess import postprocess
 from grit_tpu_torch.engine.optim import apply_detector_lr
 from grit_tpu_torch.engine.xe import TrainState
 from grit_tpu_torch.models.layers import set_generator
-from grit_tpu_torch.utils.nested import to_device
+from grit_tpu_torch.parallel.distributed import world_size
+from grit_tpu_torch.parallel.mesh import global_sum, unwrap
+from grit_tpu_torch.utils.nested import first_rows, to_device
 
 
 def clip_grad_norm(params, max_norm: float) -> torch.Tensor:
@@ -49,18 +60,19 @@ def make_detector_train_step(criterion, *, clip_max_norm: float = 0.1) -> Callab
     [levels, B, G] replaces the Hungarian matching (comparisons of two
     arithmetic paths feed both one assignment).  metrics: the
     total ``loss``, ``grad_norm`` and the last level's named losses, 0-d
-    tensors that are not synchronised."""
+    tensors that are not synchronised; the losses are this rank's shares of
+    the global batch's (the losses on one rank)."""
 
     def step(state: TrainState, images, targets, lr_scale: float = 1.0,
              sp_lr_scale: float = 1.0, assigns=None):
         model, optimizer = state.model, state.optimizer
         model.train()
-        set_generator(model, state.generator)
+        set_generator(unwrap(model), state.generator)
         apply_detector_lr(optimizer, lr_scale, sp_lr_scale)
         optimizer.zero_grad(set_to_none=True)
         losses = criterion(model(images, training=True), targets, assigns=assigns)
         total = criterion.total_loss(losses)
-        total.backward()
+        (total * world_size()).backward()     # DDP averages over the ranks
         params = [p for g in optimizer.param_groups for p in g["params"]]
         for p in params:
             # a parameter off the path (``level_embed``) still decays, as with
@@ -75,6 +87,23 @@ def make_detector_train_step(criterion, *, clip_max_norm: float = 0.1) -> Callab
         return state, metrics
 
     return step
+
+
+def detector_probe(criterion, batches) -> Callable:
+    """-> probe(model): the total loss of one training forward on the first
+    image of the first batch of ``batches`` (read when the probe runs), its
+    dropout masks from a generator of its own: what
+    ``parallel.mesh.wrap_data_parallel`` backpropagates to find the
+    parameters a detector step leaves without a gradient."""
+    def probe(model):
+        device = next(model.parameters()).device
+        model.train()
+        set_generator(model, torch.Generator(device=device).manual_seed(0))
+        batch = to_device(first_rows(next(iter(batches)), 1), device)
+        return criterion.total_loss(criterion(model(batch["samples"], training=True),
+                                              batch["targets"]))
+
+    return probe
 
 
 class SolverBase:
@@ -97,6 +126,18 @@ class SolverBase:
     def call_hooks(self, name: str):
         for h in self.hooks:
             getattr(h, name)(self)
+
+    def read_metrics(self) -> dict:
+        """The step's metrics as floats, over the ranks: the losses (this
+        rank's shares) summed, the others (the gradient norm, the same on
+        every rank; the logging errors) averaged.  Every rank must call it
+        at the same step."""
+        keys = list(self.step_metrics)
+        if not keys:
+            return {}
+        vals = global_sum(torch.stack([torch.as_tensor(self.step_metrics[k]).float()
+                                       for k in keys])).tolist()
+        return {k: v if k.startswith("loss") else v / world_size() for k, v in zip(keys, vals)}
 
 
 class Trainer(SolverBase):
@@ -155,16 +196,19 @@ class Valider(SolverBase):
         self.epoch = epoch
         self.call_hooks("before_epoch")
         evaluator = self.evaluator_factory()
-        model = self.model_getter()
+        model = unwrap(self.model_getter())    # the rank's local model
         was_training = model.training
         model.eval()
         for batch in self.dataloader:
+            if not batch["image_id"]:          # a rank's empty share of the last batch
+                continue
             out = model(to_device(batch["samples"], self.device), training=False)
             results = postprocess(out["pred_logits"], out["pred_boxes"],
                                   torch.as_tensor(batch["orig_sizes"]))
             evaluator.update(batch["image_id"],
                              {k: v.cpu().numpy() for k, v in results.items()})
         model.train(was_training)
+        evaluator.synchronize_between_processes()   # every rank's predictions
         self.epoch_results = evaluator.summarize()
         print(f"epoch {epoch} eval: {self.epoch_results}")
         self.call_hooks("after_epoch")

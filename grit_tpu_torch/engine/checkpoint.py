@@ -17,6 +17,11 @@ The model's part (``state_dict``) carries the reference's torch parameter
 names, so ``convert.state_dict_to_params`` takes it to the JAX package and
 ``convert.params_to_state_dict`` back.  ``strict=False`` loads report missing
 and unexpected key counts like the reference (train_caption.py:39,132).
+
+Data parallel: rank 0 writes and every rank then meets at a barrier, so a
+checkpoint is whole before any rank reads it; the parameters saved are the
+wrapped module's (no ``module.`` prefix), so a data-parallel checkpoint loads
+into one process, and every rank restores the same file.
 """
 
 from __future__ import annotations
@@ -25,6 +30,10 @@ import os
 from typing import Any, Optional
 
 import torch
+
+from grit_tpu_torch.parallel.distributed import (allgather_pyobj, barrier, is_main_process,
+                                                 rank, world_size)
+from grit_tpu_torch.parallel.mesh import unwrap
 
 STATE_FILE = "state.pth"
 
@@ -37,23 +46,30 @@ def save_checkpoint(workdir: str, name: str, *, state: Any, epoch: int,
                     best_ciders: tuple[float, float] = (0.0, 0.0), scores: Any = None,
                     config: Any = None) -> None:
     """Save a named checkpoint (e.g. 'last', 'best_valid', 'ft_xe', 'epoch_17')
-    of an ``engine.xe.TrainState``."""
-    path = _ckpt_dir(workdir, name)
-    os.makedirs(path, exist_ok=True)
+    of an ``engine.xe.TrainState``: rank 0 writes, every rank waits for it.
+    Under data parallel the dropout generators' states of all ranks are
+    saved too (``generator_states``): each rank draws its own masks."""
     gen = state.generator
-    payload = {
-        "state_dict": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
-        "global_steps": int(state.global_steps),
-        "epoch": int(epoch),
-        "best_ciders": [float(c) for c in best_ciders],
-        "generator_state": None if gen is None else gen.get_state(),
-    }
-    tmp = os.path.join(path, STATE_FILE + ".tmp")
-    torch.save(payload, tmp)
-    os.replace(tmp, os.path.join(path, STATE_FILE))
-    if config is not None:
-        config.to_yaml(os.path.join(path, "config.yaml"))
+    gens = allgather_pyobj(None if gen is None else gen.get_state())
+    if is_main_process():
+        path = _ckpt_dir(workdir, name)
+        os.makedirs(path, exist_ok=True)
+        payload = {
+            "state_dict": unwrap(state.model).state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "global_steps": int(state.global_steps),
+            "epoch": int(epoch),
+            "best_ciders": [float(c) for c in best_ciders],
+            "generator_state": gens[0],
+        }
+        if len(gens) > 1:
+            payload["generator_states"] = gens
+        tmp = os.path.join(path, STATE_FILE + ".tmp")
+        torch.save(payload, tmp)
+        os.replace(tmp, os.path.join(path, STATE_FILE))
+        if config is not None:
+            config.to_yaml(os.path.join(path, "config.yaml"))
+    barrier("checkpoint_saved")
 
 
 def restore_checkpoint_path(path: str) -> dict:
@@ -74,12 +90,14 @@ def load_train_state(state: Any, payload: dict, *, params_only: bool = False) ->
     """Load a payload into an ``engine.xe.TrainState`` in place: parameters,
     and unless ``params_only`` (the SC warm-start from ``best_valid``) also the
     optimizer state, the scheduler tick and the dropout generator's state."""
-    state.model.load_state_dict(payload["state_dict"], strict=True)
+    unwrap(state.model).load_state_dict(payload["state_dict"], strict=True)
     if not params_only:
         state.optimizer.load_state_dict(payload["optimizer"])
         state.global_steps = int(payload["global_steps"])
-        if state.generator is not None and payload.get("generator_state") is not None:
-            state.generator.set_state(payload["generator_state"])
+        gens = payload.get("generator_states") or [payload.get("generator_state")]
+        gen = gens[rank()] if len(gens) == world_size() else gens[0]
+        if state.generator is not None and gen is not None:
+            state.generator.set_state(gen)
     return state
 
 

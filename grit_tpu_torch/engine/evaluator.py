@@ -20,6 +20,7 @@ import torch
 
 from grit_tpu_torch.data.metrics import PTBTokenizer, compute_scores
 from grit_tpu_torch.decoding.beam_search import beam_search
+from grit_tpu_torch.parallel.distributed import allgather_pyobj, rank, world_size
 from grit_tpu_torch.utils.nested import pad_leading, to_device
 
 
@@ -109,6 +110,26 @@ def evaluate_metrics(generate_fn: Callable, dataloader, text_field, *, device, e
         if verbose:
             print(f"Epoch {epoch}: {split} scores: {scores}")
     return scores, results, avg_time
+
+
+def evaluate_splits(generate_fn: Callable, loaders: dict, text_field, *, device,
+                    epoch: int = 0) -> dict:
+    """Scores of each split of ``loaders`` (``{split: loader}``) -> ``{split:
+    scores}`` on every rank.  With two or more ranks the evaluation is
+    rank-specialised (reference train_caption.py:149-179; grit_tpu's
+    train_caption.py:255-276): split i runs whole on rank i % world (valid on
+    rank 0, test on rank 1), on the rank's local model, and the scores are
+    all-gathered, so that every rank takes the same best-checkpoint decision.
+    One rank runs every split."""
+    mine = {}
+    for i, (split, loader) in enumerate(loaders.items()):
+        if i % world_size() == rank():
+            mine[split], _, _ = evaluate_metrics(generate_fn, loader, text_field, device=device,
+                                                 epoch=epoch, split=split)
+    merged = {}
+    for scores in allgather_pyobj(mine):
+        merged.update(scores)
+    return {split: merged[split] for split in loaders}
 
 
 def caption_batches(generate_fn, batches, text_field, *, device) -> list[dict]:

@@ -4,17 +4,21 @@ Parity: reference train_caption.py:95-204 (phase machine) and
 engine/caption_engine.py (train_xe :312, train_sc :388, evaluate_loss :287,
 log_epoch :106); grit_tpu/engine/loops.py.
 
-Execution per step, on one device:
+Execution per step, on each rank's device:
 - XE: forward, backward and the Adam update are queued on the device's
   stream; batches stream from the host loader's threads; the loss stays on
-  the device and is read back every 64 steps;
+  the device and is read back every 64 steps (``DRAIN``), summed over the
+  ranks there and nowhere else;
 - SCST: beam-search generation -> host decode + PTB tokenize + CIDEr reward
   -> re-score/update step.  Batch i+1's generation is queued before batch i's
   rewards are computed on the host, so the two overlap.
 
 Loader batches arrive on the host at a fixed size except for a ragged tail,
-which ``ragged_padder`` pads back to the first batch's size; a data-parallel
-trainer can shard what comes out of the padder.
+which ``ragged_padder`` pads back to the first batch's size with zero-weight
+rows.  Under data parallel each rank's loader deals it its share of every
+global batch (``data/coco.py``), each rank pads its own share, and the steps
+normalise over the global batch (``engine/xe.py``, ``engine/scst.py``); every
+rank runs as many batches, and the epochs start at a barrier.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import numpy as np
 import torch
 
 from grit_tpu_torch.data.metrics import PTBTokenizer
+from grit_tpu_torch.parallel.distributed import barrier
+from grit_tpu_torch.parallel.mesh import global_sum
 from grit_tpu_torch.utils.nested import pad_leading, to_device
 
 #: steps between reads of the on-device metrics (a read waits for the device)
@@ -100,12 +106,17 @@ def total_epochs(config) -> int:
 
 
 def _validation_loss(eval_loss_step, loader, device, pad_idx: int, bos_idx: int) -> float:
+    """The mean of the global batches' losses (grit_tpu's loop: a loss a
+    global batch); a rank's empty share of the last batch still takes part."""
     running, n = 0.0, 0
     pad_val = ragged_padder(int_fill=pad_idx, int_first=bos_idx)
     for batch in loader:
-        b = {"samples": batch["samples"], "captions": batch["captions"]}
-        b = pad_val(b, int(b["captions"].shape[0]))
-        running += float(eval_loss_step(to_device(b, device)))
+        if batch["samples"] is None:
+            running += float(eval_loss_step(None))
+        else:
+            b = {"samples": batch["samples"], "captions": batch["captions"]}
+            b = pad_val(b, int(b["captions"].shape[0]))
+            running += float(eval_loss_step(to_device(b, device)))
         n += 1
     return running / max(n, 1)
 
@@ -114,6 +125,7 @@ def train_xe_epoch(xe_step, eval_loss_step, state, dataloaders, *, epoch, device
                    pad_idx: int = 1, bos_idx: int = 2):
     """One XE epoch + validation loss (caption_engine.py:312-385) ->
     (state, {'loss', 'reward', 'reward_baseline', 'val_loss'})."""
+    barrier("xe_epoch_start")
     state = state.epoch_tick()  # the reference's epoch-start scheduler.step()
     running = 0.0
     n = 0
@@ -127,7 +139,8 @@ def train_xe_epoch(xe_step, eval_loss_step, state, dataloaders, *, epoch, device
         nonlocal running, n
         if not pending_loss:
             return
-        vals = torch.stack(pending_loss).cpu().numpy()
+        # each step's loss is this rank's share: the sum over ranks is the loss
+        vals = global_sum(torch.stack(pending_loss)).cpu().numpy()
         running += float(vals.sum())
         n += len(vals)
         if writer is not None:
@@ -160,8 +173,9 @@ def train_sc_epoch(generate_step, scst_update, eval_loss_step, state, dataloader
                    text_field, *, beam_size, epoch, device, pad_idx: int = 1, bos_idx: int = 2):
     """One SCST epoch (caption_engine.py:388-492) with generation and reward
     overlapped -> (state, {'loss', 'reward', 'reward_baseline', 'val_loss'})."""
-    running = {"loss": 0.0, "reward": 0.0, "reward_baseline": 0.0}
-    n = 0
+    barrier("sc_epoch_start")
+    keys = ("loss", "reward", "reward_baseline")
+    shares = []     # per update, this rank's shares of the metrics, on the device
     pending = None  # (samples on the device, sequences on the device, captions)
 
     def reward_and_update(state, samples, sequences, captions):
@@ -177,10 +191,7 @@ def train_sc_epoch(generate_step, scst_update, eval_loss_step, state, dataloader
         return scst_update(state, samples, sequences, reward, float(b))
 
     def account(metrics):
-        nonlocal n
-        for key in running:
-            running[key] += float(metrics[key])
-        n += 1
+        shares.append(torch.stack([metrics[k] for k in keys]))
 
     # a ragged tail generates at the first batch's size; reward_and_update
     # scores only the true ``len(captions)`` rows and the SCST update is
@@ -202,7 +213,10 @@ def train_sc_epoch(generate_step, scst_update, eval_loss_step, state, dataloader
         state, metrics = reward_and_update(state, *pending)
         account(metrics)
 
-    res = {k: v / max(n, 1) for k, v in running.items()}
+    # summed over the ranks once, where the epoch reads them
+    per_update = global_sum(torch.stack(shares)).cpu().numpy() if shares else np.zeros((0, 3))
+    res = {k: sum(float(v) for v in per_update[:, i]) / max(len(per_update), 1)
+           for i, k in enumerate(keys)}
     res["val_loss"] = _validation_loss(eval_loss_step, dataloaders["valid"], device, pad_idx,
                                        bos_idx)
     print(f"Epoch {epoch} SCST: loss={res['loss']:.4f} reward={res['reward']:.3f} "

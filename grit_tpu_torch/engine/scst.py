@@ -29,6 +29,8 @@ import torch
 
 from grit_tpu_torch.decoding.beam_search import beam_search
 from grit_tpu_torch.engine.xe import TrainState
+from grit_tpu_torch.parallel.distributed import world_size
+from grit_tpu_torch.parallel.mesh import global_sum, unwrap
 
 
 def make_generate_step(model, *, beam_size: int, max_len: int, bos_idx: int,
@@ -74,10 +76,9 @@ def sequence_log_probs(model, samples, sequences: torch.Tensor, *, bos_idx: int,
     flat = sequences.reshape(b * k, t_len)
     inputs = torch.cat([torch.full((b * k, 1), bos_idx, dtype=flat.dtype, device=flat.device),
                         flat[:, :-1]], dim=1)
-    vis = {name: x.repeat_interleave(k, dim=0) for name, x in model.compute_vis(samples).items()}
-    # score against the processed features directly: forward(dict, seq) would
-    # run the grid network again
-    out = model.score_tokens(vis, inputs)                           # [B*k, T, V]
+    # one forward, the beams folded onto their image's features: a DDP
+    # wrapper arms its gradient all-reduce in forward only
+    out = model(samples, inputs, fold=k)                            # [B*k, T, V]
     logp = torch.gather(out, -1, flat[..., None])[..., 0]           # [B*k, T]
     # include position t iff no EOS among w_0..w_{t-1}
     seen_eos = torch.cumsum((flat == eos_idx).long(), dim=1)
@@ -96,13 +97,16 @@ def make_scst_update_step(*, bos_idx: int, eos_idx: int, model_lr: float,
     to the first batch's size, and the padded rows carry reward 0 = baseline
     0, so their advantage vanishes; normalising by ``n_valid * beam`` instead
     of ``.mean()`` makes the loss and gradient exactly the true batch's.
-    metrics: 0-d tensors ``loss``, ``reward``, ``reward_baseline`` (not
-    synchronised)."""
+    Under data parallel (``state.model`` the rank's DDP wrapper) the rank
+    passes its own ``n_valid``, and the step normalises by their sum over the
+    ranks, as grit_tpu's step does over the global batch.  metrics: 0-d
+    tensors ``loss``, ``reward``, ``reward_baseline``, this rank's shares of
+    the global values (the values on one rank), not synchronised."""
 
     def step(state: TrainState, samples, sequences, rewards, n_valid):
         model = state.model
         model.train()
-        model.set_generator(state.generator)
+        unwrap(model).set_generator(state.generator)
         state.optimizer.param_groups[0]["lr"] = model_lr
         state.optimizer.param_groups[1]["lr"] = backbone_lr
         state.optimizer.zero_grad(set_to_none=True)
@@ -110,9 +114,10 @@ def make_scst_update_step(*, bos_idx: int, eos_idx: int, model_lr: float,
         logp = sequence_log_probs(model, samples, sequences, bos_idx=bos_idx, eos_idx=eos_idx)
         mean_logp = logp.mean(-1)        # mean over max_len incl. zeros (ref :439)
         baseline = rewards.mean(-1, keepdim=True)
-        denom = float(n_valid) * rewards.shape[-1]
+        n_valid = global_sum(torch.as_tensor(float(n_valid), device=sequences.device))
+        denom = n_valid * rewards.shape[-1]
         loss = (-mean_logp * (rewards - baseline)).sum() / denom
-        loss.backward()
+        (loss * world_size()).backward()     # DDP averages over the ranks
         state.optimizer.step()
         return state, {"loss": loss.detach(), "reward": rewards.sum() / denom,
                        "reward_baseline": baseline.sum() * rewards.shape[-1] / denom}

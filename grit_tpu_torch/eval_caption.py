@@ -18,6 +18,8 @@ import sys
 
 import torch
 
+from grit_tpu_torch.parallel.distributed import rank_device
+
 
 def caption_config(argv):
     """The caption config with dotted overrides applied, ``--device X`` read
@@ -34,12 +36,13 @@ def caption_config(argv):
 
 
 def config_device(config, who: str) -> torch.device:
-    """``config.exp.device``; raises for ``cuda`` without a card."""
+    """``config.exp.device``; raises for ``cuda`` without a card.  A bare
+    ``cuda`` is the rank's card, ``LOCAL_RANK`` (0 without a launcher)."""
     device = torch.device(config.exp.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"{who}: no CUDA device is available "
                            "(pass exp.device=cpu or --device cpu to run on the CPU)")
-    return device
+    return rank_device(device)
 
 
 def compute_dtype(config) -> torch.dtype:

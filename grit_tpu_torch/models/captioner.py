@@ -48,14 +48,16 @@ class GRITCaptioner(nn.Module):
         vis["gri_feat"] = gri[:, -1]
         return vis
 
-    def forward(self, images: ImageBatch, seq: torch.Tensor) -> torch.Tensor:
-        """Teacher forcing: images and int captions [B, L] -> log-probs [B, L, V]."""
-        return self.cap_generator(seq, self.compute_vis(images))
-
-    def score_tokens(self, vis_inputs: dict, seq: torch.Tensor) -> torch.Tensor:
-        """Teacher-forced log-probs [B, L, V] over already-processed visual
-        features (the output of ``compute_vis``)."""
-        return self.cap_generator(seq, vis_inputs)
+    def forward(self, images: ImageBatch, seq: torch.Tensor, fold: int = 1) -> torch.Tensor:
+        """Teacher forcing: images and int captions [B * fold, L] -> log-probs
+        [B * fold, L, V]; ``fold`` captions score against each image's
+        features, computed once (the SCST update re-scores its beams: going
+        through ``forward`` lets a ``DistributedDataParallel`` wrapper see
+        it)."""
+        vis = self.compute_vis(images)
+        if fold > 1:
+            vis = {name: x.repeat_interleave(fold, dim=0) for name, x in vis.items()}
+        return self.cap_generator(seq, vis)
 
     def set_generator(self, generator) -> "GRITCaptioner":
         """Draw every dropout and drop-path mask from ``generator`` (None:

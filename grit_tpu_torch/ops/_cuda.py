@@ -55,6 +55,20 @@ def _sources() -> list[Path]:
     return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
+def _code_flags() -> list[str]:
+    """NVCC_FLAGS without ``-Xptxas -v``, which changes what ptxas prints and
+    not the code: a library built with it serves a process without it (the
+    ranks of a data-parallel run load the library their parent built)."""
+    out, i = [], 0
+    while i < len(NVCC_FLAGS):
+        if NVCC_FLAGS[i:i + 2] == ["-Xptxas", "-v"]:
+            i += 2
+        else:
+            out.append(NVCC_FLAGS[i])
+            i += 1
+    return out
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -105,7 +119,7 @@ def library() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     srcs = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_code_flags()).encode())
     for p in srcs:
         h.update(p.name.encode())
         h.update(p.read_bytes())

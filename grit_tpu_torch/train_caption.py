@@ -20,18 +20,25 @@ The freezing mode (``optimizer.freezing_xe_epochs`` > 0 without
 detector weights, in the compute dtype, through
 ``tools/extract_features.py`` (grit_tpu's train_caption.py:115-142).
 
-One process, one device.  What waits for its own slice raises
-``NotImplementedError``: the rank-specialised evaluation and the sharded batch
-(data parallel).
+Data parallel: one process a card, started by ``torchrun``,
+
+  torchrun --nproc_per_node N -m grit_tpu_torch.train_caption exp.name=run1 ...
+
+(``parallel.distributed.maybe_initialize``: NCCL between cards, gloo on the
+CPU).  ``optimizer.batch_size`` is per rank, as the reference's per-GPU batch;
+the loaders deal each rank its share of every global batch, the model trains
+under ``DistributedDataParallel``, and the loss and updates are the global
+batch's.  The freezing mode's feature extraction runs on rank 0 while the
+others wait; the evaluation is rank-specialised (valid on rank 0, test on
+rank 1, the scores exchanged); rank 0 writes ``result.csv``, the logs and the
+checkpoints.
 """
 
 from __future__ import annotations
 
 import os
-import random
 import sys
 
-import numpy as np
 import torch
 
 from grit_tpu_torch.eval_caption import compute_dtype as _compute_dtype
@@ -43,30 +50,30 @@ def main(argv=None):
     from grit_tpu_torch.data.field import TextField
     from grit_tpu_torch.data.metrics import Cider, PTBTokenizer
     from grit_tpu_torch.engine import checkpoint as ckpt
-    from grit_tpu_torch.engine.evaluator import evaluate_metrics, make_caption_generator
+    from grit_tpu_torch.engine.evaluator import evaluate_splits, make_caption_generator
     from grit_tpu_torch.engine.logger import ScalarWriter
     from grit_tpu_torch.engine.loops import (log_epoch_csv, phase_for_epoch, total_epochs,
                                              train_sc_epoch, train_xe_epoch)
     from grit_tpu_torch.engine.optim import (build_optimizer, frozen_mask,
                                              swin_frozen_stages_predicate)
     from grit_tpu_torch.engine.scst import make_generate_step, make_scst_update_step
-    from grit_tpu_torch.engine.xe import TrainState, make_eval_loss_step, make_xe_train_step
+    from grit_tpu_torch.engine.xe import (TrainState, make_eval_loss_step, make_xe_train_step,
+                                          xe_probe)
     from grit_tpu_torch.eval_caption import caption_config, config_device
     from grit_tpu_torch.models.captioner import build_captioner, build_detector
+    from grit_tpu_torch.parallel.distributed import barrier, maybe_initialize
+    from grit_tpu_torch.parallel.mesh import wrap_data_parallel
     from grit_tpu_torch.tools.extract_features import extract_vis_features
+    from grit_tpu_torch.utils.misc import seed_host_rngs
 
     config = caption_config(sys.argv[1:] if argv is None else argv)
     device = config_device(config, "train_caption")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "train_caption runs one process on one device: the data-parallel trainer "
-            "(sharded batches, rank-specialised evaluation) is not ported yet")
+    rank, world = maybe_initialize(device)
     workdir = os.path.join("outputs", config.exp.name)
     os.makedirs(workdir, exist_ok=True)
 
-    # host-side augmentation RNGs (reference train_caption.py:30-32)
-    random.seed(config.exp.seed)
-    np.random.seed(config.exp.seed % (2 ** 32))
+    # host-side augmentation RNGs, seed + rank (reference train_caption.py:30-32)
+    seed_host_rngs(config.exp.seed, rank=rank)
 
     model = build_captioner(config, device=device, dtype=_compute_dtype(config),
                             seed=config.exp.seed, train=True)
@@ -95,22 +102,32 @@ def main(argv=None):
     optimizer = build_optimizer(
         model, model_lr=config.optimizer.xe_lr, backbone_lr=config.optimizer.xe_backbone_lr,
         beta_1=config.optimizer.beta_1, beta_2=config.optimizer.beta_2, freeze=freeze)
-    state = TrainState(model, optimizer, global_steps=0,
-                       generator=torch.Generator(device=device).manual_seed(config.exp.seed))
 
     mode = ("freezing" if config.optimizer.freezing_xe_epochs > 0
             and not config.optimizer.get("freeze_backbone") else "finetune")
     if mode == "freezing" and not os.path.exists(config.dataset.hdf5_path):
         # train on pre-extracted features (reference train_caption.py:48-59):
-        # extract them now, with the loaded detector weights
-        print(f"{config.dataset.hdf5_path} absent -> extracting features")
-        detector = build_detector(config, device=device, dtype=_compute_dtype(config), seed=None)
-        detector.load_state_dict(model.detector.state_dict())
-        extract_loaders, _ = build_coco_dataloaders(config, mode="finetune", rank=0, world=1)
-        extract_vis_features(detector, extract_loaders, device, config.dataset.hdf5_path)
-        del detector
+        # rank 0 extracts them now, with the loaded detector weights, over the
+        # whole dataset (every rank reads it); the others wait
+        if rank == 0:
+            print(f"{config.dataset.hdf5_path} absent -> extracting features")
+            detector = build_detector(config, device=device, dtype=_compute_dtype(config),
+                                      seed=None)
+            detector.load_state_dict(model.detector.state_dict())
+            extract_loaders, _ = build_coco_dataloaders(config, mode="finetune", rank=0, world=1)
+            extract_vis_features(detector, extract_loaders, device, config.dataset.hdf5_path)
+            del detector
+        barrier("auto_extract_features")
 
-    dataloaders, _ = build_coco_dataloaders(config, mode=mode, rank=0, world=1)
+    dataloaders, _ = build_coco_dataloaders(config, mode=mode, rank=rank, world=world)
+    # DDP over what this run trains: the optimizer's parameters that one
+    # training forward reaches (the freezing mode's reaches no detector)
+    train_model = wrap_data_parallel(
+        model, device, trained=[p for g in optimizer.param_groups for p in g["params"]],
+        probe=xe_probe(dataloaders["train"], pad_idx=config.model.pad_idx))
+    # each rank draws its own dropout masks
+    state = TrainState(train_model, optimizer, global_steps=0,
+                       generator=torch.Generator(device=device).manual_seed(config.exp.seed + rank))
     train_refs = [ex.text for ex in dataloaders["train"].dataset.examples]
     cider = Cider(PTBTokenizer.tokenize(train_refs))
 
@@ -127,7 +144,7 @@ def main(argv=None):
     scst_update = make_scst_update_step(bos_idx=m.bos_idx, eos_idx=m.eos_idx, model_lr=o.sc_lr,
                                         backbone_lr=o.sc_backbone_lr)
 
-    writer = ScalarWriter(os.path.join(workdir, "tensorboard"))
+    writer = ScalarWriter(os.path.join(workdir, "tensorboard")) if rank == 0 else None
     best_cider_val = best_cider_test = 0.0
     sc_started = False
     start_epoch = 0
@@ -173,11 +190,14 @@ def main(argv=None):
         dataloaders["train_dict"].set_epoch(epoch)
 
         model.eval()   # deterministic beam search (the decode tail goes through K11)
-        for split, loader_key in (("valid", "valid_dict"), ("test", "test_dict")):
-            scores, _, _ = evaluate_metrics(generate_eval, dataloaders[loader_key], text_field,
-                                            device=device, epoch=epoch, split=split)
-            log_epoch_csv(config, epoch, split, scores, train_res, phase,
-                          path=os.path.join(workdir, "result.csv"))
+        # valid on rank 0 and test on rank 1 when there are two ranks or more
+        scores_by_split = evaluate_splits(
+            generate_eval, {"valid": dataloaders["valid_dict"], "test": dataloaders["test_dict"]},
+            text_field, device=device, epoch=epoch)
+        for split, scores in scores_by_split.items():
+            if rank == 0:
+                log_epoch_csv(config, epoch, split, scores, train_res, phase,
+                              path=os.path.join(workdir, "result.csv"))
             best = best_cider_val if split == "valid" else best_cider_test
             if scores["CIDEr"] >= best:
                 ckpt.save_checkpoint(workdir, f"best_{split}", state=state, epoch=epoch,

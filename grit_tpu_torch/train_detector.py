@@ -2,7 +2,7 @@
 root ``train_detector.py``).
 
 Multi-dataset object-detection training of the Swin + deformable-decoder
-detector, driven by the hook-based solver, in one process on one device:
+detector, driven by the hook-based solver, on one device:
 
   python -m grit_tpu_torch.train_detector exp.name=det1 \\
       dataset.roots.coco.ann_file=... dataset.roots.coco.img_root=... ...
@@ -31,9 +31,17 @@ Parity with the reference recipe:
 - host augmentation RNGs keyed by the epoch, so a resumed run's epoch E draws
   what an uninterrupted run's epoch E draws.
 
-Not ported: more than one process or device (``exp.world_size`` is ignored
-as in the JAX CLI, which reads the device mesh instead; data parallel is
-queued in ROADMAP.md).
+Data parallel: one process a card, started by ``torchrun``,
+
+  torchrun --nproc_per_node N -m grit_tpu_torch.train_detector exp.name=det1 ...
+
+(``parallel.distributed.maybe_initialize``; ``exp.world_size`` is ignored, as
+in the JAX CLI: the launcher says how many ranks run).  ``optimizer.batch_size``
+is per rank; each rank trains on its share of every global batch under
+``DistributedDataParallel`` (the criterion's box count is the global
+batch's, the clip the global norm), seeds its augmentation and dropout with
+seed + rank, evaluates its shard of the validation sets (the predictions are
+merged before the mAP), and rank 0 writes the checkpoints and logs.
 """
 
 from __future__ import annotations
@@ -62,11 +70,14 @@ def main(argv=None):
     from grit_tpu_torch.detection.hooks import (CheckpointHook, EpochLRHook, ProgressHook,
                                                 ScalarWriterHook, TextLoggingHook)
     from grit_tpu_torch.detection.loader import DetectionLoader
-    from grit_tpu_torch.detection.solver import Trainer, Valider, make_detector_train_step
+    from grit_tpu_torch.detection.solver import (Trainer, Valider, detector_probe,
+                                                 make_detector_train_step)
     from grit_tpu_torch.engine import checkpoint as ckpt
     from grit_tpu_torch.engine.optim import (build_detector_optimizer, frozen_mask,
                                              swin_frozen_stages_predicate)
     from grit_tpu_torch.engine.xe import TrainState
+    from grit_tpu_torch.parallel.distributed import maybe_initialize, rank_device
+    from grit_tpu_torch.parallel.mesh import wrap_data_parallel
     from grit_tpu_torch.utils.misc import seed_host_rngs
 
     config = default_detection_config().apply_overrides(
@@ -75,11 +86,13 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train_detector: no CUDA device is available "
                            "(pass exp.device=cpu to run on the CPU)")
+    device = rank_device(device)
+    rank, world = maybe_initialize(device)
     workdir = os.path.join("outputs", config.exp.name)
     os.makedirs(workdir, exist_ok=True)
 
-    # host-side augmentation RNGs (reference train_detector.py:116-120)
-    seed_host_rngs(config.exp.seed)
+    # host-side augmentation RNGs, seed + rank (reference train_detector.py:116-120)
+    seed_host_rngs(config.exp.seed, rank=rank)
     model, criterion = build_detection_model(config, device=device, seed=config.exp.seed)
 
     # ---- loader (reference train_detector.py:163-186) ----
@@ -93,7 +106,7 @@ def main(argv=None):
     loader = DetectionLoader(
         dataset, config.optimizer.batch_size, transform=transform, mode="train",
         max_boxes=int(config.dataset.get("max_boxes", 100)), num_attr_classes=n_attr,
-        bucket_hw=tuple(bucket) if bucket else None, rank=0, world=1,
+        bucket_hw=tuple(bucket) if bucket else None, rank=rank, world=world,
         seed=config.exp.seed, num_workers=num_workers)
 
     # ---- warm start (train_detector.py:134-153): weights only ----
@@ -114,7 +127,11 @@ def main(argv=None):
         model, lr=config.optimizer.lr, lr_backbone=config.optimizer.lr_backbone,
         sp_lr=float(config.optimizer.get("sp_lr", 0.0)),
         weight_decay=float(config.optimizer.weight_decay), sp_names=sp_names, freeze=freeze)
-    state = TrainState(model, optimizer, global_steps=0,
+    # DDP over the optimizer's parameters that a training forward reaches
+    train_model = wrap_data_parallel(
+        model, device, trained=[p for g in optimizer.param_groups for p in g["params"]],
+        probe=detector_probe(criterion, loader))
+    state = TrainState(train_model, optimizer, global_steps=0,
                        generator=torch.Generator(device=device))
     step_fn = make_detector_train_step(criterion,
                                        clip_max_norm=config.optimizer.clip_max_norm)
@@ -139,7 +156,7 @@ def main(argv=None):
         vloader = DetectionLoader(
             vds, max(1, config.optimizer.batch_size), mode="valid",
             transform=make_transforms("valid", max_size=config.dataset.max_size),
-            rank=0, world=1, num_workers=num_workers)
+            rank=rank, world=world, num_workers=num_workers)
         gt = {int(i): {"boxes": np.asarray([[a["bbox"][0], a["bbox"][1],
                                              a["bbox"][0] + a["bbox"][2],
                                              a["bbox"][1] + a["bbox"][3]]
@@ -150,7 +167,8 @@ def main(argv=None):
                                 evaluator_factory=lambda gt=gt: CocoEvaluator(gt),
                                 device=device))
 
-    trainer = Trainer(step_fn, state, loader, device=device, seed=0, hooks=hooks,
+    # the dropout masks: seed + rank, keyed by the epoch in run_epoch
+    trainer = Trainer(step_fn, state, loader, device=device, seed=rank, hooks=hooks,
                       validers=validers)
 
     # ---- resume (exp.resume=true): the full state from 'detector_last' ----
@@ -169,7 +187,7 @@ def main(argv=None):
     for epoch in range(start_epoch, config.optimizer.epochs):
         # epoch-keyed host augmentation RNGs: a resumed run's epoch E draws the
         # same flips, crops and scales as an uninterrupted run's epoch E
-        seed_host_rngs(config.exp.seed + 7919 * (epoch + 1))
+        seed_host_rngs(config.exp.seed + 7919 * (epoch + 1), rank=rank)
         loader.set_epoch(epoch)
         trainer.run_epoch(epoch)
     return trainer

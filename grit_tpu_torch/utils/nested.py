@@ -111,3 +111,15 @@ def pad_leading(tree, size: int, int_fill: int = 1, int_first: int | None = None
         block = np.zeros((rem,) + arr.shape[1:], dtype=arr.dtype)
     out = np.concatenate([arr, block], axis=0)
     return out if is_np else torch.from_numpy(out)
+
+
+def first_rows(tree, n: int):
+    """The first ``n`` rows of every array of a batch (``ImageBatch``es,
+    dicts, arrays and tensors; lists cut too)."""
+    if isinstance(tree, ImageBatch):
+        return ImageBatch(*(t[:n] for t in tree))
+    if isinstance(tree, dict):
+        return {k: first_rows(v, n) for k, v in tree.items()}
+    if isinstance(tree, list) or getattr(tree, "ndim", 0) > 0:
+        return tree[:n]
+    return tree

@@ -149,7 +149,8 @@ def test_port_imports_no_jax():
         "          'detection.datasets', 'detection.det_transforms', 'detection.coco_eval',\n"
         "          'utils.boxes', 'utils.misc', 'train_detector', 'eval_caption',\n"
         "          'eval_caption_online', 'eval_nocaps', 'models.ensemble',\n"
-        "          'tools.extract_features', 'tools.artemis_extract_features'):\n"
+        "          'tools.extract_features', 'tools.artemis_extract_features',\n"
+        "          'parallel', 'parallel.distributed', 'parallel.mesh', 'dryrun'):\n"
         "    assert 'grit_tpu_torch.' + m in sys.modules, m\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -207,6 +208,9 @@ def test_port_sources_name_no_jax_package_module():
     assert len(files) > 58 and Path(REPO, "grit_tpu_torch", "train_caption.py") in files
     assert Path(REPO, "grit_tpu_torch", "train_detector.py") in files
     assert Path(REPO, "grit_tpu_torch", "detection", "losses.py") in files
+    for part in (("parallel", "__init__.py"), ("parallel", "distributed.py"),
+                 ("parallel", "mesh.py"), ("dryrun.py",)):
+        assert Path(REPO, "grit_tpu_torch", *part) in files
     bad = [str(f.relative_to(REPO)) for f in files if pattern.search(f.read_text())]
     assert not bad, bad
     assert pattern.search("    from grit_tpu.config import x") and pattern.search("import jax")
