@@ -142,12 +142,35 @@ Phases, each of which must pass:
      Hungarian assignments; then NCCL at world 1 through maybe_initialize
      from torchrun's variables (an all-reduce of the XE gradient's size) and
      grit_tpu_torch.dryrun.dryrun_multichip(2, "cuda").
+ 16. the detector's set matcher (phase_lsa_kernel, with the kernel phases):
+     grit_lsa (csrc/lsa.cu, the JAX package's on-device Hungarian solver,
+     _device_lsa_single) against its plain version at the detector step's
+     [28, 150, 100] problems, fills 0/1/20/57/100, on continuous and on
+     integer (tied) costs: assignments equal, totals scipy's optimum,
+     bit-equal over two calls, one launch; its device ms by graph replay
+     beside the host path's (.cpu() + scipy).  In phase 10 each step matches
+     on the card (one grit_lsa launch a step, counted), the criterion alone
+     waits for no device copy (torch.cuda.set_sync_debug_mode("error")), the
+     device and host solvers' assignments agree on the step's own costs, and
+     steps under match_impl="host" and "device" are timed in turns and
+     profiled (idle share); phase 11's float64 arm still matches on the host
+     and grit_lsa is held to it on the same costs;
+ 17. the native metric library (phase_native_metrics, before phase 8): built
+     with g++ from grit_tpu_torch/native/fastmetrics.cpp, its tokenizer and
+     CIDEr-D against the pure-Python versions on a 5000-image corpus, timed;
+     phase 8's SCST rewards, which it now scores, held to the Python scorer's
+     to 1e-10;
+ 18. the measuring tools (phase_tools, before 15): python -m
+     grit_tpu_torch.tools.bench_train --phase both, profile_eval 8 --trace,
+     agg_trace on that trace, bench_epoch --images 32 in a temporary
+     directory.
 
 Prints the card's name and power limit as nvidia-smi reports them, a JSON
 line of per-kernel results (all 18 TPU kernel bodies: the eleven ported
-kernels, and the seven bodies that one of them serves; and the kernels
+kernels, and the seven bodies that one of them serves; the kernels
 inside K1, K2, K4, K5, K8 and K10a: gemm_bf16, win_attn and win_attn_bwd, and
-gemm_f32, win_attn_f32 and win_attn_bwd_f32), and last {"ok": true, "device": {...}}; the
+gemm_f32, win_attn_f32 and win_attn_bwd_f32; and grit_lsa, which ports no
+Pallas body), and last {"ok": true, "device": {...}}; the
 per-shape results go to chiprun_out/chip_smoke.json.  Exits non-zero, without
 that last line, when there is no CUDA device or any phase fails.  The JSON
 file also holds the LN kernels' rows, the decoders phase's numbers, the
@@ -165,6 +188,7 @@ import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 
 def fail(msg: str) -> None:
@@ -203,6 +227,7 @@ try:
     from grit_tpu_torch.ops import _cuda
     from grit_tpu_torch.ops import decode_layer as tail_ops
     from grit_tpu_torch.ops import fused_adam as adam_ops
+    from grit_tpu_torch.ops import lsa as lsa_ops
     from grit_tpu_torch.ops import msda as msda_ops
     from grit_tpu_torch.ops import window_attention as wa
     from grit_tpu_torch.parallel import distributed as dist_lib
@@ -1282,6 +1307,122 @@ def phase_adam_kernel() -> None:
                               elements=sum(n_el), leaves=[len(grp) for grp in ps])
 
 
+# grit_lsa's problems at the detector step: (6 decoder layers + the final
+# level) x b4, 150 queries, max_boxes 100; the kernel phase's fills
+LSA_FILLS = (0, 1, 20, 57, 100)
+# an assignment's total cost against scipy's optimum on the same f32 costs,
+# relative to max(1, |optimum|): the solver's potentials are f32
+LSA_TOTAL_TOL = 1e-5
+
+
+def lsa_bound_ms(cost: torch.Tensor) -> float:
+    """The least time of one grit_lsa call: its f32 costs and int64 fills read
+    once and its int64 assignments written once, over the card's memory
+    rate.  A chain of dependent iterations bounds the kernel, not its bytes."""
+    p, q, g = cost.shape
+    return (p * q * g * 4 + p * 8 + p * g * 8) / PEAK_BYTES * 1e3
+
+
+def host_lsa_ms(cost: torch.Tensor, n_valid: torch.Tensor, reps: int = 5) -> float:
+    """Median wall ms of the host path on the same problems, as
+    ``hungarian_match(impl="host")`` takes it: costs and fills to the host in
+    one transfer, scipy a problem, the assignments back; synchronised."""
+    def run():
+        host = torch.cat([cost.reshape(-1), n_valid.to(cost.dtype)]).cpu().numpy()
+        out = det_losses._host_lsa(host[:cost.numel()].reshape(cost.shape),
+                                   host[cost.numel():].astype(np.int64))
+        torch.from_numpy(out).to(cost.device)
+        torch.cuda.synchronize()
+
+    run()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def lsa_total_gap(cost: np.ndarray, assign: np.ndarray, n_valid: np.ndarray) -> float:
+    """The largest excess of an assignment's total cost over scipy's optimum
+    on the same costs, relative to max(1, |optimum|), over the problems."""
+    from scipy.optimize import linear_sum_assignment as scipy_lsa
+
+    worst = 0.0
+    for b, n in enumerate(n_valid.tolist()):
+        if n == 0:
+            continue
+        rows, cols = scipy_lsa(cost[b, :, :n])
+        best = cost[b, rows, cols].sum()
+        ours = cost[b, assign[b, :n], np.arange(n)].sum()
+        worst = max(worst, abs(ours - best) / max(1.0, abs(best)))
+    return worst
+
+
+def check_lsa(what: str, cost: torch.Tensor, n_valid: torch.Tensor) -> dict:
+    """grit_lsa on ``cost`` [P, Q, G] (f32, on the card) against its plain
+    version on the same tensors: assignments equal, bit-equal over two calls,
+    one launch a call (read from a captured graph), valid rows each matched to
+    a distinct query and -1 past the fill, every total within LSA_TOTAL_TOL of
+    scipy's optimum; then the device ms by graph replay, the plain version's
+    ms and the host path's ms -> the row's numbers."""
+    before = lsa_ops.LAUNCHES["lsa"]
+    out = lsa_ops.linear_sum_assignment(cost, n_valid)
+    again = lsa_ops.linear_sum_assignment(cost, n_valid)
+    torch.cuda.synchronize()
+    if lsa_ops.LAUNCHES["lsa"] - before != 2:
+        fail(f"grit_lsa {what}: two calls counted {lsa_ops.LAUNCHES['lsa'] - before} launches")
+    t0 = time.perf_counter()
+    plain = lsa_ops.lsa_plain(cost, n_valid)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    differ = int((out != plain).sum())
+    a, nv = out.cpu().numpy(), n_valid.cpu().numpy()
+    rows_ok = all(len(set(a[b, :n].tolist())) == n and (a[b, :n] >= 0).all() and
+                  (a[b, n:] == -1).all() for b, n in enumerate(nv.tolist()))
+    gap = lsa_total_gap(cost.double().cpu().numpy(), a, nv)
+    launches = graph_launches(lambda: lsa_ops.linear_sum_assignment(cost, n_valid))
+    ms = graph_ms(lambda: lsa_ops.linear_sum_assignment(cost, n_valid))
+    host_ms = host_lsa_ms(cost, n_valid)
+    bound = lsa_bound_ms(cost)
+    print(f"  grit_lsa {what:<34} {differ} of {out.numel()} assignments differ from the plain "
+          f"version's; bit-equal over two calls {torch.equal(out, again)}; total cost over "
+          f"scipy's optimum {gap:.1e} (tol {LSA_TOTAL_TOL:.0e}); {launches} launch a call; "
+          f"kernel {ms:.4f} ms (graph replay), plain {plain_ms:.1f} ms, host path (.cpu() + "
+          f"scipy + back) {host_ms:.3f} ms, bound {bound * 1e3:.2f} us (bytes)", flush=True)
+    if differ or not torch.equal(out, again) or not rows_ok or not gap <= LSA_TOTAL_TOL:
+        fail(f"grit_lsa {what}: {differ} assignments differ from the plain version's, "
+             f"bit-equal {torch.equal(out, again)}, rows valid {rows_ok}, total gap {gap:.3e}")
+    if launches != 1:
+        fail(f"grit_lsa {what}: a call makes {launches} CUDA launches, not 1")
+    row = {"case": what, "problems": list(cost.shape), "fills": nv.tolist(), "ms": ms,
+           "plain_ms": plain_ms, "host_ms": host_ms, "bound_ms": bound, "max_abs_err": 0,
+           "total_gap": gap, "launches_a_call": launches}
+    DETAIL.append({"kernel": "grit_lsa", **row})
+    return row
+
+
+def phase_lsa_kernel() -> None:
+    """grit_lsa at the detector step's problem shape: (DET_LAYERS + 1) levels x
+    DET_BATCH images of 150 queries x MAX_BOXES columns, the fills cycling
+    through LSA_FILLS, on continuous costs (randn x 3) and on integer costs
+    in 0..4 (ties everywhere, exact f32 arithmetic: the tie order)."""
+    q = default_detection_config().model.detector.num_queries
+    p = (DET_LAYERS + 1) * DET_BATCH
+    n_valid = torch.tensor([LSA_FILLS[i % len(LSA_FILLS)] for i in range(p)], device=DEV)
+    rng = np.random.default_rng(6000 + BATCH_SEED)
+    for kind in ("continuous", "integer"):
+        c = (rng.standard_normal((p, q, MAX_BOXES)) * 3 if kind == "continuous"
+             else rng.integers(0, 5, (p, q, MAX_BOXES)))
+        cost = torch.from_numpy(c.astype(np.float32)).to(DEV)
+        RESULTS.setdefault("lsa", {"max_abs_err": 0})[kind] = check_lsa(
+            f"{kind} [{p}, {q}, {MAX_BOXES}]", cost, n_valid)
+    res = {k: v for k, v in ptxas_report().items() if k.startswith("lsa_kernel")}
+    print(f"  grit_lsa registers a thread, spilled bytes: {res}; dynamic shared memory "
+          f"{lsa_ops.smem_bytes(q, MAX_BOXES)} bytes a block", flush=True)
+
+
 def grads_of(fn, leaves, gout):
     """Gradients of ``fn(*leaves)`` to every leaf under the output gradient ``gout``."""
     leaves = [t.detach().requires_grad_() for t in leaves]
@@ -1601,7 +1742,8 @@ def forward_launches(forwards: int = 1, stages=None) -> dict:
 
 
 def reset_launches() -> None:
-    for d in (wa.LAUNCHES, msda_ops.LAUNCHES, tail_ops.LAUNCHES, adam_ops.LAUNCHES):
+    for d in (wa.LAUNCHES, msda_ops.LAUNCHES, tail_ops.LAUNCHES, adam_ops.LAUNCHES,
+              lsa_ops.LAUNCHES):
         for k in d:
             d[k] = 0
 
@@ -1764,11 +1906,13 @@ def phase_profile(batch: int, card: str) -> None:
 @contextlib.contextmanager
 def plain_arm():
     """Swap the kernel wrappers for their plain versions, differentiated by
-    autograd, and the decode layers' fused tail for their module path
-    (comparison only)."""
+    autograd, the decode layers' fused tail for their module path and the
+    matcher's kernel for ``lsa_plain`` (comparison only)."""
     saved = wa.block_step, wa.mlp, msda_ops.msda, wa.block_attention_train
     saved_ln = wa.patch_merge, wa.layernorm_rows
     saved_tail = cap_generator_lib.use_fused_tail
+    saved_lsa = lsa_ops.linear_sum_assignment
+    lsa_ops.linear_sum_assignment = lsa_ops.lsa_plain
     wa.block_step, wa.mlp, msda_ops.msda = wa.block_step_plain, wa.mlp_plain, msda_ops.msda_plain
     wa.block_attention_train = wa.block_attention_train_plain
     wa.patch_merge, wa.layernorm_rows = wa.patch_merge_plain, wa.layernorm_rows_plain
@@ -1780,6 +1924,7 @@ def plain_arm():
         wa.block_step, wa.mlp, msda_ops.msda, wa.block_attention_train = saved
         wa.patch_merge, wa.layernorm_rows = saved_ln
         cap_generator_lib.use_fused_tail = saved_tail
+        lsa_ops.linear_sum_assignment = saved_lsa
 
 
 def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -2175,6 +2320,28 @@ def phase_trainer(card: str) -> None:
         fail("trainer: the SCST updates did not launch K12 once per parameter group each")
     if counts["K11"] != counts_before["K11"]:
         fail("trainer: generation under live dropout went through K11")
+    # the rewards came from the native CIDEr-D: the pure-Python scorer on the
+    # same captions gives them to 1e-10, and each reward passed is its f32
+    cider_py = Cider(PTBTokenizer.tokenize(all_refs, use_native=False), use_native=False)
+    worst = 0.0
+    for j, (_, _, sequences, reward, _) in enumerate(upd_calls):
+        refs = loaders["train_dict"][j]["captions"]
+        seqs = sequences.cpu().numpy()[:len(refs)]
+        caps_gen = text_field.decode(seqs.reshape(-1, seqs.shape[-1]))
+        caps_gt = [c for c in refs for _ in range(BEAM)]
+        native_r = cider.compute_score(PTBTokenizer.tokenize(caps_gt),
+                                       PTBTokenizer.tokenize(caps_gen))[1]
+        python_r = cider_py.compute_score(PTBTokenizer.tokenize(caps_gt, use_native=False),
+                                          PTBTokenizer.tokenize(caps_gen, use_native=False))[1]
+        worst = max(worst, float(np.max(np.abs(native_r - python_r)
+                                        / np.maximum(np.abs(python_r), 1e-30))))
+        if not np.array_equal(np.asarray(reward)[:len(refs)].reshape(-1),
+                              native_r.astype(np.float32)):
+            fail(f"trainer: SCST iteration {j}'s rewards are not the native CIDEr-D's")
+    print(f"[trainer] SCST rewards: the native CIDEr-D's, within {worst:.1e} (tol 1e-10) of the "
+          f"pure-Python scorer's on the same captions", flush=True)
+    if worst > 1e-10:
+        fail(f"trainer: native and pure-Python CIDEr-D rewards differ by {worst:.3e}")
     moved, stuck, frozen_moved = 0, [], 0
     for n, p in model.named_parameters():
         changed = not torch.equal(p.detach(), before[n])
@@ -2876,15 +3043,16 @@ def phase_detector(card: str, dtype, backbone: str | None = None, full: bool = T
                  "K6": DET_LAYERS, "K10a": len(det_stages), "K10b": 1, "K12": len(groups),
                  "gemm_bf16": bf * gemms, "win_attn": bf * blocks, "win_attn_bwd": bf * blocks,
                  "gemm_f32": (1 - bf) * gemms, "win_attn_f32": (1 - bf) * blocks,
-                 "win_attn_bwd_f32": (1 - bf) * blocks}
+                 "win_attn_bwd_f32": (1 - bf) * blocks,
+                 "lsa": 1}   # the matcher: every level and image in one grit_lsa launch
     want_eval = {"K1": blocks, "K2": blocks, "K3": DET_LAYERS, "K4": 0, "K5": 0, "K6": 0,
                  "K10a": len(det_stages), "K10b": 1, "K12": 0,
                  "gemm_bf16": bf * gemms, "win_attn": bf * blocks, "win_attn_bwd": 0,
                  "gemm_f32": (1 - bf) * gemms, "win_attn_f32": (1 - bf) * blocks,
-                 "win_attn_bwd_f32": 0}
+                 "win_attn_bwd_f32": 0, "lsa": 0}
 
     def launches() -> dict:
-        return {**train_launches(), **f32_launches()}
+        return {**train_launches(), **f32_launches(), "lsa": lsa_ops.LAUNCHES["lsa"]}
 
     def train_batch(offset: int) -> dict:
         return {"samples": detector_images(DET_BATCH, offset),
@@ -3025,6 +3193,7 @@ def phase_detector(card: str, dtype, backbone: str | None = None, full: bool = T
         fail(f"detector {dn}: checkpoint round trip: losses {after}")
     del state2
     device_launches = count_launches(lambda: step(state, nxt["samples"], nxt["targets"]))
+    matcher = detector_matcher_paths(dn, card, state, criterion, step, nxt)
     # K12 on the detector's own leaves: one update of every group, on the last step's gradients
     n_el = sum(p.numel() for g in state.optimizer.param_groups for p in g["params"])
     adam_ms = cuda_ms(state.optimizer.step)
@@ -3045,9 +3214,206 @@ def phase_detector(card: str, dtype, backbone: str | None = None, full: bool = T
         "images_per_s": DET_BATCH / med * 1e3, "device_launches": device_launches,
         "peak_gib": peak, "launches_per_step": per_step[0], "launches_eval": per_eval[0],
         "eval_s_per_batch": eval_s[-1] / 2, "adam_ms": adam_ms, "adam_elements": n_el,
-        "adam_bound_ms": 28.0 * n_el / PEAK_BYTES * 1e3,
+        "adam_bound_ms": 28.0 * n_el / PEAK_BYTES * 1e3, "matcher": matcher,
         "losses": losses, "valid": res, "checkpoint_mib": size_mb,
         "checkpoint_loss_rel_diff": rel, "groups": groups, "phase_launches": counts}
+
+
+NATIVE_IMAGES = 5000   # the synthetic corpus of the metric check (COCO's val split's size)
+NATIVE_WORDS = ("a the A man's dog doesn't run, very fast. two dogs -- playing in 3 parks... "
+                "it's red; 1,000 trees! (big) cat t-shirt on: under over with near far a an "
+                "of to and person people car bus tree sky water grass table").split()
+
+
+def phase_native_metrics() -> None:
+    """The native metric library built here with g++ from
+    grit_tpu_torch/native/fastmetrics.cpp; its PTB tokenizer against the
+    pure-Python one (string for string) and its CIDEr-D against the
+    pure-Python scorer (1e-10 relative), with and without a precomputed
+    corpus, on NATIVE_IMAGES synthetic images of five references and one
+    candidate each; both timed on the host."""
+    from grit_tpu_torch import native
+
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(7000 + BATCH_SEED)
+
+    def caption():
+        return " ".join(NATIVE_WORDS[i] for i in rng.integers(0, len(NATIVE_WORDS),
+                                                                rng.integers(4, 16)))
+
+    gts = {i: [caption() for _ in range(5)] for i in range(NATIVE_IMAGES)}
+    res = {i: [caption()] for i in range(NATIVE_IMAGES)}
+    timed = {}
+
+    def clock(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        timed[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    tok = clock("tokenize native", lambda: PTBTokenizer.tokenize(gts))
+    tok_py = clock("tokenize python", lambda: PTBTokenizer.tokenize(gts, use_native=False))
+    if tok != tok_py:
+        fail("native metrics: the native tokenizer's tokens differ from the Python rules'")
+    cand = PTBTokenizer.tokenize(res)
+    worst = 0.0
+    for mode, corpus in (("per call", None), ("precomputed", tok)):
+        a = clock(f"CIDEr-D {mode} native", lambda: Cider(corpus).compute_score(tok, cand))
+        b = clock(f"CIDEr-D {mode} python",
+                  lambda: Cider(corpus, use_native=False).compute_score(tok, cand))
+        worst = max(worst, abs(a[0] - b[0]) / abs(b[0]),
+                    float(np.max(np.abs(a[1] - b[1]) / np.maximum(np.abs(b[1]), 1e-30))))
+    print(f"[native metrics] {Path(lib._name).name} built in {build_s:.1f} s; {NATIVE_IMAGES} "
+          f"images x 5 references: tokens equal; CIDEr-D max rel err {worst:.1e} (tol 1e-10); "
+          + ", ".join(f"{k} {v:.0f} ms" for k, v in timed.items()) + " (host)", flush=True)
+    if worst > 1e-10:
+        fail(f"native metrics: CIDEr-D differs from the Python scorer by {worst:.3e}")
+    RESULTS["native_metrics"] = {"build_s": build_s, "images": NATIVE_IMAGES, "max_rel_err": worst,
+                                 "host_ms": timed}
+
+
+TOOL_TIMEOUT = 420   # seconds a tool's process may take; past it it is killed
+
+
+def run_tool(name: str, args: list[str], expect: list[str]) -> str:
+    """``python -m grit_tpu_torch.tools.<name> args`` from the checkout's root,
+    waited for (killed past TOOL_TIMEOUT); fails unless it exits with 0 and
+    prints every line fragment in ``expect`` -> its output."""
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-m", f"grit_tpu_torch.tools.{name}", *args],
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=TOOL_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"tools: {name} ran past {TOOL_TIMEOUT} s")
+    out = proc.stdout
+    missing = [e for e in expect if e not in out]
+    lines = [ln for ln in out.splitlines() if ln.strip()]
+    print(f"[tools] {name} {' '.join(args)}: rc {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s\n[tools]   " + "\n[tools]   ".join(lines[-12:]),
+          flush=True)
+    if proc.returncode != 0 or missing:
+        fail(f"tools: {name} exited with {proc.returncode}, missing {missing}:\n"
+             f"{proc.stderr[-3000:]}")
+    return out
+
+
+def phase_tools() -> None:
+    """The four measuring tools, briefly, at full width on this card:
+    bench_train (XE at b16 and SCST at b8, 2 steps each after a warm-up),
+    profile_eval at b8 with a trace of the batch, agg_trace on that trace, and
+    bench_epoch over a synthetic COCO of 32 images in a temporary directory
+    (one XE and one SCST epoch of the training CLI, the loader alone).  The
+    tools' processes load the library this one built."""
+    import tempfile
+
+    free_card()
+    run_tool("bench_train", ["--phase", "both", "--iters", "2", "--batches", str(TRAIN_BATCH),
+                             "--sc-batches", str(SC_BATCH)],
+             [f"[XE fs=2 b={TRAIN_BATCH}] first step", f"[SC beam={BEAM} fs=2 b={SC_BATCH}]",
+              "median step", "peak"])
+    with tempfile.TemporaryDirectory() as work:
+        trace = os.path.join(work, "trace")
+        run_tool("profile_eval", ["8", "--trace", trace],
+                 ["attribution at batch 8", "FULL generate", "trace written to"])
+        run_tool("agg_trace", [trace, "--top", "15", "--by-class"],
+                 ["device events", "idle share", "-- by class (ms) --"])
+        run_tool("bench_epoch", ["--root", os.path.join(work, "coco"), "--images", "32",
+                                 "--val-images", "16"],
+                 ["loader-only sustained", "TOTAL recipe wall", "rc=0"])
+
+
+DET_MATCH_STEPS = 3   # detector steps a turn in each solver's timing
+
+
+def stacked_cost(criterion, outputs: dict, targets: dict) -> torch.Tensor:
+    """The matching costs [levels, B, Q, G] of the final and every aux level,
+    as ``criterion.match_levels`` computes them."""
+    aux = outputs["aux_outputs"]
+    return det_losses.matching_cost(
+        torch.stack([outputs["pred_logits"]] + [a["pred_logits"] for a in aux]),
+        torch.stack([outputs["pred_boxes"]] + [a["pred_boxes"] for a in aux]),
+        targets["labels"], targets["boxes"], targets["valid"],
+        **{k: v for k, v in criterion.cost.items() if k != "impl"})
+
+
+def assignment_totals(cost: torch.Tensor, assign: torch.Tensor) -> torch.Tensor:
+    """[levels, B]: the cost of an assignment [levels, B, G], image by image."""
+    picked = torch.gather(cost, 2, assign.clamp(min=0)[:, :, None, :])[:, :, 0, :]
+    return torch.where(assign >= 0, picked, 0.0).sum(-1)
+
+
+def detector_matcher_paths(dn: str, card: str, state, criterion, step, batch: dict) -> dict:
+    """The detector step's matching on the card against the host path, on
+    ``batch``: the criterion alone under ``torch.cuda.set_sync_debug_mode(
+    "error")`` (no copy to the host; one grit_lsa launch); the two solvers'
+    assignments on the step's own costs (equal, but where the host's costs
+    the device's optimum at most ASSIGN_MARGIN more: a near-tie); grit_lsa on
+    those problems (``check_lsa``); then the step under ``match_impl="host"``
+    and ``"device"`` in turns (host, device, device, host), DET_MATCH_STEPS
+    steps issued back to back a turn and waited for once, and one profiled
+    step of each (device busy, idle share)."""
+    images, targets = batch["samples"], batch["targets"]
+    saved = criterion.cost["impl"]
+    with torch.no_grad():
+        outputs = state.model(images, training=True)
+    torch.cuda.synchronize()
+    before = lsa_ops.LAUNCHES["lsa"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        criterion(outputs, targets)
+    except RuntimeError as exc:
+        fail(f"detector {dn}: the criterion waited for the device: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    crit_launches = lsa_ops.LAUNCHES["lsa"] - before
+    if crit_launches != 1:
+        fail(f"detector {dn}: the criterion launched grit_lsa {crit_launches} times, not once")
+    assigns = {}
+    for impl in ("host", "device"):
+        criterion.cost["impl"] = impl
+        assigns[impl] = criterion.match_levels(outputs, targets)
+    criterion.cost["impl"] = saved
+    cost = stacked_cost(criterion, outputs, targets)
+    differ = int((assigns["host"] != assigns["device"]).sum())
+    gap = float((assignment_totals(cost, assigns["host"])
+                 - assignment_totals(cost, assigns["device"])).abs().max())
+    print(f"[detector {dn}] the criterion alone under set_sync_debug_mode('error'): no wait "
+          f"for the device, {crit_launches} grit_lsa launch; device and host assignments on the "
+          f"step's own costs differ at {differ} of {int((assigns['host'] >= 0).sum())} boxes "
+          f"(totals differ by at most {gap:.3e})", flush=True)
+    if differ and not gap <= ASSIGN_MARGIN:
+        fail(f"detector {dn}: the device solver's assignments differ from the host's beyond a "
+             f"near-tie ({gap:.3e})")
+    levels, b, q, g = cost.shape
+    row = check_lsa(f"{dn} step's costs [{levels * b}, {q}, {g}]", cost.reshape(-1, q, g),
+                    targets["valid"].bool().sum(-1).repeat(levels))
+    del outputs
+    ms = {"host": [], "device": []}
+    for impl in ("host", "device", "device", "host"):
+        criterion.cost["impl"] = impl
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DET_MATCH_STEPS):
+            step(state, images, targets)
+        torch.cuda.synchronize()
+        ms[impl].append((time.perf_counter() - t0) * 1e3 / DET_MATCH_STEPS)
+    prof = {}
+    for impl in ("host", "device"):
+        criterion.cost["impl"] = impl
+        prof[impl] = profile_run(lambda: step(state, images, targets),
+                                 f"b{DET_BATCH} {dn} detector step, match_impl={impl} [{card}]",
+                                 f"profile_detector_{dn.replace(' ', '_')}_match_{impl}.txt", 1)
+    criterion.cost["impl"] = saved
+    for impl in ("host", "device"):
+        print(f"[detector {dn}] match_impl={impl}: {[round(t, 1) for t in ms[impl]]} ms/step "
+              f"({DET_MATCH_STEPS} steps a turn, issued back to back); profiled step busy "
+              f"{prof[impl]['busy_ms']:.1f} ms, idle share {prof[impl]['idle_share']:.3f}, "
+              f"wall {prof[impl]['wall_ms']:.1f} ms  [{card}]", flush=True)
+    return {"lsa": row, "assign_differ": differ, "assign_gap": gap,
+            "ms_per_step": ms, "profile": prof}
 
 
 DET_PARITY_GROUPS = (("heads", "det_module.class_embed."), ("heads", "det_module.bbox_embed."),
@@ -3075,9 +3441,15 @@ def detector_parity_arm(arm: str, batch: int, assigns=None):
     checkpointed ("float64"), with the Hungarian assignments ``assigns`` (None:
     the arm's own) -> (metrics, the assignments used, how much more ``assigns``
     costs than the arm's own optimum, {name: gradient}, {name: (update, lr,
-    weight decay, the parameter before)})."""
+    weight decay, the parameter before)}, {"cost": the arm's matching costs
+    [levels, B, Q, G], "n_valid": [B]}).  The float64 arm, the yardstick,
+    matches on the host (scipy in float64); the others as the config says
+    (the kernel arm through grit_lsa, the plain arm through its plain
+    version)."""
     _, state, criterion, step = detector_setup(torch.float32, dropouts=False,
                                                use_checkpoint=arm == "float64")
+    if arm == "float64":
+        criterion.cost["impl"] = "host"
     model = state.model
     if arm == "float64":
         to_compute_dtype(model.double(), torch.float64, master_f32=True)
@@ -3092,20 +3464,10 @@ def detector_parity_arm(arm: str, batch: int, assigns=None):
         with torch.no_grad():
             outputs = model(images, training=True)
             own = criterion.match_levels(outputs, targets)
+            cost = stacked_cost(criterion, outputs, targets)
             gap = 0.0
             if assigns is not None:
-                aux = outputs["aux_outputs"]
-                cost = det_losses.matching_cost(
-                    torch.stack([outputs["pred_logits"]] + [a["pred_logits"] for a in aux]),
-                    torch.stack([outputs["pred_boxes"]] + [a["pred_boxes"] for a in aux]),
-                    targets["labels"], targets["boxes"], targets["valid"],
-                    **{k: v for k, v in criterion.cost.items() if k != "impl"})
-
-                def total(a):   # [levels, B]: the cost of an assignment, image by image
-                    picked = torch.gather(cost, 2, a.clamp(min=0)[:, :, None, :])[:, :, 0, :]
-                    return torch.where(a >= 0, picked, 0.0).sum(-1)
-
-                gap = float((total(assigns) - total(own)).max())
+                gap = float((assignment_totals(cost, assigns) - assignment_totals(cost, own)).max())
             del outputs
         reset_launches()
         _, metrics = step(state, images, targets, assigns=own if assigns is None else assigns)
@@ -3120,7 +3482,8 @@ def detector_parity_arm(arm: str, batch: int, assigns=None):
           flush=True)
     return (metrics, own, gap, {n: p.grad for n, p in model.named_parameters()},
             {n: (p.detach() - before[n], group[id(p)]["lr"], group[id(p)]["weight_decay"],
-                 before[n]) for n, p in model.named_parameters()})
+                 before[n]) for n, p in model.named_parameters()},
+            {"cost": cost, "n_valid": targets["valid"].bool().sum(-1)})
 
 
 def phase_detector_parity(batch: int) -> None:
@@ -3135,12 +3498,28 @@ def phase_detector_parity(batch: int) -> None:
     group (DET_FLIP_TOL: a ReLU gate or a sampling floor may flip, as in the
     caption training parity), and the kernel path's update against AdamW's
     first step on its own gradient (UPDATE_TOL of the group's learning rate)."""
-    m_r, assign_r, _, grad_r, _ = detector_parity_arm("float64", batch)
+    m_r, assign_r, _, grad_r, _, yard = detector_parity_arm("float64", batch)
+    # the kernel on the yardstick's own costs (cast to f32, as the solver
+    # takes them) against the host solver's float64 assignments
+    levels, b, q, g = yard["cost"].shape
+    on_f64 = lsa_ops.linear_sum_assignment(yard["cost"].reshape(-1, q, g),
+                                           yard["n_valid"].repeat(levels)).reshape(levels, b, g)
+    on_f64 = torch.where(assign_r >= 0, on_f64, -1)
+    differ_f64 = int((on_f64 != assign_r).sum())
+    gap_f64 = float((assignment_totals(yard["cost"], on_f64)
+                     - assignment_totals(yard["cost"], assign_r)).max())
+    print(f"[detector parity] grit_lsa on the float64 arm's costs: {differ_f64} of "
+          f"{int((assign_r >= 0).sum())} assignments differ from the host solver's; it costs at "
+          f"most {gap_f64:.3e} more (margin {ASSIGN_MARGIN:.0e})", flush=True)
+    del yard
     torch.cuda.empty_cache()
-    m_k, assign_k, gap_k, grad_k, upd_k = detector_parity_arm("kernel", batch, assign_r)
-    m_p, assign_p, gap_p, grad_p, _ = detector_parity_arm("plain", batch, assign_r)
+    m_k, assign_k, gap_k, grad_k, upd_k, _ = detector_parity_arm("kernel", batch, assign_r)
+    m_p, assign_p, gap_p, grad_p, _, _ = detector_parity_arm("plain", batch, assign_r)
     torch.cuda.empty_cache()
     failures = []
+    if differ_f64 and not gap_f64 <= ASSIGN_MARGIN:
+        failures.append(f"grit_lsa's assignments on the float64 costs differ from the host "
+                        f"solver's beyond a near-tie ({gap_f64:.3e})")
     for arm, own, gap in (("kernel", assign_k, gap_k), ("plain", assign_p, gap_p)):
         differ = int((own != assign_r).sum())
         print(f"[detector parity] {arm} arm's own assignments differ from float64's at {differ} "
@@ -3187,6 +3566,7 @@ def phase_detector_parity(batch: int) -> None:
               f"adam {a_err:.3e}  ({name})", flush=True)
     RESULTS["detector_parity"] = {
         "batch": batch, "metrics": {"float64": m_r, "kernel": m_k, "plain": m_p},
+        "lsa_on_float64_costs": {"differ": differ_f64, "gap": gap_f64},
         "assignment_gap": {"kernel": gap_k, "plain": gap_p},
         "groups": {g: {"kernel": v[0], "plain": v[1], "adam": v[2], "leaf": v[3]}
                    for g, v in worst.items()}}
@@ -4046,6 +4426,7 @@ def main() -> None:
         ("decode kernel", phase_decode_kernel),
         ("msda kernels", phase_msda_kernels),
         ("adam kernel", phase_adam_kernel),
+        ("lsa kernel", phase_lsa_kernel),
         ("yardsticks caption", lambda: phase_yardsticks("caption", args.batch, STAGES,
                                                         len(STAGES))),
         ("yardsticks train", lambda: phase_yardsticks("train", TRAIN_BATCH, STAGES,
@@ -4055,6 +4436,7 @@ def main() -> None:
         ("slice b128", lambda: phase_slice_b128(card)),
         ("parity", lambda: phase_parity(args.batch)),
         ("train", lambda: phase_train(card)),
+        ("native metrics", phase_native_metrics),
         ("trainer", lambda: phase_trainer(card)),
         ("decoders and entry points", lambda: phase_decoders_and_entry_points(card)),
         ("detector fp32", lambda: phase_detector(card, torch.float32)),   # the CLI's type
@@ -4072,6 +4454,7 @@ def main() -> None:
             card, torch.bfloat16, backbone="swin_tiny", full=False)),
         ("presets train parity", lambda: phase_train_parity(
             PRESET_PARITY_BATCH, preset_config("swin_tiny"), "swin_tiny")),
+        ("tools", phase_tools),
         ("data parallel", lambda: phase_data_parallel(card, args.profile)),
         ("profile", lambda: phase_profile(args.batch, card) if args.profile else None),
         ("train parity", lambda: phase_train_parity(TRAIN_BATCH)),
@@ -4165,6 +4548,21 @@ def main() -> None:
         "train_plain_ms": r["plain_ms"], "train_bound_ms": r["bound_ms"],
         "detector_ms": RESULTS["detector_bf16"]["adam_ms"],
         "detector_bound_ms": RESULTS["detector_bf16"]["adam_bound_ms"]})
+    # the matcher: no Pallas body; it ports the JAX solver's lax control flow
+    r, step_row = RESULTS["lsa"], RESULTS["detector_bf16"]["matcher"]["lsa"]
+    kernels.append({
+        "name": "grit_lsa", "route": "cuda", "source": csrc + "lsa.cu",
+        "replaces": "grit_tpu/detection/losses.py:96",
+        "note": "no Pallas counterpart: ports _device_lsa_single (lax control flow)",
+        "launches": r["launches_detector"], "max_abs_err": 0, "ms": step_row["ms"],
+        "plain_ms": step_row["plain_ms"], "bound_ms": step_row["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "host_path_ms": step_row["host_ms"],
+        "per": f"one b{DET_BATCH} bf16 detector step's matching ({step_row['problems']} "
+               f"problems x queries x boxes)",
+        "synthetic": {k: {f: r[k][f] for f in ("ms", "plain_ms", "host_ms", "bound_ms")}
+                      for k in ("continuous", "integer")},
+        "fp32_step": {f: RESULTS["detector_fp32"]["matcher"]["lsa"][f]
+                      for f in ("ms", "plain_ms", "host_ms", "bound_ms")}})
     # TPU bodies that one GPU kernel serves, with the cases that kernel was
     # checked at: the S-chunked MSDA pair (K7a, K7b) and the first-generation
     # MSDA bodies (K13a-d) at the 832x1344 pyramid, K1's other layout (K9) at
@@ -4196,6 +4594,7 @@ def main() -> None:
                    "ln_kernels": RESULTS.get("ln_kernels"),
                    "decoders": RESULTS.get("decoders"),
                    "data_parallel": RESULTS.get("data_parallel"),
+                   "lsa": RESULTS.get("lsa"), "native_metrics": RESULTS.get("native_metrics"),
                    "presets": {k: v for k, v in RESULTS.items()
                                if any(k.startswith(p) for p in ("slice swin", "train swin",
                                                                 "detector_fp32 swin",

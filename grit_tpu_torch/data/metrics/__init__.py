@@ -4,13 +4,15 @@ Replaces the reference metric stack (datasets/caption/metrics/__init__.py:7-16)
 with dependency-free implementations:
 
 - CIDEr-D (exact algorithm parity with the coco-caption scorer the reference
-  vendors, incl. precomputable train-corpus idf),
+  vendors, incl. precomputable train-corpus idf; scored by the port's C++
+  library, ``grit_tpu_torch.native``, unless ``use_native=False``),
 - BLEU-1..4 (corpus BLEU, closest-reference length, no smoothing),
 - ROUGE-L (LCS F-score, beta=1.2),
 - METEOR-lite (exact + Porter-stem matching; the reference shells out to
   ``meteor-1.5.jar`` — absent from the checkout — so synonym/paraphrase
   stages are approximated; see meteor.py),
-- PTBTokenizer (native Python; replaces the stanford-corenlp subprocess).
+- PTBTokenizer (replaces the stanford-corenlp subprocess; the C++ library
+  by default, ``use_native=False`` for the Python rules).
 
 Interface parity: ``compute_scores(gts, gen) -> (scores_dict, per_image)``
 with the same dict shapes as the reference.

@@ -16,7 +16,11 @@ quirks, so corpus scores are bit-identical:
   words - 1;
 - final score = 10 * mean over n in 1..4, averaged over references.
 
-Pure Python: the g++ scorer of ``grit_tpu.native`` is not ported.
+By default (n = 4) the scores come from the port's native library
+(``grit_tpu_torch.native.NativeCider``, C++ built with g++ at first use; the
+same scores to 1e-10), as the JAX package's ``Cider`` takes its own;
+``use_native=False`` keeps the pure-Python scorer below, its plain version.
+A library that fails to build raises.
 """
 
 from __future__ import annotations
@@ -35,12 +39,18 @@ def ngram_counts(sentence: str, n_max: int = 4) -> Counter:
 
 
 class Cider:
-    def __init__(self, gts: dict | None = None, n: int = 4, sigma: float = 6.0):
+    def __init__(self, gts: dict | None = None, n: int = 4, sigma: float = 6.0,
+                 use_native: bool = True):
         self.n = n
         self.sigma = sigma
         self.doc_frequency: dict | None = None
         self.ref_len: float | None = None
-        if gts is not None:
+        self._native = None
+        if use_native and n == 4:   # the library scores 1- to 4-grams
+            from grit_tpu_torch.native import NativeCider
+
+            self._native = NativeCider(corpus_refs=gts, sigma=sigma)
+        elif gts is not None:
             self.doc_frequency, self.ref_len = self._corpus_stats(gts)
 
     def _corpus_stats(self, gts: dict):
@@ -71,6 +81,8 @@ class Cider:
     def compute_score(self, gts: dict, res: dict):
         """gts: id -> list of refs; res: id -> [candidate]. -> (corpus, per-image)."""
         assert gts.keys() == res.keys()
+        if self._native is not None:
+            return self._native.compute_score(gts, res)
         if self.doc_frequency is not None:
             df, ref_len = self.doc_frequency, self.ref_len
         else:

@@ -17,7 +17,8 @@ Two tokenizers, matching the two the reference shells out for:
    lowercase, split punctuation, split English contractions/possessives and
    drop the standard punctuation set (the subprocess is invoked with
    ``-lowerCase -preserveLines``; scoring code then removes punctuation
-   tokens) — no JVM needed.
+   tokens) — no JVM needed.  ``PTBTokenizer`` runs its C++ counterpart in
+   ``grit_tpu_torch.native`` by default.
 """
 
 from __future__ import annotations
@@ -82,14 +83,27 @@ class PTBTokenizer:
     """Drop-in for the reference's Java-backed tokenizer interface.
 
     Accepts the same shapes as metrics/tokenizer.py: a dict id -> list of
-    caption strings, a list of strings, or a list of lists.
+    caption strings, a list of strings, or a list of lists.  By default the
+    port's native library tokenizes (``grit_tpu_torch.native``: the same
+    tokens, string for string), as the JAX package's tokenizer takes its own;
+    ``use_native=False`` keeps ``ptb_tokenize_str``, the plain version.  A
+    library that fails to build raises.
     """
 
     @classmethod
-    def tokenize(cls, corpus):
+    def tokenize(cls, corpus, use_native: bool = True):
         if isinstance(corpus, list) or isinstance(corpus, tuple):
             if len(corpus) and isinstance(corpus[0], (list, tuple)):
                 corpus = {i: list(c) for i, c in enumerate(corpus)}
             else:
                 corpus = {i: [c] for i, c in enumerate(corpus)}
-        return {k: [ptb_tokenize_str(c) for c in caps] for k, caps in corpus.items()}
+        if not use_native:
+            return {k: [ptb_tokenize_str(c) for c in caps] for k, caps in corpus.items()}
+        from grit_tpu_torch.native import ptb_tokenize_batch
+
+        keys = [k for k, caps in corpus.items() for _ in caps]
+        toks = ptb_tokenize_batch([c for caps in corpus.values() for c in caps]) if keys else []
+        out: dict = {k: [] for k in corpus}
+        for k, t in zip(keys, toks):
+            out[k].append(t)
+        return out

@@ -67,7 +67,12 @@ def build_detection_model(config, dtype: Optional[torch.dtype] = None, *, device
     The model is built on ``device`` (default: the GPU; raises without one) in
     ``train()``, with f32 master parameters that compute in ``dtype`` (None:
     f32, as the JAX package's CLI builds it).  ``seed`` draws random weights;
-    load a checkpoint over them."""
+    load a checkpoint over them.
+
+    ``model.detector.with_box_refine`` is accepted and, as in the JAX package,
+    changes nothing: its ``DetectionModule`` takes the flag
+    (grit_tpu/models/det_module.py:285) and never reads it, so either value
+    builds the same refining model."""
     from grit_tpu_torch.detection.losses import SetCriterion
 
     det_cfg = config.model.detector
@@ -75,8 +80,6 @@ def build_detection_model(config, dtype: Optional[torch.dtype] = None, *, device
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_detection_model: no CUDA device is available "
                            "(pass device='cpu' to build on the CPU)")
-    if not det_cfg.get("with_box_refine", True):
-        raise NotImplementedError("the detector is ported with box refinement only")
     with device:
         backbone = build_swin(config.model.get("backbone", "swin_base_win7_384_22k"),
                               frozen_stages=int(config.model.get("frozen_stages", -1)),

@@ -5,15 +5,20 @@ grit_tpu/detection/losses.py.
 
 Targets arrive as padded tensors ``{labels [B, G], boxes [B, G, 4], valid
 [B, G]}`` (G = max boxes per image), as ``datasets.pad_targets`` builds them.
-The Hungarian assignment is solved on the host by scipy's
-``linear_sum_assignment``, where the reference leaves it
-(od_losses.py:427-431): the criterion computes the cost matrices of ALL
-prediction levels (final + aux) on the device in one stacked pass, moves them
-to the host in one transfer, solves every (level, image) problem there, and
-sends the assignments back in one; a step so waits for the device once, not
-once per level.  Invalid (padding) columns get a +inf-like cost and are
-dropped from the returned assignment.  The JAX package's on-device solver
-(``match_impl="device"``) is not ported.
+The criterion computes the cost matrices of ALL prediction levels (final +
+aux) in one stacked pass and solves every (level, image) problem in one go,
+with one of two solvers (``match_impl``), as grit_tpu/detection/losses.py:
+- ``"device"``: ``ops.lsa.linear_sum_assignment``, the JAX package's
+  on-device solver (``_device_lsa_single``): one ``grit_lsa`` launch for all
+  problems on a CUDA device, no host transfer; its plain version on the CPU;
+- ``"host"``: scipy's ``linear_sum_assignment``, where the reference leaves it
+  (od_losses.py:427-431): the costs go to the host in one transfer and the
+  assignments come back in one, so a step waits for the device once, not
+  once per level.
+``"auto"`` (the config's default) is ``"device"`` for costs on a CUDA device
+and ``"host"`` on the CPU, as the JAX package resolves it by backend
+(losses.py:176-183).  Invalid (padding) columns get a +inf-like cost and are
+dropped from the returned assignment.
 
 Losses (od_losses.py:40-65, 91-116, 118-130, 206-227):
 - classification: sigmoid focal (alpha=0.25, gamma=2) over a one-hot target
@@ -29,7 +34,7 @@ the ranks and then clamped to >= 1, as the reference's all-reduce
 (od_losses.py:259-268) and grit_tpu's global count under GSPMD have it; the
 attribute loss's positive and negative counts are global too.  Each rank's
 losses are so its shares of the global batch's (the losses themselves on one
-rank).  The host matching stays per image, on each rank.  All losses are
+rank).  The matching stays per image, on each rank.  All losses are
 computed in f32 whatever the model's compute dtype.
 """
 
@@ -40,6 +45,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from grit_tpu_torch.ops import lsa as lsa_ops
 from grit_tpu_torch.parallel.mesh import global_sum
 from grit_tpu_torch.utils.boxes import box_cxcywh_to_xyxy, generalized_box_iou
 
@@ -122,12 +128,16 @@ def matching_cost(pred_logits, pred_boxes, tgt_labels, tgt_boxes, tgt_valid, *,
 
 
 def _check_impl(impl: str) -> None:
-    if impl == "device":
-        raise NotImplementedError(
-            "match_impl='device' (the JAX package's on-device assignment solver) is not "
-            "ported: see ROADMAP.md, queue 1; use 'auto' or 'host'")
-    if impl not in ("auto", "host"):
-        raise ValueError(f"match_impl={impl!r}")
+    if impl not in ("auto", "device", "host"):
+        raise ValueError(f"match_impl={impl!r}: expected 'auto', 'device' or 'host'")
+
+
+def _resolve_impl(impl: str, device: torch.device) -> str:
+    """'auto' -> the device solver on a CUDA device, scipy on the CPU (the JAX
+    package's choice by backend)."""
+    if impl == "auto":
+        return "device" if device.type == "cuda" else "host"
+    return impl
 
 
 @torch.no_grad()
@@ -135,20 +145,23 @@ def hungarian_match(pred_logits, pred_boxes, tgt_labels, tgt_boxes, tgt_valid, *
                     cost_class: float = 2.0, cost_bbox: float = 5.0, cost_giou: float = 2.0,
                     impl: str = "auto") -> torch.Tensor:
     """-> assign [..., B, G] (int64): the query matched to each gt box, -1 on
-    padding; leading level axes of the predictions are solved in the same
-    round trip to the host.  Matching carries no gradient
-    (od_losses.py:401)."""
+    padding; leading level axes of the predictions are solved together (one
+    launch on the device, or one round trip to the host).  Matching carries
+    no gradient (od_losses.py:401)."""
     _check_impl(impl)
     cost = matching_cost(pred_logits, pred_boxes, tgt_labels, tgt_boxes, tgt_valid,
                          cost_class=cost_class, cost_bbox=cost_bbox, cost_giou=cost_giou)
     n_valid = tgt_valid.bool().sum(-1)
-    host = torch.cat([cost.reshape(-1), n_valid.to(cost.dtype)]).cpu().numpy()  # one transfer
     b, q, g = cost.shape[-3:]
-    flat, n_valid = host[:cost.numel()].reshape(-1, q, g), host[cost.numel():].astype(np.int64)
+    flat = cost.reshape(-1, q, g)
     levels = flat.shape[0] // b
-    assign = _host_lsa(flat, np.tile(n_valid, levels)).reshape(*cost.shape[:-3], b, g)
-    assign = torch.from_numpy(assign).to(cost.device)
-    return torch.where(tgt_valid.bool(), assign, -1)
+    if _resolve_impl(impl, cost.device) == "device":
+        assign = lsa_ops.linear_sum_assignment(flat, n_valid.repeat(levels))
+    else:
+        host = torch.cat([cost.reshape(-1), n_valid.to(cost.dtype)]).cpu().numpy()  # one transfer
+        flat, n_valid = host[:cost.numel()].reshape(-1, q, g), host[cost.numel():].astype(np.int64)
+        assign = torch.from_numpy(_host_lsa(flat, np.tile(n_valid, levels))).to(cost.device)
+    return torch.where(tgt_valid.bool(), assign.reshape(*cost.shape[:-3], b, g), -1)
 
 
 class SetCriterion:
@@ -222,7 +235,7 @@ class SetCriterion:
 
     def match_levels(self, outputs: dict, targets: dict) -> torch.Tensor:
         """Assignments [L, B, G] of the final level (index 0) and every aux
-        level, all solved in one round trip to the host."""
+        level, all solved together (``hungarian_match``)."""
         aux = outputs.get("aux_outputs", [])
         return hungarian_match(
             torch.stack([outputs["pred_logits"]] + [a["pred_logits"] for a in aux]),

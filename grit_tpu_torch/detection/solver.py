@@ -5,8 +5,9 @@ engine/det_solver.py (Trainer.on_step :56-125: forward, criterion, weighted
 sum, grad clip, multi-group step, logging; Valider.run_epoch :230-273:
 postprocess -> CocoEvaluator -> mAP summary); grit_tpu/detection/solver.py.
 
-A step runs eagerly: forward, the criterion (one round trip to the host for
-the Hungarian assignments of every prediction level), backward, a global-norm
+A step runs eagerly: forward, the criterion (the Hungarian assignments of
+every prediction level in one ``grit_lsa`` launch on the card, or one round
+trip to the host under ``match_impl="host"``), backward, a global-norm
 clip in plain torch, and the five-group ``Adam`` step through K12.  Hooks
 drive the learning rates through the solver's scales.
 

@@ -2,7 +2,8 @@
 
 Inputs come from numpy seeds and go through the JAX function and its
 counterpart in ``grit_tpu_torch``: box utilities, the losses, the Hungarian
-matcher (both through scipy on the host), the set criterion with aux levels
+matcher (both through scipy on the host; the device solver in
+tests/test_torch_matcher.py), the set criterion with aux levels
 and attributes, post-processing, the detection head and the whole detection
 model from converted weights; the host modules the port copied (datasets,
 transforms, loader, mAP evaluator, hooks) are held equal to the originals.
@@ -188,10 +189,17 @@ def test_hungarian_match_equals_jax_and_batches_levels():
 
 
 def test_device_matcher_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlosses.SetCriterion(N_CLASSES, match_impl="device")
+    """``match_impl``: the name is kept from when the port refused the device
+    solver; now ``"device"`` is accepted (tests/test_torch_matcher.py holds
+    it against the JAX package's) and an unknown solver still raises."""
+    crit = tlosses.SetCriterion(N_CLASSES, match_impl="device")
+    assert crit.cost["impl"] == "device"
     with pytest.raises(ValueError):
         tlosses.SetCriterion(N_CLASSES, match_impl="gpu")
+    with pytest.raises(ValueError):
+        tlosses.hungarian_match(torch.zeros(1, 3, N_CLASSES), torch.zeros(1, 3, 4),
+                                torch.zeros(1, 2, dtype=torch.long), torch.zeros(1, 2, 4),
+                                torch.zeros(1, 2, dtype=torch.bool), impl="gpu")
 
 
 @pytest.mark.parametrize("attrs", [False, True])

@@ -150,7 +150,9 @@ def test_port_imports_no_jax():
         "          'utils.boxes', 'utils.misc', 'train_detector', 'eval_caption',\n"
         "          'eval_caption_online', 'eval_nocaps', 'models.ensemble',\n"
         "          'tools.extract_features', 'tools.artemis_extract_features',\n"
-        "          'parallel', 'parallel.distributed', 'parallel.mesh', 'dryrun'):\n"
+        "          'parallel', 'parallel.distributed', 'parallel.mesh', 'dryrun',\n"
+        "          'native', 'ops.lsa', 'tools.bench_train', 'tools.profile_eval',\n"
+        "          'tools.agg_trace', 'tools.bench_epoch', 'tools.timing'):\n"
         "    assert 'grit_tpu_torch.' + m in sys.modules, m\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -209,7 +211,9 @@ def test_port_sources_name_no_jax_package_module():
     assert Path(REPO, "grit_tpu_torch", "train_detector.py") in files
     assert Path(REPO, "grit_tpu_torch", "detection", "losses.py") in files
     for part in (("parallel", "__init__.py"), ("parallel", "distributed.py"),
-                 ("parallel", "mesh.py"), ("dryrun.py",)):
+                 ("parallel", "mesh.py"), ("dryrun.py",), ("native", "__init__.py"),
+                 ("ops", "lsa.py"), ("tools", "bench_train.py"), ("tools", "profile_eval.py"),
+                 ("tools", "agg_trace.py"), ("tools", "bench_epoch.py"), ("tools", "timing.py")):
         assert Path(REPO, "grit_tpu_torch", *part) in files
     bad = [str(f.relative_to(REPO)) for f in files if pattern.search(f.read_text())]
     assert not bad, bad

@@ -51,10 +51,12 @@ GEN = {"a": ["a red thing number 1 doing stuff"], "b": ["a blue cat running runn
 
 
 @pytest.mark.parametrize("metric", ["Bleu", "Cider", "Rouge", "Meteor", "Cider_corpus_idf",
-                                    "compute_scores", "porter_stem"])
+                                    "compute_scores", "porter_stem", "Cider_native",
+                                    "Cider_native_corpus_idf"])
 def test_port_metric_modules_match_jax_package(metric):
     """The port's copies of the metric modules give the JAX package's scores
-    on the same captions, exactly (its Cider on its pure-Python path)."""
+    on the same captions, exactly: each Cider on its pure-Python path, and
+    (``Cider_native*``) each on its native library, the same C++ source."""
     from grit_tpu.data import metrics as jm
     from grit_tpu.data.metrics.stemmer import porter_stem as jstem
     from grit_tpu_torch.data import metrics as tm
@@ -67,14 +69,15 @@ def test_port_metric_modules_match_jax_package(metric):
     if metric == "compute_scores":
         ours, theirs = tm.compute_scores(GTS, GEN), jm.compute_scores(GTS, GEN)
         assert ours[0].keys() == theirs[0].keys() == {"BLEU", "METEOR", "ROUGE", "CIDEr"}
-        for key in ("BLEU", "METEOR", "ROUGE"):    # the JAX Cider may take its native library
+        for key in ("BLEU", "METEOR", "ROUGE"):    # both Ciders take their native libraries
             assert np.array_equal(np.asarray(ours[0][key]), np.asarray(theirs[0][key])), key
             assert np.array_equal(np.asarray(ours[1][key]), np.asarray(theirs[1][key])), key
         assert abs(ours[0]["CIDEr"] - theirs[0]["CIDEr"]) <= 1e-9
         return
     if metric.startswith("Cider"):
         corpus = GTS if metric.endswith("idf") else None
-        ours, theirs = tm.Cider(corpus), jm.Cider(corpus, use_native=False)
+        native = metric.startswith("Cider_native")
+        ours, theirs = tm.Cider(corpus, use_native=native), jm.Cider(corpus, use_native=native)
     else:
         ours, theirs = getattr(tm, metric)(), getattr(jm, metric)()
     assert str(ours) == str(theirs)
