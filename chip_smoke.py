@@ -164,13 +164,28 @@ Phases, each of which must pass:
      grit_tpu_torch.tools.bench_train --phase both, profile_eval 8 --trace,
      agg_trace on that trace, bench_epoch --images 32 in a temporary
      directory.
+ 19. tensor parallel (after 15; phase_tensor_parallel): grit_tpu's model
+     axis, Swin-B's MLPs and the grid net's and decoder's FFNs split over two
+     ranks (the 10201-wide vocab head stays whole), on two cards over NCCL
+     or both on this one over gloo, against one process: the b8 caption
+     batch's fp32 tokens, its bf16 features (and their error against fp32
+     beside one process's), K2 24 and the split K11 60 + 60 launches a rank,
+     one b16 bf16 XE step's loss and updates, times at tp1 and tp2, the
+     collectives' count and bytes; then dryrun_multichip(4, "cuda") in dp4
+     and dp2tp2.  Its kernels, with phase 2's (phase_tp_kernels): K11's
+     split (the partial mode of csrc/decode_layer.cu's chain, launches 1-7 on
+     a rank's half of d_ff, and its finish entry, one launch) at 40, 80 and
+     640 rows, fp32 and bf16, against their plain versions, bit-equal over
+     two calls, 7 + 1 launches a call; K2 on a rank's half of each Swin-B
+     stage's hidden units against mlp_plain.
 
 Prints the card's name and power limit as nvidia-smi reports them, a JSON
 line of per-kernel results (all 18 TPU kernel bodies: the eleven ported
 kernels, and the seven bodies that one of them serves; the kernels
 inside K1, K2, K4, K5, K8 and K10a: gemm_bf16, win_attn and win_attn_bwd, and
-gemm_f32, win_attn_f32 and win_attn_bwd_f32; and grit_lsa, which ports no
-Pallas body), and last {"ok": true, "device": {...}}; the
+gemm_f32, win_attn_f32 and win_attn_bwd_f32; grit_lsa, which ports no
+Pallas body; and K11's two tensor-parallel entries, "K11 partial" and "K11
+finish"), and last {"ok": true, "device": {...}}; the
 per-shape results go to chiprun_out/chip_smoke.json.  Exits non-zero, without
 that last line, when there is no CUDA device or any phase fails.  The JSON
 file also holds the LN kernels' rows, the decoders phase's numbers, the
@@ -231,8 +246,12 @@ try:
     from grit_tpu_torch.ops import msda as msda_ops
     from grit_tpu_torch.ops import window_attention as wa
     from grit_tpu_torch.parallel import distributed as dist_lib
-    from grit_tpu_torch.parallel.mesh import (exclude_untrained, global_sum, shard_batch,
+    from grit_tpu_torch.parallel import tensor as tp_ops
+    from grit_tpu_torch.parallel.mesh import (exclude_untrained, gather_tp_state, global_sum,
+                                              make_groups, shard_batch, shard_model,
+                                              split_params, tie_replicated_grads, tp_plan,
                                               wrap_data_parallel)
+    from grit_tpu_torch.parallel.tensor import tp_size
     from grit_tpu_torch.tools.extract_features import FEATURES, collect_vis_features
     from grit_tpu_torch.utils.nested import ImageBatch, to_device
 except ImportError as exc:  # e.g. run outside a checkout of the repo
@@ -1097,6 +1116,139 @@ def phase_decode_kernel() -> None:
                                        "decode_tail_module_device_ms": mod_dev_ms,
                                        "decode_tail_module_launches": mod_launches,
                                        "decode_tail_wrapper_launches": own_launches})
+
+
+def half_layer(layer):
+    """Rank 0's tensor-parallel half of a parallel decoder layer, as
+    ``parallel.mesh.shard_model`` slices it: a layer of d_ff / 2 whose fc1
+    holds the first columns (and bias) and fc2 the first rows."""
+    half = cap_generator_lib.ParallelAttentionLayer(
+        D_MODEL, N_HEADS, layer.pwff.fc1.out_features // 2).to(DEV).eval()
+    state = dict(layer.state_dict())
+    state["pwff.fc1.weight"] = state["pwff.fc1.weight"].chunk(2, 0)[0]
+    state["pwff.fc1.bias"] = state["pwff.fc1.bias"].chunk(2)[0]
+    state["pwff.fc2.weight"] = state["pwff.fc2.weight"].chunk(2, 1)[0]
+    half.load_state_dict(state)
+    return half
+
+
+def phase_tp_kernels() -> None:
+    """The kernels of the tensor-parallel layout against their plain
+    versions.  K11's split (csrc/decode_layer.cu: the partial mode of
+    grit_decode_tail and grit_decode_tail_finish) at the decode shapes of a
+    b8, b16 and b128 caption batch (40, 80 and 640 rows, beam 5, key masks,
+    half the rows pad) on one tp2 rank's half of d_ff (F = 1024), fp32 and
+    bf16: the partial entry's part and enc, the finish entry on the partial's
+    own part and enc (one rank's sum); two calls bit-equal; one split call
+    makes exactly 7 + 1 CUDA launches (``graph_launches``) and counts one
+    ``decode_tail_partial`` and one ``decode_tail_finish``.  Timed by graph
+    replay, the plain versions eagerly; the b8 bf16 calls are the tp2 caption
+    batch's (60 of each a rank).  Then K2 on a rank's half of each Swin-B
+    stage's hidden units (256-2048) without fc2's bias, the partial of a tp2
+    rank, at the b8 caption rows against ``mlp_plain`` (checks, not timed into
+    K2's run)."""
+    print("[kernels] K11 split (partial + finish) vs plain, one tp2 rank's half of d_ff",
+          flush=True)
+    g = torch.Generator(device=DEV).manual_seed(5)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=DEV) * scale
+
+    eps = 1e-5
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = "fp32" if dtype == torch.float32 else "bf16"
+        layer = cap_generator_lib.ParallelAttentionLayer(D_MODEL, N_HEADS, D_FF).to(DEV).eval()
+        with torch.no_grad():
+            for name, prm in layer.named_parameters():
+                if "layer_norm" in name:
+                    prm.copy_((name.endswith("weight")) + rnd(*prm.shape, scale=0.1))
+                elif prm.dim() == 2:
+                    prm.copy_(rnd(*prm.shape, scale=prm.shape[1] ** -0.5))
+                else:
+                    prm.copy_(rnd(*prm.shape, scale=0.02))
+        half = half_layer(layer)
+        to_compute_dtype(half, dtype)
+        weights = half.tail_weights(dtype)
+        wbytes = sum(w.numel() for w in weights) * esize(dtype)
+        for batch in (8, EVAL_BATCH, 128):
+            rows = batch * BEAM
+            x = rnd(rows, 1, D_MODEL).to(dtype)
+            kv = [rnd(batch, t, D_MODEL).to(dtype) for t in (T_GRID, T_GRID, T_REG, T_REG)]
+            pad = (torch.arange(rows, device=DEV) % 2 == 0).to(dtype)[:, None, None]
+            masks = [((torch.arange(t, device=DEV)[None] >= t * 3 // 4)
+                      & (torch.arange(batch, device=DEV)[:, None] % 2 == 1))[:, None, None, :]
+                     .contiguous() for t in (T_GRID, T_REG)]
+            kw = dict(fold=BEAM, n_heads=N_HEADS, eps=eps)
+            padf = pad.float().reshape(rows, 1)
+            madd = [tail_ops.additive_mask(m, batch, t, DEV)
+                    for m, t in zip(masks, (T_GRID, T_REG))]
+
+            def partial():
+                return tail_ops.decode_tail_partial(x, kv[0], kv[1], masks[0], kv[2], kv[3],
+                                                    masks[1], pad, weights, **kw)
+
+            def partial_plain():
+                return tail_ops.decode_layer_tail_partial_plain(
+                    x[:, 0], kv[0], kv[1], madd[0], kv[2], kv[3], madd[1], padf, weights, **kw)
+
+            case = f"{dn} b{batch} tp2 half"
+            with torch.no_grad():
+                part, enc = partial()
+                part2, enc2 = partial()
+                part_p, enc_p = partial_plain()
+
+                def finish():
+                    return tail_ops.decode_tail_finish(part, enc, *weights[21:], pad, eps=eps)
+
+                def finish_plain():
+                    return tail_ops.decode_layer_tail_finish_plain(part, enc, *weights[21:], padf,
+                                                                   eps=eps, dtype=dtype)
+
+                out, again, out_p = finish(), finish(), finish_plain()
+                counted = dict(tail_ops.LAUNCHES)
+                partial()
+                finish()
+                counted = {k: tail_ops.LAUNCHES[k] - counted[k] for k in counted}
+                launches = (graph_launches(partial), graph_launches(finish))
+                ms_p, ms_f = graph_ms(partial), graph_ms(finish)
+                plain_p, plain_f = cuda_ms(partial_plain), cuda_ms(finish_plain)
+            if not (bits_equal(part, part2) and bits_equal(enc, enc2) and bits_equal(out, again)):
+                fail(f"K11 split {case}: two calls on the same inputs differ")
+            if launches != (7, 1) or counted != {"decode_tail": 0, "decode_tail_partial": 1,
+                                                  "decode_tail_finish": 1}:
+                fail(f"K11 split {case}: a call made {launches} CUDA launches and counted "
+                     f"{counted} (want 7 + 1, one of each)")
+            calls = 3 * STEPS if batch == 8 else 0
+            f_half = D_FF // 2
+            work_p = ((rows * D_MODEL + 2 * batch * (T_GRID + T_REG) * D_MODEL) * esize(dtype)
+                      + wbytes + 2 * rows * D_MODEL * 4,
+                      2.0 * rows * (8 * D_MODEL * D_MODEL + 2 * D_MODEL * f_half)
+                      + 4.0 * rows * D_MODEL * (T_GRID + T_REG))
+            work_f = (2 * rows * D_MODEL * 4 + (rows * D_MODEL + rows + D_MODEL) * esize(dtype)
+                      + 8 * D_MODEL, 10.0 * rows * D_MODEL)
+            compare("K11 partial", case, part, part_p, dtype, ms_p, plain_p, calls, work_p)
+            DETAIL[-1].update(wrapper_launches=launches[0], bit_equal=True)
+            compare("K11 partial", case + " enc", enc, enc_p, dtype, 0.0, 0.0, 0)
+            compare("K11 finish", case, out, out_p, dtype, ms_f, plain_f, calls, work_f)
+            DETAIL[-1].update(wrapper_launches=launches[1], bit_equal=True)
+    print("[kernels] K2 on one tp2 rank's half of the hidden units (fc2 without its bias) vs "
+          "plain, Swin-B at the b8 caption rows", flush=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = "fp32" if dtype == torch.float32 else "bf16"
+        for name, c, _, _, (hp, wp), _ in STAGES:
+            rows = 8 * hp * wp
+            hid = 2 * c          # half of 4C
+            x = rnd(rows, c).to(dtype)
+            nw, nb = 1 + rnd(c, scale=0.1), rnd(c, scale=0.1)
+            w1, b1 = rnd(hid, c, scale=c ** -0.5).to(dtype), rnd(hid, scale=0.02).to(dtype)
+            w2 = rnd(c, hid, scale=hid ** -0.5).to(dtype)
+            with torch.no_grad():
+                out = wa.mlp(x, nw, nb, w1, b1, w2, None, residual=False)
+                ref = wa.mlp_plain(x, nw, nb, w1, b1, w2, None, residual=False)
+                ms = graph_ms(lambda: wa.mlp(x, nw, nb, w1, b1, w2, None, residual=False))
+                plain_ms = cuda_ms(lambda: wa.mlp_plain(x, nw, nb, w1, b1, w2, None,
+                                                        residual=False))
+            compare("K2", f"{dn} {name} tp2 half (hidden {hid})", out, ref, dtype, ms, plain_ms, 0)
 
 
 # phase_msda_kernels' cases: (name, batch, pyramid, K6 too); the b128 caption
@@ -2068,10 +2220,13 @@ def training_batch(batch: int, config, offset: int = 0) -> dict:
             "captions": training_captions(batch, config, offset)}
 
 
-def training_setup(config, dtype, batch: int, dropouts: bool = True, seed: int = 0):
+def training_setup(config, dtype, batch: int, dropouts: bool = True, seed: int = 0,
+                   tp_group=None):
     """The XE trainer a user would build: model in train() with f32 master
     parameters computing in ``dtype``, two-group Adam with the frozen Swin
-    stages left out, the cosine schedule, a seeded generator for the masks."""
+    stages left out, the cosine schedule, a seeded generator for the masks.
+    ``tp_group``: the model split over that tensor group before the optimizer
+    is built (``parallel.mesh.shard_model``)."""
     config = config.copy()
     config.model.frozen_stages = FROZEN_STAGES
     model = build_captioner(config, device=DEV, dtype=dtype, seed=seed, train=True)
@@ -2081,10 +2236,14 @@ def training_setup(config, dtype, batch: int, dropouts: bool = True, seed: int =
                 mod.p = 0.0
             elif isinstance(mod, SwinBlock):
                 mod.drop_path_rate = 0.0
+    if tp_group is not None:
+        shard_model(model, tp_plan(model, tp_size(tp_group)), tp_group)
     freeze = optim_lib.frozen_mask(model, optim_lib.swin_frozen_stages_predicate(FROZEN_STAGES))
     opt = optim_lib.build_optimizer(
         model, model_lr=SCHED["init_lr"], backbone_lr=config.optimizer.xe_backbone_lr,
         beta_1=config.optimizer.beta_1, beta_2=config.optimizer.beta_2, freeze=freeze)
+    if tp_group is not None:
+        tie_replicated_grads(opt, model, tp_group)
     state = xe_lib.TrainState(model, opt, global_steps=1,
                               generator=torch.Generator(device=DEV).manual_seed(seed))
     step = xe_lib.make_xe_train_step(pad_idx=config.model.pad_idx, sched_cfg=SCHED)
@@ -3818,9 +3977,10 @@ def dp_update_error(model, ref: dict) -> tuple[float, float, str]:
     """(the worst |p - p_ref| in learning rates where the one-process gradient
     is above DP_GRAD_FLOOR of its leaf's max and 1e-6, the worst elsewhere,
     the leaf of the first) over the leaves the one process trained, beyond
-    one f32 rounding of the parameter."""
+    one f32 rounding of the parameter.  ``model``: a model, or a dict of its
+    parameters by name."""
     worst, noise, where = 0.0, 0.0, ""
-    for name, p in model.named_parameters():
+    for name, p in model.items() if isinstance(model, dict) else model.named_parameters():
         if name not in ref["params"]:
             continue
         want = ref["params"][name].to(p.device)
@@ -4336,6 +4496,406 @@ def phase_data_parallel(card: str, profile: bool) -> None:
     RESULTS["data_parallel"]["dryrun"] = dryrun_multichip(DP_WORLD, device=DEV)
 
 
+# ---------------------------------------------------------------------------
+# tensor parallel: two ranks over grit_tpu's model axis against one process
+# ---------------------------------------------------------------------------
+
+TP_WORLD = 2
+TP_DEADLINE = 600.0
+TP_TIMED = 3            # timed caption batches and XE steps, at tp1 and at tp2
+TP_BATCH = 8            # the caption batch
+#: the tp2 bf16 features' error against the fp32 one-process features, as a
+#: multiple of one process's own bf16 error, past which an f32-store GEMM
+#: epilogue (the partials leave the GEMM in bf16 today) is worth queueing
+TP_BF16_RATIO = 1.5
+#: bf16 XE updates: Adam's first step is the gradient's sign times lr, and
+#: K6's atomic sums of the value gradient reach bf16's rounding, so one
+#: process's step run twice flips ~8e4 of its 1.3e8 held elements (2 lr
+#: each).  The ranks' step may flip at most this many times as many against
+#: one process's; a split that loses a rank's share of a leaf's gradient
+#: flips a large part of that leaf
+TP_FLIP_RATIO = 2.0
+
+
+@contextlib.contextmanager
+def tp_arm(tp: int = TP_WORLD):
+    """One process computing what ``tp`` tensor-parallel ranks compute: each
+    FFN's and each Swin MLP's products in the ranks' slices of d_ff (each
+    slice's weights contiguous, as a rank holds them), the partials summed in
+    f32 in rank order, then each module's own finish.  The reference that the
+    ranks' XE updates are held to, as phase_data_parallel's one process runs
+    the ranks' row groups: cuBLAS and the GEMM kernels choose by shape, so a
+    product over all of d_ff rounds differently from a rank's half, a ReLU
+    gate at zero flips and Adam's first step moves that leaf's elements by
+    two learning rates.  The slices read their input through one shared view,
+    whose gradient is the sum of theirs before the residual's joins it, as
+    ``copy_to_tp``'s all-reduce gives it to a rank (in bf16 the order of
+    those sums rounds, and flips small gradients too).  Comparison only."""
+    import torch.nn.functional as F
+
+    from grit_tpu_torch.models.attention import FeedForward
+
+    def slices(w, dim):
+        return [c.contiguous() for c in w.chunk(tp, dim)]
+
+    def ff_forward(self, x):
+        dt, shared = x.dtype, x.view_as(x)
+        parts = [F.linear(self.drop(F.relu(F.linear(shared, w1, b1))), w2).float()
+                 for w1, b1, w2 in zip(slices(self.fc1.weight.to(dt), 0),
+                                       slices(self.fc1.bias.to(dt), 0),
+                                       slices(self.fc2.weight.to(dt), 1))]
+        return self.finish(x, sum(parts[1:], parts[0]))
+
+    def block_mlp(self, rows, residual):
+        dt, m = rows.dtype, self.mlp
+        shared = [t.view_as(t) for t in (rows, self.norm2.weight, self.norm2.bias)]
+        parts = [wa.mlp(*shared, w1, b1, w2, None, eps=1e-5, residual=False).float()
+                 for w1, b1, w2 in zip(slices(m.fc1.weight.to(dt), 0),
+                                       slices(m.fc1.bias.to(dt), 0),
+                                       slices(m.fc2.weight.to(dt), 1))]
+        return self.mlp_finish(rows, sum(parts[1:], parts[0]), residual)
+
+    saved = FeedForward.forward, SwinBlock._mlp
+    FeedForward.forward, SwinBlock._mlp = ff_forward, block_mlp
+    try:
+        yield
+    finally:
+        FeedForward.forward, SwinBlock._mlp = saved
+
+
+def tp_caption_model(config, dtype, group):
+    model = build_captioner(config, device=DEV, dtype=dtype, seed=0)
+    if group is not None:
+        shard_model(model, tp_plan(model, tp_size(group)), group)
+    return model
+
+
+def reset_collectives() -> None:
+    for k in tp_ops.COLLECTIVES:
+        tp_ops.COLLECTIVES[k] = 0
+
+
+def tp_caption_runs(config, group) -> dict:
+    """The b8 caption batch at 384x640 (beam 5, 20 steps, EOS off) of the
+    default model, split over ``group`` (None: one process): in fp32 its
+    features, first-beam tokens and decision margins; in bf16 its features,
+    then a warm-up batch, one counted batch (kernel launches, collectives),
+    TP_TIMED timed batches and one profiled batch (device busy, idle share)."""
+    m = config.model
+    samples = synthetic_batch(TP_BATCH)
+    model = tp_caption_model(config, torch.float32, group)
+    vis, res = beam_run(model, samples, TP_BATCH, m.bos_idx, m.vocab_size, return_margins=True)
+    out = {"fp32": {"seq": res.sequences[:, 0].cpu(), "margins": res.margins.cpu(),
+                    "gri": vis["gri_feat"].cpu(), "reg": vis["reg_feat"].cpu()}}
+    del model, vis, res
+    free_card()
+    model = tp_caption_model(config, torch.bfloat16, group)
+    with torch.inference_mode():
+        vis = model.compute_vis(samples)
+    out["bf16"] = {"gri": vis["gri_feat"].float().cpu(), "reg": vis["reg_feat"].float().cpu()}
+    gen = make_caption_generator(model, beam_size=BEAM, max_len=STEPS, bos_idx=m.bos_idx,
+                                 eos_idx=m.vocab_size)
+    gen(samples, TP_BATCH)                                  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    reset_collectives()
+    seq = gen(samples, TP_BATCH)
+    torch.cuda.synchronize()
+    out["launches"] = {**caption_launches(),
+                       "K11 partial": tail_ops.LAUNCHES["decode_tail_partial"],
+                       "K11 finish": tail_ops.LAUNCHES["decode_tail_finish"]}
+    out["collectives"] = dict(tp_ops.COLLECTIVES)
+    out["bf16"]["seq"] = seq.cpu()
+    times = []
+    for _ in range(TP_TIMED):
+        dist_lib.barrier("timed_batch")
+        t0 = time.perf_counter()
+        gen(samples, TP_BATCH)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["ms"] = times
+    dist_lib.barrier("profiled_batch")
+    out["profile"] = dp_collective_ms(lambda: gen(samples, TP_BATCH))
+    return out
+
+
+def tp_xe_runs(config, dtype, group, dp_group=None, ref: dict | None = None,
+               timed: int = 0) -> dict:
+    """One b16 XE step of the default model in ``dtype`` (dropouts off, the
+    norms perturbed as ``dp_xe_setup``'s, every rank all 16 rows), split over
+    ``group`` (None: one process, under ``tp_arm`` when the caller asks for
+    the ranks' slices), then ``timed`` timed steps -> its loss, the
+    collectives of the checked step and the step times; with ``ref`` (one
+    process's), the update error against it; without, what a rank is held to
+    (the updated parameters, where the gradient is above DP_GRAD_FLOOR, the
+    learning rates)."""
+    m = config.model
+    state, step, batch = training_setup(config, dtype, TRAIN_BATCH, dropouts=False,
+                                        tp_group=group)
+    perturb_norms(state.model, 1)
+    model = state.model
+    trained = dp_held(state.optimizer)
+    probe = xe_lib.xe_probe([batch], pad_idx=m.pad_idx)
+    if group is None:
+        exclude_untrained(model, trained=trained, probe=probe)
+    else:
+        state.model = wrap_data_parallel(model, DEV, trained=trained, probe=probe, group=dp_group)
+    reset_collectives()
+    _, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    out = {"loss": float(global_sum(metrics["loss"])), "collectives": dict(tp_ops.COLLECTIVES)}
+    if ref is None:
+        lr = {id(p): g["lr"] for g in state.optimizer.param_groups for p in g["params"]}
+        out.update(params={}, big={}, lr={})
+        for name, p in model.named_parameters():
+            if id(p) in lr and p.grad is not None:
+                out["params"][name] = p.detach().cpu().clone()
+                floor = max(1e-6, DP_GRAD_FLOOR * float(p.grad.abs().max()))
+                out["big"][name] = (p.grad.abs() > floor).cpu()
+                out["lr"][name] = lr[id(p)]
+    else:
+        whole = gather_tp_state(model)
+        out["update"] = dp_update_error({k: whole[k] for k in ref["params"]}, ref)
+        out["flips"] = update_flips({k: whole[k] for k in ref["params"]}, ref)
+        del whole
+        if group is not None:
+            out["replicas_equal"] = tp_replicas_equal(model)
+    times = []
+    for _ in range(timed):
+        dist_lib.barrier("timed_step")
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["ms"] = times
+    del state, step, batch, model
+    free_card()
+    return out
+
+
+def update_flips(params: dict, ref: dict) -> tuple[int, int]:
+    """(elements whose update differs from ``ref``'s by more than UPDATE_TOL
+    lr where its gradient is above the floor, such elements in all): Adam's
+    first step is the sign of the gradient times lr, so an element either
+    agrees or has flipped (2 lr)."""
+    far = held = 0
+    for name, want in ref["params"].items():
+        p = params[name].detach()
+        want = want.to(p.device)
+        err = ((p - want).abs() - torch.finfo(torch.float32).eps * want.abs()) / ref["lr"][name]
+        big = ref["big"][name].to(p.device)
+        far += int((err[big] > UPDATE_TOL).sum())
+        held += int(big.sum())
+    return far, held
+
+
+def tp_replicas_equal(model) -> bool:
+    """Whether every rank's trainable parameters that no tensor group splits
+    equal rank 0's bit for bit."""
+    split = split_params(model)
+    flat = torch.cat([p.detach().reshape(-1) for n, p in model.named_parameters()
+                      if p.requires_grad and n not in split])
+    other = flat.clone()
+    torch.distributed.broadcast(other, 0)
+    same = torch.tensor([float(torch.equal(flat, other))], device=flat.device)
+    torch.distributed.all_reduce(same, op=torch.distributed.ReduceOp.MIN)
+    return bool(same.item())
+
+
+def tp_rank(work: str) -> dict:
+    """One rank of phase_tensor_parallel (started by ``run_ranks``): the
+    caption runs and the XE step with the model split over the two ranks
+    (dp1 x tp2), the step held here against one process's in
+    ``work``/ref.pt."""
+    ref = torch.load(os.path.join(work, "ref.pt"), weights_only=False)
+    config = default_caption_config()
+    dp_group, tp_group = make_groups(1, TP_WORLD)
+    out = {"rank": dist_lib.rank(), "card": torch.cuda.current_device(),
+           "caption": tp_caption_runs(config, tp_group)}
+    free_card()
+    out["xe"] = {dn: tp_xe_runs(config, dtype, tp_group, dp_group, ref=ref[dn],
+                                timed=TP_TIMED if dtype == torch.bfloat16 else 0)
+                 for dn, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16))}
+    return out
+
+
+def phase_tensor_parallel(card: str) -> None:
+    """The tensor-parallel layout (grit_tpu's model axis, ``parallel.mesh``)
+    at full width: Swin-B's 24 MLPs, the grid net's and the decoder's 3 FFNs
+    each split over two ranks (the vocab head, 10201 wide, stays whole), on
+    two cards over NCCL when there are two, else both ranks on this card
+    over gloo; the kernel library is built before the ranks start.  Held
+    against one process on the same inputs: the b8 caption batch's fp32
+    tokens token for token (near-ties excepted, as phase_parity), its bf16
+    grid features within TOL (3e-2) of one process's bf16 ones and the bf16
+    error against fp32 printed beside one process's own; K2 24 and the split
+    K11 60 + 60 launches (the whole K11 none) in a caption batch on each
+    rank; one b16 XE step in fp32 and in bf16: its loss within LOSS_TOL of
+    one process's and of one process's that computes the ranks' slices
+    (``tp_arm``), its fp32 updates within UPDATE_TOL lr of the latter's (as
+    phase_data_parallel holds them), its bf16 updates flipping at most
+    TP_FLIP_RATIO times as many elements as that one process's step run
+    twice flips against itself, the replicated parameters bit-equal on both
+    ranks (``tie_replicated_grads``).  Printed: ms a batch and a step at tp1
+    and tp2, device busy and idle share, the all-reduces' count and bytes a
+    batch and a step.  Then ``dryrun_multichip(4, "cuda")``: dp4 and dp2tp2
+    of the tiny captioner on four ranks."""
+    import shutil
+    import tempfile
+
+    two_cards = torch.cuda.device_count() >= TP_WORLD
+    backend = "nccl" if two_cards else "gloo"
+    print(f"[tp] {TP_WORLD} ranks " + ("on two cards over NCCL" if two_cards else
+          "on this one card over gloo: their times measure correctness, not scaling"),
+          flush=True)
+    config = default_caption_config()
+    free_card()
+    work = tempfile.mkdtemp(prefix="grit_tp_")
+    try:
+        t0 = time.perf_counter()
+        one = {"caption": tp_caption_runs(config, None)}
+        free_card()
+        # one process as it is (held: the loss; tp1's times) and computing the
+        # ranks' slices (held: the loss and the updates)
+        saved, one["xe"], one["xe_split"] = {}, {}, {}
+        for dn, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            run = tp_xe_runs(config, dtype, None, timed=TP_TIMED if dtype == torch.bfloat16 else 0)
+            one["xe"][dn] = {k: run[k] for k in ("loss", "collectives", "ms")}
+            del run
+            with tp_arm():
+                run = tp_xe_runs(config, dtype, None)
+                saved[dn] = {k: run[k] for k in ("params", "big", "lr")}
+                # the same step once more: one process against itself
+                again = tp_xe_runs(config, dtype, None, ref=saved[dn])
+            one["xe_split"][dn] = {"loss": run["loss"], "again_loss": again["loss"],
+                                   "again_update": again["update"], "again_flips": again["flips"]}
+            print(f"[tp] one process computing the ranks' slices, {dn} XE step run twice: loss "
+                  f"{run['loss']:.9f} / {again['loss']:.9f}, update {again['update'][0]:.2e} lr "
+                  f"({again['update'][2]}), {again['flips'][0]} of {again['flips'][1]} held "
+                  f"elements beyond {UPDATE_TOL:.0e} lr", flush=True)
+            del run, again
+        torch.save(saved, os.path.join(work, "ref.pt"))
+        del saved
+        free_card()
+        ref_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        try:
+            outs = dist_lib.run_ranks("chip_smoke:tp_rank", TP_WORLD, args=(work,), device=DEV,
+                                      backend=backend,
+                                      local_ranks=None if two_cards else [0] * TP_WORLD,
+                                      deadline=TP_DEADLINE, threads=2)
+        except RuntimeError as exc:
+            fail(f"tensor parallel: {str(exc)[-6000:]}")
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)   # noqa: E731
+    c1 = one["caption"]
+    want = {**forward_launches(), "K11": 0,
+            "K11 partial": config.model.cap_generator.n_layers * STEPS,
+            "K11 finish": config.model.cap_generator.n_layers * STEPS}
+    for o in outs:
+        r, c = o["rank"], o["caption"]
+        same_tokens(f"tp rank {r}", c["fp32"]["seq"], c1["fp32"]["seq"], c["fp32"]["margins"])
+        if not torch.equal(c["fp32"]["seq"], outs[0]["caption"]["fp32"]["seq"]):
+            fail("tensor parallel: the two ranks' fp32 tokens differ")
+        if not torch.equal(c["bf16"]["seq"], outs[0]["caption"]["bf16"]["seq"]):
+            fail("tensor parallel: the two ranks' bf16 beams differ")
+        errs = {}
+        for key in ("gri", "reg"):
+            a, b1, f = c["bf16"][key], c1["bf16"][key], c1["fp32"][key]
+            errs[key] = {"vs_one_process_bf16": max_rel(a, b1), "tp2_vs_fp32": rms_rel(a, f),
+                         "one_process_vs_fp32": rms_rel(b1, f),
+                         "fp32_tp2_vs_fp32": max_rel(c["fp32"][key], f)}
+        o["errors"] = errs
+        print(f"[tp] rank {r} (card {o['card']}): fp32 features against one process's, max "
+              f"rel: gri_feat {errs['gri']['fp32_tp2_vs_fp32']:.3e}, reg_feat "
+              f"{errs['reg']['fp32_tp2_vs_fp32']:.3e}; bf16 against one process's bf16, max rel: "
+              f"gri_feat {errs['gri']['vs_one_process_bf16']:.3e} (tol {TOL[torch.bfloat16]:.0e}), "
+              f"reg_feat {errs['reg']['vs_one_process_bf16']:.3e}; bf16 against fp32, relative "
+              f"RMS: tp2 gri_feat {errs['gri']['tp2_vs_fp32']:.3e} (one process "
+              f"{errs['gri']['one_process_vs_fp32']:.3e}), reg_feat "
+              f"{errs['reg']['tp2_vs_fp32']:.3e} ({errs['reg']['one_process_vs_fp32']:.3e})",
+              flush=True)
+        if not all(torch.isfinite(c["bf16"][k]).all() for k in ("gri", "reg")):
+            fail(f"tensor parallel: rank {r}'s bf16 features are not finite")
+        if errs["gri"]["vs_one_process_bf16"] > TOL[torch.bfloat16]:
+            fail(f"tensor parallel: rank {r}'s bf16 gri_feat "
+                 f"{errs['gri']['vs_one_process_bf16']:.3e} from one process's")
+        if errs["gri"]["fp32_tp2_vs_fp32"] > FEATURE_TOL:
+            fail(f"tensor parallel: rank {r}'s fp32 gri_feat {errs['gri']['fp32_tp2_vs_fp32']:.3e} "
+                 f"from one process's")
+        if {k: c["launches"][k] for k in want} != want:
+            fail(f"tensor parallel: rank {r}'s caption batch launched {c['launches']}, want {want}")
+        for dn in ("fp32", "bf16"):
+            x, x1, xs = o["xe"][dn], one["xe"][dn], one["xe_split"][dn]
+            worst, noise, where = x["update"]
+            print(f"[tp] rank {r}: b{TRAIN_BATCH} {dn} XE step loss {x['loss']:.9f} (one process "
+                  f"{x1['loss']:.9f}, {rel(x['loss'], x1['loss']):.2e}; computing the ranks' "
+                  f"slices {xs['loss']:.9f}, {rel(x['loss'], xs['loss']):.2e}), update "
+                  f"{worst:.2e} lr from the latter's ({where}; {x['flips'][0]} of "
+                  f"{x['flips'][1]} held elements beyond {UPDATE_TOL:.0e} lr), {noise:.2e} lr "
+                  f"where the gradient is noise", flush=True)
+            if any(not np.isfinite(x["loss"]) or rel(x["loss"], y) > LOSS_TOL
+                   for y in (x1["loss"], xs["loss"])):
+                fail(f"tensor parallel: rank {r}'s {dn} XE loss {x['loss']} != one process's "
+                     f"{x1['loss']} / {xs['loss']}")
+            if not x["replicas_equal"]:
+                fail(f"tensor parallel: the ranks' replicated parameters differ after the "
+                     f"{dn} step")
+            if dn == "fp32" and (worst > UPDATE_TOL or noise > 2):
+                fail(f"tensor parallel: rank {r}'s fp32 XE update {worst:.3e} / {noise:.3e} "
+                     f"learning rates from one process's ({where})")
+            if dn == "bf16" and x["flips"][0] > TP_FLIP_RATIO * xs["again_flips"][0]:
+                fail(f"tensor parallel: rank {r}'s bf16 XE update flips {x['flips'][0]} "
+                     f"elements against one process's, which flips {xs['again_flips'][0]} "
+                     f"against itself")
+    ratio = max(outs[0]["errors"][k]["tp2_vs_fp32"] / outs[0]["errors"][k]["one_process_vs_fp32"]
+                for k in ("gri", "reg"))
+    print(f"[tp] bf16 error against fp32, tp2 over one process's: {ratio:.3f}x at most "
+          + ("(within" if ratio <= TP_BF16_RATIO else "(ABOVE") + f" {TP_BF16_RATIO}x: "
+          + ("no f32-store epilogue needed)" if ratio <= TP_BF16_RATIO else
+             "an f32-store GEMM epilogue is worth queueing)"), flush=True)
+    c, o0 = outs[0]["caption"], outs[0]
+    med = lambda t: sorted(t)[len(t) // 2]   # noqa: E731
+    for what, a, b, coll_a, coll_b in (
+            (f"b{TP_BATCH} bf16 caption batch", c1["ms"], c["ms"], c1["collectives"],
+             c["collectives"]),
+            (f"b{TRAIN_BATCH} bf16 XE step", one["xe"]["bf16"]["ms"], o0["xe"]["bf16"]["ms"],
+             one["xe"]["bf16"]["collectives"], o0["xe"]["bf16"]["collectives"])):
+        print(f"[tp] {what}: tp1 {med(a):.1f} ms ({', '.join(f'{t:.1f}' for t in a)}), tp2 "
+              f"{med(b):.1f} ms ({', '.join(f'{t:.1f}' for t in b)}); all-reduces a rank "
+              f"{coll_b['all_reduce']} ({coll_b['all_reduce_bytes'] / 2 ** 20:.1f} MiB), "
+              f"all-gathers {coll_b['all_gather']}, broadcasts of the replicated gradients "
+              f"{coll_b['broadcast']} ({coll_b['broadcast_bytes'] / 2 ** 20:.1f} MiB) (tp1: "
+              f"{coll_a['all_reduce']} collectives)  [{card}]", flush=True)
+    for who, p in (("tp1", c1["profile"]), ("tp2 rank 0", c["profile"])):
+        # an NCCL kernel spans its wait for the peer: busy counts the rest
+        p["busy_ms"] -= p["nccl_kernel_ms"]
+        p["idle_share"] = 1 - p["busy_ms"] / p["wall_ms"]
+        print(f"[tp] {who} caption batch profiled: device busy {p['busy_ms']:.1f} ms outside the "
+              f"collectives' kernels ({p['nccl_kernel_ms']:.2f} ms), idle share "
+              f"{p['idle_share']:.3f}, wall {p['wall_ms']:.1f} ms, host copies "
+              f"{p['copy_ms']:.2f} ms, host time in the all-reduces {p['allreduce_host_ms']:.1f} "
+              f"ms  [{card}]", flush=True)
+    RESULTS["K11 partial"]["launches"] = c["launches"]["K11 partial"]
+    RESULTS["K11 finish"]["launches"] = c["launches"]["K11 finish"]
+    RESULTS["tensor_parallel"] = {
+        "backend": backend, "two_cards": two_cards, "one_process_s": ref_s, "ranks_s": ranks_s,
+        "bf16_error_ratio": ratio,
+        "one_process": {"caption_ms": c1["ms"], "caption_profile": c1["profile"],
+                        "caption_launches": c1["launches"], "xe": one["xe"],
+                        "xe_split": one["xe_split"]},
+        "ranks": [{"rank": o["rank"], "card": o["card"], "errors": o["errors"],
+                   "caption_ms": o["caption"]["ms"], "caption_profile": o["caption"]["profile"],
+                   "caption_launches": o["caption"]["launches"],
+                   "caption_collectives": o["caption"]["collectives"],
+                   "xe": o["xe"]}
+                  for o in outs]}
+    free_card()
+    RESULTS["tensor_parallel"]["dryrun"] = dryrun_multichip(4, device=DEV)
+
+
 def ptxas_report() -> dict:
     """{kernel instance: (registers a thread, spilled bytes)} from the
     ``-Xptxas -v`` lines of each source's build log; an instance is named by
@@ -4424,6 +4984,7 @@ def main() -> None:
         ("ln kernels", lambda: phase_ln_kernels(card)),
         ("dense attention kernel", lambda: phase_dense_attention_kernel(args.batch)),
         ("decode kernel", phase_decode_kernel),
+        ("tp kernels", phase_tp_kernels),
         ("msda kernels", phase_msda_kernels),
         ("adam kernel", phase_adam_kernel),
         ("lsa kernel", phase_lsa_kernel),
@@ -4456,6 +5017,7 @@ def main() -> None:
             PRESET_PARITY_BATCH, preset_config("swin_tiny"), "swin_tiny")),
         ("tools", phase_tools),
         ("data parallel", lambda: phase_data_parallel(card, args.profile)),
+        ("tensor parallel", lambda: phase_tensor_parallel(card)),
         ("profile", lambda: phase_profile(args.batch, card) if args.profile else None),
         ("train parity", lambda: phase_train_parity(TRAIN_BATCH)),
         ("parity seeds", lambda: parity_seeds(TRAIN_BATCH, args.parity_seeds)),
@@ -4548,6 +5110,21 @@ def main() -> None:
         "train_plain_ms": r["plain_ms"], "train_bound_ms": r["bound_ms"],
         "detector_ms": RESULTS["detector_bf16"]["adam_ms"],
         "detector_bound_ms": RESULTS["detector_bf16"]["adam_bound_ms"]})
+    # K11's tensor-parallel split: the two entries a tp2 rank's decode step
+    # launches (the partial mode of grit_decode_tail's chain, then the finish)
+    for k, entry in (("K11 partial", "grit_decode_tail, partial mode (launches 1-7)"),
+                     ("K11 finish", "grit_decode_tail_finish (launch 9)")):
+        r = RESULTS[k]
+        acc = r["caption"]
+        kernels.append({
+            "name": k, "route": "cuda", "source": csrc + "decode_layer.cu",
+            "replaces": "grit_tpu/ops/decode_layer.py:117", "entry": entry,
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": acc["ms"],
+            "plain_ms": acc["plain_ms"], "bound_ms": max(acc["bytes_ms"], acc["ops_ms"]),
+            "bound_by": "bytes" if acc["bytes_ms"] >= acc["ops_ms"] else "operations",
+            "library_ms": None,
+            "per": f"one rank's b{TP_BATCH} bf16 caption forward, the decoder's FFNs split over "
+                   f"tp2 ({D_FF // 2} of d_ff {D_FF} a rank)"})
     # the matcher: no Pallas body; it ports the JAX solver's lax control flow
     r, step_row = RESULTS["lsa"], RESULTS["detector_bf16"]["matcher"]["lsa"]
     kernels.append({
@@ -4594,6 +5171,7 @@ def main() -> None:
                    "ln_kernels": RESULTS.get("ln_kernels"),
                    "decoders": RESULTS.get("decoders"),
                    "data_parallel": RESULTS.get("data_parallel"),
+                   "tensor_parallel": RESULTS.get("tensor_parallel"),
                    "lsa": RESULTS.get("lsa"), "native_metrics": RESULTS.get("native_metrics"),
                    "presets": {k: v for k, v in RESULTS.items()
                                if any(k.startswith(p) for p in ("slice swin", "train swin",

@@ -29,6 +29,16 @@
 //   8. out = LN_f(pre) * pad                                   [R, D]
 // Intermediates go through device memory (they stay in L2: ~1 MB at 40 rows).
 //
+// Tensor parallel (grit_tpu's model axis): a rank holds F / tp of fc1's
+// columns and fc2's rows, and the sum over the ranks must sit between fc2 and
+// the final LayerNorm.  The entry's partial mode runs launches 1-7 on the
+// rank's slice, fc2 writing its f32 sum without bias or residual (7'.
+// part = h W2), the gated enc left in the f32 scratch for the residual, and
+// skips launch 8; the caller all-reduces `part` in f32, and a second entry,
+// grit_decode_tail_finish, does the rest in one launch:
+//   9. out = LN_f(enc + (part + b2)) * pad                     [R, D]
+// At tp 1 the eight-launch chain is unchanged.
+//
 // The five products (1, 3, 5, 6, 7) stream weights: a few rows against a
 // weight read once.  They share one block routine, `product`:
 // - a block owns 8 output columns (the n of mma.sync m16n8k16) and one tile of
@@ -572,11 +582,11 @@ __global__ void __launch_bounds__(PR_THREADS) dt_fc1_kernel(
   }
 }
 
-// 7. pre = enc + h W2 + b2 (f32).
+// 7. pre = enc + h W2 + b2 (f32); with `partial`, pre = h W2 alone (7').
 template <typename T, int NF, int KS>
 __global__ void __launch_bounds__(PR_THREADS) dt_fc2_kernel(
     const T* __restrict__ hbuf, const float* __restrict__ encf, const T* w2, const T* b2,
-    float* __restrict__ pre, int R, int D, int F, int per, int mf) {
+    float* __restrict__ pre, int R, int D, int F, int per, int mf, int partial) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int rank = blockIdx.x % KS, col0 = blockIdx.x / KS * 8 * NF;
   const RowTile t(R, per);
@@ -587,10 +597,40 @@ __global__ void __launch_bounds__(PR_THREADS) dt_fc2_kernel(
   for (int idx = rank * PR_THREADS + threadIdx.x; idx < t.nrows * 8 * NF;
        idx += KS * PR_THREADS) {
     const int r = idx / (8 * NF), c = idx % (8 * NF), row = t.row0 + r, col = col0 + c;
+    const float s = parts.sum(mf, KS * PR_WARPS, 0, idx);
     pre[(size_t)row * D + col] =
-        encf[(size_t)row * D + col] + (parts.sum(mf, KS * PR_WARPS, 0, idx) + to_f<T>(b2[col]));
+        partial ? s : encf[(size_t)row * D + col] + (s + to_f<T>(b2[col]));
   }
   parts.done();
+}
+
+// 9. the tensor-parallel finish: out = LN_f(enc + (part + b2)) * pad, one warp
+// a row, the sum in launch 7's order and the LayerNorm as launch 8's.
+template <typename T>
+__global__ void __launch_bounds__(DT_THREADS) dt_finish_kernel(
+    const float* __restrict__ part, const float* __restrict__ enc, const T* __restrict__ b2,
+    const float* __restrict__ g, const float* __restrict__ b, const T* __restrict__ pad,
+    T* __restrict__ out, int R, int D, float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (DT_THREADS / 32) + warp;
+  if (row >= R) return;
+  const float* pr = part + (size_t)row * D;
+  const float* er = enc + (size_t)row * D;
+  float sum = 0.0f, sq = 0.0f;
+  for (int c = lane; c < D; c += 32) {
+    const float v = er[c] + (pr[c] + to_f<T>(b2[c]));
+    sum += v;
+    sq += v * v;
+  }
+  sum = warp_sum(sum);
+  sq = warp_sum(sq);
+  const float mu = sum / D;
+  const float rs = rsqrtf(sq / D - mu * mu + eps);
+  const float p = to_f<T>(pad[row]);
+  for (int c = lane; c < D; c += 32) {
+    const float v = er[c] + (pr[c] + to_f<T>(b2[c]));
+    out[(size_t)row * D + c] = from_f<T>(((v - mu) * rs * g[c] + b[c]) * p);
+  }
 }
 
 // the largest dynamic shared memory for a kernel, asked for once
@@ -620,12 +660,14 @@ int launch_cluster(void (*kernel)(P...), dim3 grid, size_t smem, cudaStream_t st
 }
 
 // weights: the 24 pointers in grit_tpu/ops/decode_layer.py::_ref's order;
-// the products' blocks take 8 * NF columns
+// the products' blocks take 8 * NF columns.  `partial`: launches 1-7 only,
+// fc2's f32 sum without bias or residual into `out` (f32 [R, D])
 template <typename T, int NF>
 int decode_tail(const void* x_, const void* k1, const void* v1, const void* m1, const void* k2,
                 const void* v2, const void* m2, const void* pad_, void* out,
                 const void* const* w, float* sf, void* st_, int R, int B, int fold, int T1,
-                int T2, int D, int F, int H, int ldg, float eps, cudaStream_t stream) {
+                int T2, int D, int F, int H, int ldg, float eps, int partial,
+                cudaStream_t stream) {
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int KS = NF == 1 ? PR_SPLIT : 1;
   const T* x = static_cast<const T*>(x_);
@@ -675,8 +717,10 @@ int decode_tail(const void* x_, const void* k1, const void* v1, const void* m1, 
       encf_a, wt(18), wt(19), hbuf, R, D, F, per, mf);
   err = launch_cluster(dt_fc2_kernel<T, NF, KS>, dim3(D / cw * KS, rt), pr_smem, stream, KS,
                        static_cast<const T*>(hbuf), static_cast<const float*>(encf), wt(20),
-                       wt(21), pre, R, D, F, per, mf);
+                       wt(21), partial ? static_cast<float*>(out) : pre, R, D, F, per, mf,
+                       partial);
   if (err != 0) return err;
+  if (partial) return static_cast<int>(cudaGetLastError());
   dt_ln_kernel<T><<<dim3(lr, 1), DT_THREADS, 0, stream>>>(
       pre, wf(22), wf(23), wf(22), wf(23), pad, nullptr, static_cast<T*>(out), R, D, eps);
   return static_cast<int>(cudaGetLastError());
@@ -691,20 +735,44 @@ int decode_tail(const void* x_, const void* k1, const void* v1, const void* m1, 
 // matrices with ldg); sf: f32 scratch [5, R, D]; st: scratch of the compute
 // type [R, 7D + F].  D and F are multiples of 64, D / H of 8, R = B * fold,
 // and the attention launch's shared memory (attn_smem) at most 227 KB.
+// partial != 0: F is this rank's slice of d_ff (fc1 / fc2 its columns / rows),
+// out is f32 [R, D] and receives fc2's sum alone; the gated enc, the residual,
+// is left in sf[4R D, 5R D); the final LayerNorm is not launched.
 extern "C" int grit_decode_tail(const void* x, const void* k1, const void* v1, const void* m1,
                                 const void* k2, const void* v2, const void* m2,
                                 const void* pad, void* out, const void* const* w, void* sf,
                                 void* st, int R, int B, int fold, int T1, int T2, int D, int F,
-                                int H, int ldg, float eps, int dtype, void* stream) {
+                                int H, int ldg, float eps, int dtype, int partial,
+                                void* stream) {
   using namespace grit;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* f = static_cast<float*>(sf);
   auto run = [&](auto tail) {
     return tail(x, k1, v1, m1, k2, v2, m2, pad, out, w, f, st, R, B, fold, T1, T2, D, F, H, ldg,
-                eps, s);
+                eps, partial, s);
   };
   const bool wide = R > PR_WIDE_ROWS;
   if (dtype == 0)
     return wide ? run(decode_tail<float, PR_WIDE_NF>) : run(decode_tail<float, 1>);
   return wide ? run(decode_tail<bf16, PR_WIDE_NF>) : run(decode_tail<bf16, 1>);
+}
+
+// The tensor-parallel finish (launch 9): part, enc f32 [R, D] (part the sum
+// over the ranks of the partial mode's out, enc its sf[4R D, 5R D)), b2 [D] of
+// the compute type, g / b f32 [D] (LN_f), pad [R], out [R, D].
+extern "C" int grit_decode_tail_finish(const void* part, const void* enc, const void* b2,
+                                       const void* g, const void* b, const void* pad, void* out,
+                                       int R, int D, float eps, int dtype, void* stream) {
+  using namespace grit;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (R + DT_THREADS / 32 - 1) / (DT_THREADS / 32);
+  auto run = [&](auto* t) {
+    using T = std::remove_pointer_t<decltype(t)>;
+    dt_finish_kernel<T><<<blocks, DT_THREADS, 0, s>>>(
+        static_cast<const float*>(part), static_cast<const float*>(enc),
+        static_cast<const T*>(b2), static_cast<const float*>(g), static_cast<const float*>(b),
+        static_cast<const T*>(pad), static_cast<T*>(out), R, D, eps);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return dtype == 0 ? run(static_cast<float*>(nullptr)) : run(static_cast<bf16*>(nullptr));
 }

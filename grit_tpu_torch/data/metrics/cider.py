@@ -20,7 +20,9 @@ By default (n = 4) the scores come from the port's native library
 (``grit_tpu_torch.native.NativeCider``, C++ built with g++ at first use; the
 same scores to 1e-10), as the JAX package's ``Cider`` takes its own;
 ``use_native=False`` keeps the pure-Python scorer below, its plain version.
-A library that fails to build raises.
+Where the library cannot be built (no g++, or the build fails) the scorer
+below serves, as in the JAX package, after one warning that names the cause
+(``grit_tpu_torch.native.available``).
 """
 
 from __future__ import annotations
@@ -47,10 +49,11 @@ class Cider:
         self.ref_len: float | None = None
         self._native = None
         if use_native and n == 4:   # the library scores 1- to 4-grams
-            from grit_tpu_torch.native import NativeCider
+            from grit_tpu_torch import native
 
-            self._native = NativeCider(corpus_refs=gts, sigma=sigma)
-        elif gts is not None:
+            if native.available():
+                self._native = native.NativeCider(corpus_refs=gts, sigma=sigma)
+        if gts is not None and self._native is None:
             self.doc_frequency, self.ref_len = self._corpus_stats(gts)
 
     def _corpus_stats(self, gts: dict):

@@ -86,8 +86,9 @@ class PTBTokenizer:
     caption strings, a list of strings, or a list of lists.  By default the
     port's native library tokenizes (``grit_tpu_torch.native``: the same
     tokens, string for string), as the JAX package's tokenizer takes its own;
-    ``use_native=False`` keeps ``ptb_tokenize_str``, the plain version.  A
-    library that fails to build raises.
+    ``use_native=False`` keeps ``ptb_tokenize_str``, the plain version, which
+    also serves, after one warning that names the cause, where the library
+    cannot be built (``grit_tpu_torch.native.available``).
     """
 
     @classmethod
@@ -97,6 +98,10 @@ class PTBTokenizer:
                 corpus = {i: list(c) for i, c in enumerate(corpus)}
             else:
                 corpus = {i: [c] for i, c in enumerate(corpus)}
+        if use_native:
+            from grit_tpu_torch import native
+
+            use_native = native.available()
         if not use_native:
             return {k: [ptb_tokenize_str(c) for c in caps] for k, caps in corpus.items()}
         from grit_tpu_torch.native import ptb_tokenize_batch

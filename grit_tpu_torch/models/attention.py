@@ -9,7 +9,12 @@
 - ``MultiHeadAttention``: attention + dropout + post-LN residual
   ``LN(q + dropout(attn(q, k, v)))`` (attention.py:166-184), with an optional
   fixed-shape KV cache [B, T_max, D] written at ``cache_index``.
-- ``FeedForward``: Linear-ReLU-Linear with post-LN residual.
+- ``FeedForward``: Linear-ReLU-Linear with post-LN residual; under tensor
+  parallelism (``parallel.mesh.shard_model``) fc1 on this rank's d_ff
+  columns, ReLU, dropout, fc2 on the matching rows without its bias
+  (``partial``), then the f32 sum over the ranks (``reduce_from_tp``), + bias,
+  + residual and the LayerNorm (``finish``): plain ``F.linear`` products, as
+  grit_tpu computes them outside any Pallas kernel.
 
 Masks are boolean, True = masked out.  The learned memory slots of the
 reference (``n_memories``) are not used by the GRIT captioner and are not
@@ -27,6 +32,7 @@ from torch import nn
 
 from grit_tpu_torch.models.layers import Dropout, Linear
 from grit_tpu_torch.models.norm import LayerNorm
+from grit_tpu_torch.parallel.tensor import copy_to_tp, reduce_from_tp, tp_rank, tp_size
 
 LN_EPS = 1e-5
 
@@ -92,7 +98,11 @@ class MultiHeadAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """Position-wise FFN with post-LN residual (pos_embed.py:34-48)."""
+    """Position-wise FFN with post-LN residual (pos_embed.py:34-48).
+    ``tp_group``: set by ``parallel.mesh.shard_model`` when fc1 / fc2 hold this
+    rank's slices (module docstring)."""
+
+    tp_group = None
 
     def __init__(self, d_model: int = 512, d_ff: int = 2048, dropout: float = 0.1):
         super().__init__()
@@ -102,4 +112,21 @@ class FeedForward(nn.Module):
         self.layer_norm = LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x):
-        return self.layer_norm(x + self.drop(self.fc2(self.drop(F.relu(self.fc1(x))))))
+        if self.tp_group is None:
+            return self.layer_norm(x + self.drop(self.fc2(self.drop(F.relu(self.fc1(x))))))
+        return self.finish(x, reduce_from_tp(self.partial(x), self.tp_group))
+
+    def partial(self, x):
+        """This rank's share of fc2's product, without its bias, in x's dtype.
+        The dropout on the hidden units draws the whole width's mask and keeps
+        this rank's slice (``layers.Dropout``)."""
+        group = self.tp_group
+        h = F.relu(self.fc1(copy_to_tp(x, group)))
+        h = self.drop(h, shard=(tp_rank(group), tp_size(group)))
+        return F.linear(h, self.fc2.weight.to(h.dtype))
+
+    def finish(self, x, y):
+        """``y``: the f32 sum of the ranks' ``partial``; + fc2's bias, rounded to
+        x's dtype, then dropout, the residual and the LayerNorm."""
+        y = (y + self.fc2.bias.to(x.dtype).float()).to(x.dtype)
+        return self.layer_norm(x + self.drop(y))

@@ -29,6 +29,15 @@ the sinusoid table, so released checkpoints carry their own.
   live dropout it runs module by module, as grit_tpu's deterministic-only
   fused tail.  The sequential and concat layers project the visual K/V at
   every step, as grit_tpu's do, module by module.
+
+Tensor parallel (``parallel.mesh.shard_model``): a layer's ``pwff`` holds
+this rank's d_ff slice (``FeedForward``'s split path), and a parallel layer's
+fused decode step becomes K11's split (``fused_decode_layer_tail_tp``: the
+partial entry, the f32 all-reduce, the finish entry).  Where the vocab head
+is split (vocab 10201 is odd: under tp2 it stays whole, as in grit_tpu), its
+logits are gathered (``gather_from_tp``) before ``log_softmax``, so every rank
+of the tensor group scores the same log-probs and its beam search chooses the
+same beams.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from grit_tpu_torch.models.attention import LN_EPS, FeedForward, MultiHeadAttent
 from grit_tpu_torch.models.layers import Dropout, Linear
 from grit_tpu_torch.ops import decode_layer
 from grit_tpu_torch.ops.posemb import sinusoid_encoding_table
+from grit_tpu_torch.parallel.tensor import copy_to_tp, gather_from_tp
 
 DecodeCache = dict  # {'layers': [(k, v), ...], 'pad_hist': [B, T] bool}
 
@@ -90,7 +100,8 @@ class ParallelAttentionLayer(nn.Module):
         read from the submodules the module path uses: matrices as ``[in,
         out]`` views of the Linear weights in ``dtype`` (a cast only where the
         parameters are f32 masters), LayerNorm parameters f32; the second gate
-        from ``fc_alpha1`` under ``replicate_alpha_bug``."""
+        from ``fc_alpha1`` under ``replicate_alpha_bug``.  Under tensor
+        parallelism fc1 / fc2 (and fc1's bias) are this rank's slices."""
         d = self.fc_alpha1.out_features
 
         def wb(lin):
@@ -118,10 +129,15 @@ class ParallelAttentionLayer(nn.Module):
             vis_kv = self.precompute_vis_kv(y1, y2)
         (k1, v1), (k2, v2) = vis_kv["att1"], vis_kv["att2"]
         if use_fused_tail(self, self_att):
-            out = decode_layer.fused_decode_layer_tail(
-                self_att, k1, v1, mask_y1, k2, v2, mask_y2, mask_pad,
-                self.tail_weights(self_att.dtype), fold=vis_fold,
-                n_heads=self.vis_att1.attention.n_heads, eps=LN_EPS)
+            kw = dict(fold=vis_fold, n_heads=self.vis_att1.attention.n_heads, eps=LN_EPS)
+            weights = self.tail_weights(self_att.dtype)
+            if self.pwff.tp_group is not None:
+                out = decode_layer.fused_decode_layer_tail_tp(
+                    self_att, k1, v1, mask_y1, k2, v2, mask_y2, mask_pad, weights,
+                    group=self.pwff.tp_group, **kw)
+            else:
+                out = decode_layer.fused_decode_layer_tail(
+                    self_att, k1, v1, mask_y1, k2, v2, mask_y2, mask_pad, weights, **kw)
             return out, cache
         enc1 = self.vis_att1(self_att, k1, v1, mask_y1, kv_projected=True,
                              kv_fold=vis_fold) * mask_pad
@@ -187,6 +203,10 @@ GENERATOR_LAYER = {
 
 
 class CaptionGenerator(nn.Module):
+    #: set by ``parallel.mesh.shard_model`` where ``fc`` holds this rank's
+    #: vocab columns
+    tp_group = None
+
     def __init__(self, vocab_size: int, max_len: int, n_layers: int, pad_idx: int,
                  d_model: int = 512, n_heads: int = 8, d_ff: int = 2048,
                  replicate_alpha_bug: bool = True, dropout: float = 0.1,
@@ -229,7 +249,13 @@ class CaptionGenerator(nn.Module):
         y1, y2, m1, m2 = self._vis(vis_inputs)
         for layer in self.layers:
             x = layer(x, y1, y2, mask_pad, mask_x, m1, m2)
-        return torch.log_softmax(self.fc(x).float(), dim=-1)
+        return torch.log_softmax(self.logits(x).float(), dim=-1)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The vocab head; where it is split, each rank's columns gathered."""
+        if self.tp_group is None:
+            return self.fc(x)
+        return gather_from_tp(self.fc(copy_to_tp(x, self.tp_group)), self.tp_group)
 
     def _dtype(self) -> torch.dtype:
         """The embeddings stay f32 parameters; the layers compute in
@@ -274,6 +300,6 @@ class CaptionGenerator(nn.Module):
             x, layer_cache = layer.decode(x, y1, y2, mask_pad, mask_x, m1, m2, layer_cache, t,
                                           None if vis_kv is None else vis_kv[i], vis_fold)
             layers.append(layer_cache)
-        logits = self.fc(x)[:, 0]
+        logits = self.logits(x)[:, 0]
         return torch.log_softmax(logits.float(), dim=-1), {"layers": layers,
                                                            "pad_hist": pad_hist}

@@ -42,10 +42,17 @@ class Dropout(nn.Module):
         self.p = float(p)
         self.generator: Optional[torch.Generator] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard: Optional[tuple[int, int]] = None) -> torch.Tensor:
+        """``shard=(i, n)``: ``x`` is the i-th of n equal slices of the last
+        dim of a whole tensor (a tensor-parallel rank's columns); the mask is
+        drawn for the whole tensor and sliced, so that the ranks draw what one
+        process draws and their generators stay in step."""
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, device=x.device, generator=self.generator) >= self.p
+        shape = x.shape if shard is None else (*x.shape[:-1], x.shape[-1] * shard[1])
+        keep = torch.rand(shape, device=x.device, generator=self.generator) >= self.p
+        if shard is not None:
+            keep = keep.chunk(shard[1], -1)[shard[0]]
         return torch.where(keep, x / (1.0 - self.p), 0.0)
 
     def extra_repr(self) -> str:

@@ -40,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 from grit_tpu_torch.models.layers import Conv2d, Linear, draw_keep, drop_path
 from grit_tpu_torch.models.norm import LayerNorm
 from grit_tpu_torch.ops import window_attention as wa
+from grit_tpu_torch.parallel.tensor import copy_to_tp, reduce_from_tp
 
 LN_EPS = 1e-5
 
@@ -77,6 +78,12 @@ class WindowAttention(nn.Module):
 
 
 class Mlp(nn.Module):
+    """fc1 and fc2 of a block's MLP.  ``tp_group`` (set by
+    ``parallel.mesh.shard_model``): fc1 holds this rank's hidden columns and
+    fc2 the matching input rows, and ``SwinBlock._mlp`` runs K2 on them."""
+
+    tp_group = None
+
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.fc1 = Linear(dim, hidden)
@@ -98,9 +105,26 @@ class SwinBlock(nn.Module):
     def _mlp(self, rows: torch.Tensor, residual: bool) -> torch.Tensor:
         dt = rows.dtype
         m = self.mlp
-        return wa.mlp(rows, self.norm2.weight, self.norm2.bias,
-                      m.fc1.weight.to(dt), m.fc1.bias.to(dt),
-                      m.fc2.weight.to(dt), m.fc2.bias.to(dt), eps=LN_EPS, residual=residual)
+        group = m.tp_group
+        if group is None:
+            return wa.mlp(rows, self.norm2.weight, self.norm2.bias,
+                          m.fc1.weight.to(dt), m.fc1.bias.to(dt),
+                          m.fc2.weight.to(dt), m.fc2.bias.to(dt), eps=LN_EPS, residual=residual)
+        # tensor parallel: K2 on this rank's hidden units gives its partial in
+        # the compute type; the f32 sum over the ranks, fc2's bias and the
+        # residual, rounded once.  The inputs' gradients (rows, LN2's scale
+        # and bias) are the ranks' partials summed by copy_to_tp
+        part = wa.mlp(copy_to_tp(rows, group), copy_to_tp(self.norm2.weight, group),
+                      copy_to_tp(self.norm2.bias, group), m.fc1.weight.to(dt),
+                      m.fc1.bias.to(dt), m.fc2.weight.to(dt), None, eps=LN_EPS,
+                      residual=False)
+        return self.mlp_finish(rows, reduce_from_tp(part, group), residual)
+
+    def mlp_finish(self, rows: torch.Tensor, y: torch.Tensor, residual: bool) -> torch.Tensor:
+        """The sum ``y`` (f32) of the ranks' K2 partials + fc2's bias (+ the
+        rows), rounded once to the rows' dtype."""
+        y = y + self.mlp.fc2.bias.to(rows.dtype).float()
+        return (y + rows.float() if residual else y).to(rows.dtype)
 
     def forward(self, x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
         """Eval / frozen path.  x: [B, Hp, Wp, C] padded map whose real extent

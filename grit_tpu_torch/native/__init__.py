@@ -12,9 +12,13 @@ The library is built with g++ at first use from this package's own source
 into ``grit_tpu_torch/_build/`` (git-ignored), under a name keyed by a hash of
 the source and the flags, so an edited source rebuilds.  Several processes may
 build it at once (test workers, data-parallel ranks): each compiles into a
-file of its own and moves it into place with ``os.replace``.  A failed build
-raises with the compiler's output: there is no fallback.  Nothing here runs
-at import time.
+file of its own and moves it into place with ``os.replace``.  ``get_lib``
+raises on a failed build, with the compiler's output.  ``available()`` is what
+``Cider`` and ``PTBTokenizer`` ask, as grit_tpu's do: when g++ is missing or
+the build fails they score with their pure-Python versions, and one warning a
+process names the cause (g++ not found, or g++'s exit code and the first lines
+of its output); the failure is remembered, not retried.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import shutil
 import subprocess
 import threading
 import uuid
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -36,6 +41,10 @@ CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _lib = None
 _lock = threading.Lock()
+#: why the library could not be built or loaded in this process, once known
+_failure: str | None = None
+#: lines of the compiler's output that the fallback's warning quotes
+WARN_LINES = 5
 
 
 def library_path() -> Path:
@@ -88,6 +97,24 @@ def get_lib() -> ctypes.CDLL:
             ctypes.c_int32, ctypes.c_double, ctypes.POINTER(ctypes.c_double)]
         _lib = lib
         return lib
+
+
+def available() -> bool:
+    """Whether the library builds and loads here.  On the first failure it
+    warns once, naming the cause, and from then on answers False without
+    building again; ``Cider`` and ``PTBTokenizer`` then score in Python."""
+    global _failure
+    if _failure is not None:
+        return False
+    try:
+        get_lib()
+        return True
+    except (RuntimeError, OSError, subprocess.SubprocessError) as exc:
+        _failure = "\n".join(str(exc).splitlines()[:WARN_LINES])
+        warnings.warn(f"grit_tpu_torch.native: the metric library is unavailable "
+                      f"({_failure}); scoring with the pure-Python tokenizer and CIDEr-D",
+                      RuntimeWarning, stacklevel=2)
+        return False
 
 
 def ptb_tokenize_batch(captions: list[str]) -> list[str]:

@@ -44,7 +44,8 @@ _SIGNATURES = {
     "grit_msda_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _I, _P],
     "grit_adam": [_P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
-    "grit_decode_tail": [_P] * 12 + [_I] * 9 + [_F, _I, _P],
+    "grit_decode_tail": [_P] * 12 + [_I] * 9 + [_F, _I, _I, _P],
+    "grit_decode_tail_finish": [_P] * 7 + [_I, _I, _F, _I, _P],
     "grit_lsa": [_P, _P, _P, _I, _I, _I, _P],
 }
 

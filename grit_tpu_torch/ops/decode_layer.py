@@ -18,6 +18,18 @@ additive mask, softmax, LayerNorm (``var = E[x^2] - mu^2``), gates and
 residuals, one rounding to the output dtype.  As on the TPU there is no
 backward kernel: the gradient recomputes through the plain version.
 
+Tensor parallel (``fused_decode_layer_tail_tp``): a rank's weights hold
+F / tp of fc1's columns and fc2's rows, and the sum over the ranks sits
+between fc2 and ``LN_f``.  The same C entry in its partial mode runs the
+chain's first seven launches on the slice and returns fc2's f32 sum without
+bias or residual, ``part = relu(enc W1 + b1) W2``, and ``enc``; then
+``reduce_from_tp`` sums ``part`` over the ranks in f32, and the second entry
+(``grit_decode_tail_finish``, one launch) computes ``out = LN_f(enc + (part +
+b2)) * pad``.  Plain versions: ``decode_layer_tail_partial_plain`` and
+``decode_layer_tail_finish_plain``, of which ``decode_layer_tail_plain`` is the
+composition at tp 1.  The split runs forward only (decoding is never
+differentiated): on the card it raises where a gradient is asked for.
+
 ``weights`` is the 24-tuple in ``_ref``'s order (``LAYER_WEIGHT_ORDER``), each
 matrix logically ``[in, out]``.  The kernel reads a matrix as rows of torch's
 ``Linear`` layout, so it wants ``w.stride(0) == 1``: the transposed view
@@ -35,9 +47,11 @@ from typing import Optional, Sequence
 import torch
 
 from grit_tpu_torch.ops import _cuda
+from grit_tpu_torch.parallel.tensor import reduce_from_tp
 
-#: Kernel launches (one per call that reached the CUDA chain).
-LAUNCHES = {"decode_tail": 0}
+#: Kernel launches (one per call that reached the CUDA chain): the whole
+#: chain, and the tensor-parallel split's partial and finish entries.
+LAUNCHES = {"decode_tail": 0, "decode_tail_partial": 0, "decode_tail_finish": 0}
 
 NEG = -1e30   # additive mask value; exp underflows to exactly 0, like -inf
 
@@ -57,10 +71,12 @@ def _ln(x, scale, bias, eps):
     return (x - mu) * torch.rsqrt(var + eps) * scale + bias
 
 
-def decode_layer_tail_plain(x, k1, v1, madd1, k2, v2, madd2, pad, weights, *, fold: int,
-                            n_heads: int, eps: float) -> torch.Tensor:
-    """Plain version of K11.  x [B*fold, D]; k_i / v_i [B, T_i, D]; madd_i f32
-    [B, T_i] additive; pad f32 [B*fold, 1]; -> [B*fold, D] in x's dtype."""
+def decode_layer_tail_partial_plain(x, k1, v1, madd1, k2, v2, madd2, pad, weights, *,
+                                    fold: int, n_heads: int, eps: float):
+    """Plain version of K11's partial mode: the arguments of
+    ``decode_layer_tail_plain`` -> (part, enc), f32 [B*fold, D]: fc2's product
+    over the weights' slice of d_ff without its bias, and the gated enc (the
+    FFN's input and residual)."""
     (wq1, bq1, wo1, bo1, ln1s, ln1b, wq2, bq2, wo2, bo2, ln2s, ln2b,
      wsa, wea, ba, wsb, web, bb, wf1, bf1, wf2, bf2, lnfs, lnfb) = weights
     b, (rows, d_model) = k1.shape[0], x.shape
@@ -87,8 +103,24 @@ def decode_layer_tail_plain(x, k1, v1, madd1, k2, v2, madd2, pad, weights, *, fo
     enc = (enc1 * gate(wsa, wea, ba, enc1) + enc2 * gate(wsb, web, bb, enc2))
     enc = enc * (1.0 / math.sqrt(2)) * pad
     h1 = torch.relu((enc.to(dt) @ wf1).float() + bf1.float())
-    y = (h1.to(dt) @ wf2).float() + bf2.float()
-    return (_ln(enc + y, lnfs, lnfb, eps) * pad).to(x.dtype)
+    return (h1.to(dt) @ wf2).float(), enc
+
+
+def decode_layer_tail_finish_plain(part, enc, bf2, lnfs, lnfb, pad, *, eps: float,
+                                   dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of the finish entry: part (the sum over the ranks) and
+    enc f32 [R, D], fc2's bias in the compute type, LN_f's f32 scale and bias,
+    pad f32 [R, 1] -> LN_f(enc + (part + b2)) * pad in ``dtype``."""
+    return (_ln(enc + (part + bf2.float()), lnfs, lnfb, eps) * pad).to(dtype)
+
+
+def decode_layer_tail_plain(x, k1, v1, madd1, k2, v2, madd2, pad, weights, *, fold: int,
+                            n_heads: int, eps: float) -> torch.Tensor:
+    """Plain version of K11.  x [B*fold, D]; k_i / v_i [B, T_i, D]; madd_i f32
+    [B, T_i] additive; pad f32 [B*fold, 1]; -> [B*fold, D] in x's dtype."""
+    part, enc = decode_layer_tail_partial_plain(x, k1, v1, madd1, k2, v2, madd2, pad, weights,
+                                                fold=fold, n_heads=n_heads, eps=eps)
+    return decode_layer_tail_finish_plain(part, enc, *weights[21:], pad, eps=eps, dtype=x.dtype)
 
 
 _SMEM_MAX = 232448   # a block's shared memory on Hopper
@@ -104,9 +136,10 @@ def attn_smem_bytes(dtype, fold: int, head: int, t_max: int) -> int:
             + (fold * head + (fold * t_max + 3) // 4 * 4 + 8 * fold * head) * 4)
 
 
-def _launch(x, k1, v1, m1, k2, v2, m2, pad, weights, fold, n_heads, eps) -> torch.Tensor:
-    """Validate a CUDA call and run the chain.  m_i: bool [B, T_i] or None;
-    pad: [B*fold] in x's dtype."""
+def _launch(x, k1, v1, m1, k2, v2, m2, pad, weights, fold, n_heads, eps, partial=False):
+    """Validate a CUDA call and run the chain -> out [B*fold, D] in x's dtype;
+    ``partial``: the first seven launches -> (part, enc) f32 [B*fold, D].
+    m_i: bool [B, T_i] or None; pad: [B*fold] in x's dtype."""
     rows, d_model = x.shape
     b, t1, _ = k1.shape
     t2 = k2.shape[1]
@@ -149,7 +182,7 @@ def _launch(x, k1, v1, m1, k2, v2, m2, pad, weights, fold, n_heads, eps) -> torc
             n_out = d_ff if name == "bf1" else d_model
             _cuda.require(w, name, torch.float32 if i in _NORMS else dt, (n_out,))
     lib = _cuda.library()
-    out = torch.empty_like(x)
+    out = torch.empty((rows, d_model), dtype=torch.float32 if partial else dt, device=x.device)
     scratch_f = torch.empty((5, rows, d_model), dtype=torch.float32, device=x.device)
     # q, o, h, and the compute-type copies of enc_1, enc_2 and the gated enc
     scratch_t = torch.empty((rows, 7 * d_model + d_ff), dtype=dt, device=x.device)
@@ -158,8 +191,35 @@ def _launch(x, k1, v1, m1, k2, v2, m2, pad, weights, fold, n_heads, eps) -> torc
         x.data_ptr(), k1.data_ptr(), v1.data_ptr(), None if m1 is None else m1.data_ptr(),
         k2.data_ptr(), v2.data_ptr(), None if m2 is None else m2.data_ptr(), pad.data_ptr(),
         out.data_ptr(), ptrs, scratch_f.data_ptr(), scratch_t.data_ptr(), rows, b, fold, t1, t2,
-        d_model, d_ff, n_heads, ldg, eps, _cuda.DTYPE_CODE[dt], _cuda.stream()), "decode_tail")
+        d_model, d_ff, n_heads, ldg, eps, _cuda.DTYPE_CODE[dt], int(partial), _cuda.stream()),
+        "decode_tail_partial" if partial else "decode_tail")
+    if partial:
+        LAUNCHES["decode_tail_partial"] += 1
+        return out, scratch_f[4]
     LAUNCHES["decode_tail"] += 1
+    return out
+
+
+def _launch_finish(part, enc, bf2, lnfs, lnfb, pad, eps) -> torch.Tensor:
+    """Validate a CUDA call of the finish entry and launch it -> [R, D] in
+    pad's dtype."""
+    rows, d_model = part.shape
+    dt = pad.dtype
+    if dt not in _cuda.DTYPE_CODE or d_model % 64:
+        raise ValueError(f"decode_tail_finish: dtype {dt}, width {d_model} (a multiple of 64)")
+    for name, t, t_dt, shape in (("part", part, torch.float32, (rows, d_model)),
+                                 ("enc", enc, torch.float32, (rows, d_model)),
+                                 ("bf2", bf2, dt, (d_model,)),
+                                 ("lnfs", lnfs, torch.float32, (d_model,)),
+                                 ("lnfb", lnfb, torch.float32, (d_model,)),
+                                 ("mask_pad", pad, dt, (rows,))):
+        _cuda.require(t, name, t_dt, shape)
+    out = torch.empty((rows, d_model), dtype=dt, device=part.device)
+    _cuda.check(_cuda.library().grit_decode_tail_finish(
+        part.data_ptr(), enc.data_ptr(), bf2.data_ptr(), lnfs.data_ptr(), lnfb.data_ptr(),
+        pad.data_ptr(), out.data_ptr(), rows, d_model, eps, _cuda.DTYPE_CODE[dt],
+        _cuda.stream()), "decode_tail_finish")
+    LAUNCHES["decode_tail_finish"] += 1
     return out
 
 
@@ -223,4 +283,57 @@ def fused_decode_layer_tail(x, k1, v1, mask1, k2, v2, mask2, mask_pad,
     m2 = None if mask2 is None else mask2.reshape(b, k2.shape[1])
     out = _TailFn.apply(fold, n_heads, eps, x.reshape(rows, -1), k1, v1, m1, k2, v2, m2,
                         mask_pad.reshape(rows).to(x.dtype), *weights)
+    return out[:, None, :]
+
+
+def decode_tail_partial(x, k1, v1, mask1, k2, v2, mask2, mask_pad,
+                        weights: Sequence[torch.Tensor], *, fold: int, n_heads: int,
+                        eps: float = 1e-5):
+    """K11's partial entry on a rank's slice of d_ff (the weights' fc1 / fc2
+    are the slices): x [B*fold, D] (or [B*fold, 1, D]), masks and pad as
+    ``fused_decode_layer_tail`` -> (part, enc) f32 [B*fold, D].  CPU tensors
+    run the plain version; CUDA tensors launch the first seven kernels or
+    raise.  Forward only."""
+    rows = x.shape[0]
+    b = k1.shape[0]
+    m1 = None if mask1 is None else mask1.reshape(b, k1.shape[1])
+    m2 = None if mask2 is None else mask2.reshape(b, k2.shape[1])
+    x2 = x.reshape(rows, -1)
+    pad = mask_pad.reshape(rows).to(x.dtype)
+    if x.device.type == "cpu":
+        return decode_layer_tail_partial_plain(
+            x2, k1, v1, additive_mask(m1, b, k1.shape[1], x.device), k2, v2,
+            additive_mask(m2, b, k2.shape[1], x.device), pad.float()[:, None], weights,
+            fold=fold, n_heads=n_heads, eps=eps)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, k1, v1, k2, v2, *weights)):
+        raise RuntimeError("decode_tail_partial: the split tail has no backward; decode "
+                           "under torch.no_grad()")
+    return _launch(x2, k1, v1, m1, k2, v2, m2, pad, weights, fold, n_heads, eps, partial=True)
+
+
+def decode_tail_finish(part, enc, bf2, lnfs, lnfb, mask_pad, *, eps: float = 1e-5,
+                       dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """K11's finish entry: part (the f32 sum over the ranks of
+    ``decode_tail_partial``'s part) and its enc -> LN_f(enc + (part + b2)) *
+    pad [R, D] in ``dtype`` (default: mask_pad's).  CPU tensors run the plain
+    version; CUDA tensors launch the kernel or raise."""
+    rows = part.shape[0]
+    pad = mask_pad.reshape(rows).to(dtype or mask_pad.dtype)
+    if part.device.type == "cpu":
+        return decode_layer_tail_finish_plain(part, enc, bf2, lnfs, lnfb, pad.float()[:, None],
+                                              eps=eps, dtype=pad.dtype)
+    return _launch_finish(part, enc, bf2, lnfs, lnfb, pad, eps)
+
+
+def fused_decode_layer_tail_tp(x, k1, v1, mask1, k2, v2, mask2, mask_pad,
+                               weights: Sequence[torch.Tensor], *, fold: int, n_heads: int,
+                               group, eps: float = 1e-5) -> torch.Tensor:
+    """K11 split around the FFN's reduction over the tensor group ``group``
+    (module docstring): ``decode_tail_partial`` on this rank's slice of d_ff,
+    the f32 all-reduce, ``decode_tail_finish``.  Arguments and result as
+    ``fused_decode_layer_tail``."""
+    part, enc = decode_tail_partial(x, k1, v1, mask1, k2, v2, mask2, mask_pad, weights,
+                                    fold=fold, n_heads=n_heads, eps=eps)
+    out = decode_tail_finish(reduce_from_tp(part, group), enc, *weights[21:], mask_pad,
+                             eps=eps, dtype=x.dtype)
     return out[:, None, :]

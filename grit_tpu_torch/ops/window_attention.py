@@ -589,13 +589,15 @@ def block_attention_train_plain(x, qkv_w, qkv_b, proj_w, proj_b, table, *, num_h
 
 def mlp_plain(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, *, eps: float = LN_EPS,
               residual: bool = True) -> torch.Tensor:
-    """Plain version of K2: rows [R, C] -> [x +] fc2(GELU(fc1(LN(x))))."""
+    """Plain version of K2: rows [R, C] -> [x +] fc2(GELU(fc1(LN(x)))).
+    ``fc2_b`` None: fc2 without its bias (a tensor-parallel rank's partial
+    over its slice of the hidden units, with ``residual=False``)."""
     dt = x.dtype
     xf = x.float()
     xn = _ln_fast(xf, norm_w, norm_b, eps).to(dt).float()
     h = F.linear(xn, fc1_w.float(), fc1_b.float())
     h = (h * 0.5 * (1.0 + torch.erf(h * 0.7071067811865476))).to(dt).float()
-    y = F.linear(h, fc2_w.float(), fc2_b.float())
+    y = F.linear(h, fc2_w.float(), None if fc2_b is None else fc2_b.float())
     return ((xf + y) if residual else y).to(dt)
 
 
@@ -628,7 +630,8 @@ def _mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, eps: float, residual: bo
             (x, "x", dt, None), (fc1_w, "fc1_w", dt, (hid, c)), (fc1_b, "fc1_b", dt, (hid,)),
             (fc2_w, "fc2_w", dt, (c, hid)), (fc2_b, "fc2_b", dt, (c,)),
             (norm_w, "norm_w", torch.float32, (c,)), (norm_b, "norm_b", torch.float32, (c,))):
-        _cuda.require(t, name, t_dt, shape)
+        if t is not None:
+            _cuda.require(t, name, t_dt, shape)
     lib = _cuda.library()
     code = _cuda.DTYPE_CODE[dt]
     st = _cuda.stream()
@@ -657,18 +660,23 @@ class _MlpFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         with torch.enable_grad():
-            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            leaves = [None if t is None else t.detach().requires_grad_()
+                      for t in ctx.saved_tensors]
             y = _mlp_recompute(*leaves, *ctx.cfg)
-            grads = torch.autograd.grad(y, leaves, dy.to(y.dtype))
-        return (*grads, None, None)
+            grads = iter(torch.autograd.grad(y, [t for t in leaves if t is not None],
+                                             dy.to(y.dtype)))
+        return (*(None if t is None else next(grads) for t in leaves), None, None)
 
 
 def mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, *, eps: float = LN_EPS,
         residual: bool = True) -> torch.Tensor:
     """K2: the Swin MLP half-block on rows [R, C] (see ``mlp_plain``), with
     its residual or, for a caller that applies drop-path first, the branch
-    alone.  Differentiable.  CPU tensors run the plain version; CUDA tensors
-    launch the kernels or raise."""
+    alone; with ``fc2_b`` None and ``residual=False``, a tensor-parallel
+    rank's partial (fc1 and fc2 on its slice of the hidden units, fc2's
+    ``bias`` epilogue without a bias: the partial in the rows' dtype).
+    Differentiable.  CPU tensors run the plain version; CUDA tensors launch
+    the kernels or raise."""
     return _MlpFn.apply(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, eps, residual)
 
 

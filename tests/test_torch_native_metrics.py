@@ -6,12 +6,16 @@ scorer to 1e-10 relative (double sums in another order), with and without a
 precomputed corpus, on the fixtures of tests/test_native_metrics.py and
 tests/test_torch_trainer.py and on a synthetic corpus; ``Cider`` and
 ``PTBTokenizer`` taking it by default; where it is built, that several
-processes may build it at once, and that a failed build raises.
+processes may build it at once, and that a failed build raises from
+``get_lib`` while ``Cider`` and ``PTBTokenizer`` score with the Python
+versions after one warning that names the cause, as grit_tpu's do.
 """
 
 import os
+import re
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -135,6 +139,47 @@ def test_failed_build_raises_with_the_compilers_output(tmp_path, monkeypatch):
     monkeypatch.setattr(native.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
         native.get_lib()
-    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
-        Cider()
+    monkeypatch.setattr(native, "_failure", None)
+    with pytest.warns(RuntimeWarning, match="g\\+\\+ not found"):
+        assert Cider()._native is None       # the Python scorer serves
     assert Cider(use_native=False).compute_score(TRAINER_GTS, TRAINER_GEN)[0] > 0
+
+
+def _no_library(monkeypatch, tmp_path, how: str) -> None:
+    """This process without the library: g++ missing, or a build that fails."""
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_failure", None)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
+    if how == "no g++":
+        monkeypatch.setattr(native.shutil, "which", lambda name: None)
+    else:
+        bad = tmp_path / "broken.cpp"
+        bad.write_text("int f( { return 0; }\n")
+        monkeypatch.setattr(native, "SOURCE", bad)
+
+
+@pytest.mark.parametrize("how, cause", [("no g++", r"g\+\+ not found"),
+                                        ("failed build", r"g\+\+ failed \(1\)")])
+def test_without_the_library_the_python_scorers_serve(monkeypatch, tmp_path, how, cause):
+    """With g++ missing or its build failing, ``Cider`` (with and without a
+    precomputed corpus) and ``PTBTokenizer`` return exactly the Python
+    scorers' results, and exactly one warning a process names the cause;
+    ``use_native=False`` stays the plain path."""
+    gts, res = synthetic_corpus(40, seed=3)
+    want_gts = PTBTokenizer.tokenize(gts, use_native=False)
+    want_res = PTBTokenizer.tokenize(res, use_native=False)
+    want = [Cider(corpus, use_native=False).compute_score(want_gts, want_res)
+            for corpus in (None, want_gts)]
+    _no_library(monkeypatch, tmp_path, how)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        got_gts, got_res = PTBTokenizer.tokenize(gts), PTBTokenizer.tokenize(res)
+        got = [Cider(corpus).compute_score(got_gts, got_res) for corpus in (None, got_gts)]
+        assert not native.available()
+    assert (got_gts, got_res) == (want_gts, want_res)
+    for (g_score, g_each), (w_score, w_each) in zip(got, want):
+        assert g_score == w_score
+        np.testing.assert_array_equal(g_each, w_each)
+    ours = [w for w in seen if "metric library" in str(w.message)]
+    assert len(ours) == 1 and issubclass(ours[0].category, RuntimeWarning)
+    assert re.search(cause, str(ours[0].message))
