@@ -148,13 +148,15 @@ Phases, each of which must pass:
      [28, 150, 100] problems, fills 0/1/20/57/100, on continuous and on
      integer (tied) costs: assignments equal, totals scipy's optimum,
      bit-equal over two calls, one launch; its device ms by graph replay
-     beside the host path's (.cpu() + scipy).  In phase 10 each step matches
-     on the card (one grit_lsa launch a step, counted), the criterion alone
-     waits for no device copy (torch.cuda.set_sync_debug_mode("error")), the
-     device and host solvers' assignments agree on the step's own costs, and
-     steps under match_impl="host" and "device" are timed in turns and
-     profiled (idle share); phase 11's float64 arm still matches on the host
-     and grit_lsa is held to it on the same costs;
+     and ns an iteration of the longest problem's Dijkstra chain (counted by
+     lsa_plain) beside the host path's (.cpu() + scipy).  In phase 10 each
+     step matches on the card (one grit_lsa launch a step, counted), the
+     criterion alone waits for no device copy
+     (torch.cuda.set_sync_debug_mode("error")), the device and host solvers'
+     assignments agree on the step's own costs, and steps under
+     match_impl="host" and "device" are timed in turns and profiled (idle
+     share, grit_lsa's device ms); phase 11's float64 arm still matches on
+     the host and grit_lsa is held to it on the same costs;
  17. the native metric library (phase_native_metrics, before phase 8): built
      with g++ from grit_tpu_torch/native/fastmetrics.cpp, its tokenizer and
      CIDEr-D against the pure-Python versions on a 5000-image corpus, timed;
@@ -1465,6 +1467,8 @@ LSA_FILLS = (0, 1, 20, 57, 100)
 # an assignment's total cost against scipy's optimum on the same f32 costs,
 # relative to max(1, |optimum|): the solver's potentials are f32
 LSA_TOTAL_TOL = 1e-5
+# a check_lsa row's numbers that the kernels line repeats
+LSA_ROW_KEYS = ("ms", "plain_ms", "host_ms", "bound_ms", "iterations", "ns_per_iteration")
 
 
 def lsa_bound_ms(cost: torch.Tensor) -> float:
@@ -1518,7 +1522,9 @@ def check_lsa(what: str, cost: torch.Tensor, n_valid: torch.Tensor) -> dict:
     one launch a call (read from a captured graph), valid rows each matched to
     a distinct query and -1 past the fill, every total within LSA_TOTAL_TOL of
     scipy's optimum; then the device ms by graph replay, the plain version's
-    ms and the host path's ms -> the row's numbers."""
+    ms (counting each problem's Dijkstra iterations as it goes) and the host
+    path's ms -> the row's numbers, with the longest problem's iterations and
+    the kernel's ns an iteration of that chain."""
     before = lsa_ops.LAUNCHES["lsa"]
     out = lsa_ops.linear_sum_assignment(cost, n_valid)
     again = lsa_ops.linear_sum_assignment(cost, n_valid)
@@ -1526,9 +1532,11 @@ def check_lsa(what: str, cost: torch.Tensor, n_valid: torch.Tensor) -> dict:
     if lsa_ops.LAUNCHES["lsa"] - before != 2:
         fail(f"grit_lsa {what}: two calls counted {lsa_ops.LAUNCHES['lsa'] - before} launches")
     t0 = time.perf_counter()
-    plain = lsa_ops.lsa_plain(cost, n_valid)
+    plain, counts = lsa_ops.lsa_plain(cost, n_valid, return_counts=True)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    iterations = int(counts["iterations"].max())
+    walk = int(counts["walk"].max())
     differ = int((out != plain).sum())
     a, nv = out.cpu().numpy(), n_valid.cpu().numpy()
     rows_ok = all(len(set(a[b, :n].tolist())) == n and (a[b, :n] >= 0).all() and
@@ -1542,7 +1550,9 @@ def check_lsa(what: str, cost: torch.Tensor, n_valid: torch.Tensor) -> dict:
           f"version's; bit-equal over two calls {torch.equal(out, again)}; total cost over "
           f"scipy's optimum {gap:.1e} (tol {LSA_TOTAL_TOL:.0e}); {launches} launch a call; "
           f"kernel {ms:.4f} ms (graph replay), plain {plain_ms:.1f} ms, host path (.cpu() + "
-          f"scipy + back) {host_ms:.3f} ms, bound {bound * 1e3:.2f} us (bytes)", flush=True)
+          f"scipy + back) {host_ms:.3f} ms, bound {bound * 1e3:.2f} us (bytes); longest "
+          f"problem {iterations} Dijkstra iterations ({walk} walk steps): "
+          f"{ms * 1e6 / iterations:.1f} ns an iteration", flush=True)
     if differ or not torch.equal(out, again) or not rows_ok or not gap <= LSA_TOTAL_TOL:
         fail(f"grit_lsa {what}: {differ} assignments differ from the plain version's, "
              f"bit-equal {torch.equal(out, again)}, rows valid {rows_ok}, total gap {gap:.3e}")
@@ -1550,7 +1560,8 @@ def check_lsa(what: str, cost: torch.Tensor, n_valid: torch.Tensor) -> dict:
         fail(f"grit_lsa {what}: a call makes {launches} CUDA launches, not 1")
     row = {"case": what, "problems": list(cost.shape), "fills": nv.tolist(), "ms": ms,
            "plain_ms": plain_ms, "host_ms": host_ms, "bound_ms": bound, "max_abs_err": 0,
-           "total_gap": gap, "launches_a_call": launches}
+           "total_gap": gap, "launches_a_call": launches, "iterations": iterations,
+           "walk_steps": walk, "ns_per_iteration": ms * 1e6 / iterations}
     DETAIL.append({"kernel": "grit_lsa", **row})
     return row
 
@@ -1983,10 +1994,12 @@ def phase_slice_b128(card: str, batch: int = 128) -> None:
     del model, gen
 
 
-def profile_run(fn, title: str, path: str, lines_shown: int = 22) -> dict:
+def profile_run(fn, title: str, path: str, lines_shown: int = 22, kernel: str = "") -> dict:
     """torch.profiler over one call of ``fn``: device busy time and the
     kernels that take it, written to chiprun_out/<path> (the first
-    ``lines_shown`` lines printed) -> wall and busy ms, idle share, launches."""
+    ``lines_shown`` lines printed) -> wall and busy ms, idle share, launches,
+    and with ``kernel`` the device ms and launches of the kernels whose name
+    holds it."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2013,8 +2026,12 @@ def profile_run(fn, title: str, path: str, lines_shown: int = 22) -> dict:
     with open(os.path.join("chiprun_out", path), "w") as f:
         f.write("\n".join(lines) + "\n")
     print("[profile] " + "\n[profile] ".join(lines[:lines_shown]), flush=True)
-    return {"wall_ms": wall * 1e3, "busy_ms": busy * 1e3, "idle_share": 1 - busy / wall,
-            "launches": sum(r[1] for r in rows)}
+    out = {"wall_ms": wall * 1e3, "busy_ms": busy * 1e3, "idle_share": 1 - busy / wall,
+           "launches": sum(r[1] for r in rows)}
+    if kernel:
+        hit = [(us, n) for us, n, name in rows if kernel in name]
+        out.update(kernel_ms=sum(us for us, _ in hit) / 1e3, kernel_launches=sum(n for _, n in hit))
+    return out
 
 
 def phase_profile(batch: int, card: str) -> None:
@@ -3564,8 +3581,12 @@ def detector_matcher_paths(dn: str, card: str, state, criterion, step, batch: di
         criterion.cost["impl"] = impl
         prof[impl] = profile_run(lambda: step(state, images, targets),
                                  f"b{DET_BATCH} {dn} detector step, match_impl={impl} [{card}]",
-                                 f"profile_detector_{dn.replace(' ', '_')}_match_{impl}.txt", 1)
+                                 f"profile_detector_{dn.replace(' ', '_')}_match_{impl}.txt", 1,
+                                 kernel="lsa_kernel")
     criterion.cost["impl"] = saved
+    print(f"[detector {dn}] grit_lsa in the profiled step under match_impl=device: "
+          f"{prof['device']['kernel_ms']:.3f} ms device, {prof['device']['kernel_launches']} "
+          f"launch  [{card}]", flush=True)
     for impl in ("host", "device"):
         print(f"[detector {dn}] match_impl={impl}: {[round(t, 1) for t in ms[impl]]} ms/step "
               f"({DET_MATCH_STEPS} steps a turn, issued back to back); profiled step busy "
@@ -5136,10 +5157,9 @@ def main() -> None:
         "library_ms": None, "host_path_ms": step_row["host_ms"],
         "per": f"one b{DET_BATCH} bf16 detector step's matching ({step_row['problems']} "
                f"problems x queries x boxes)",
-        "synthetic": {k: {f: r[k][f] for f in ("ms", "plain_ms", "host_ms", "bound_ms")}
-                      for k in ("continuous", "integer")},
-        "fp32_step": {f: RESULTS["detector_fp32"]["matcher"]["lsa"][f]
-                      for f in ("ms", "plain_ms", "host_ms", "bound_ms")}})
+        "iterations": step_row["iterations"], "ns_per_iteration": step_row["ns_per_iteration"],
+        "synthetic": {k: {f: r[k][f] for f in LSA_ROW_KEYS} for k in ("continuous", "integer")},
+        "fp32_step": {f: RESULTS["detector_fp32"]["matcher"]["lsa"][f] for f in LSA_ROW_KEYS}})
     # TPU bodies that one GPU kernel serves, with the cases that kernel was
     # checked at: the S-chunked MSDA pair (K7a, K7b) and the first-generation
     # MSDA bodies (K13a-d) at the 832x1344 pyramid, K1's other layout (K9) at

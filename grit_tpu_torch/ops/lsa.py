@@ -9,7 +9,7 @@ computes: for each problem, the queries (Q) matched to its first
 solved, padding rows included, so that the assignments are the JAX solver's
 also where costs tie.
 
-On CUDA tensors it launches ``grit_lsa`` (``csrc/lsa.cu``: one block a
+On CUDA tensors it launches ``grit_lsa`` (``csrc/lsa.cu``: one warp a
 problem, the loops on the device; design notes there) once for all P
 problems, or raises; on CPU tensors it runs ``lsa_plain``, the JAX solver's
 algorithm step for step in tensor ops, all problems in lockstep.  No Pallas
@@ -27,14 +27,15 @@ from grit_tpu_torch.ops import _cuda
 LAUNCHES = {"lsa": 0}
 
 INF = 3e38           # the JAX solver's finite "infinity": delta * 0 stays 0
-MAX_QUERIES = 1024   # a thread a column in one block
+MAX_QUERIES = 1024   # 32 columns a lane of the problem's warp
 SMEM_LIMIT = 232448  # an H100 block's dynamic shared memory, in bytes
 
 
 def smem_bytes(q: int, g: int) -> int:
-    """Shared memory of one problem's block: the transposed costs, u, p, way
-    and the reduction's 192 words (as ``lsa_smem_bytes`` in csrc/lsa.cu)."""
-    return 4 * (g * q + g + (q + 1) + q + 192)
+    """Shared memory of one problem's block: the transposed f32 costs and 32
+    spare words (as ``lsa_smem_bytes`` in csrc/lsa.cu; the rest of the state
+    is in the warp's registers)."""
+    return 4 * (g * q + 32)
 
 
 def _check_shape(cost: torch.Tensor, n_valid: torch.Tensor) -> None:
@@ -49,11 +50,15 @@ def _check_shape(cost: torch.Tensor, n_valid: torch.Tensor) -> None:
                          f"solver matches every gt row")
 
 
-def lsa_plain(cost: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+def lsa_plain(cost: torch.Tensor, n_valid: torch.Tensor, return_counts: bool = False):
     """Plain version of ``grit_lsa``: ``_device_lsa_single``'s f32 operations
     in the same order, every problem advanced together and an ended problem's
     state held by masks (the host reads whether any is still running once an
-    iteration)."""
+    iteration).  With ``return_counts`` it returns ``(assign, counts)``,
+    ``counts`` holding each problem's Dijkstra iterations and augmenting-walk
+    steps over all its rows (``"iterations"``, ``"walk"``: int64 [P]), the
+    dependent chain a kernel solving it must run; the assignments are the
+    same either way."""
     _check_shape(cost, n_valid)
     p_, q, g = cost.shape
     dev = cost.device
@@ -67,6 +72,8 @@ def lsa_plain(cost: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
     u = torch.zeros(p_, g, device=dev)
     v = torch.zeros(p_, q + 1, device=dev)
     p = torch.full((p_, q + 1), -1, dtype=torch.int64, device=dev)
+    iterations = torch.zeros(p_, dtype=torch.int64, device=dev)
+    walk = torch.zeros(p_, dtype=torch.int64, device=dev)
     for i in range(g):
         p[:, q] = i
         minv = torch.full((p_, q), INF, device=dev)
@@ -75,6 +82,7 @@ def lsa_plain(cost: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
         j0 = torch.full((p_,), q, dtype=torch.int64, device=dev)
         active = torch.ones(p_, dtype=torch.bool, device=dev)
         while bool(active.any()):
+            iterations += active
             used = used | (active[:, None] & (torch.arange(q + 1, device=dev) == j0[:, None]))
             i0 = p[ar, j0].clamp(min=0)
             cur = (a[ar, i0] - u[ar, i0][:, None]) - v[:, :q]
@@ -97,6 +105,7 @@ def lsa_plain(cost: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
         # the augmenting walk: p[j0] = p[way[j0]] until the virtual column
         walking = j0 != q
         while bool(walking.any()):
+            walk += walking
             j1 = way[ar, j0.clamp(max=q - 1)]
             moved = p[ar, j1]
             p[ar[walking], j0[walking]] = moved[walking]
@@ -105,7 +114,10 @@ def lsa_plain(cost: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
     assign = torch.full((p_, g + 1), -1, dtype=torch.int64, device=dev)
     cols = torch.arange(q, device=dev).expand(p_, q)
     assign.scatter_(1, torch.where(p[:, :q] >= 0, p[:, :q], g), cols)
-    return torch.where(rows[None, :] < nv[:, None], assign[:, :g], -1)
+    assign = torch.where(rows[None, :] < nv[:, None], assign[:, :g], -1)
+    if return_counts:
+        return assign, {"iterations": iterations, "walk": walk}
+    return assign
 
 
 def linear_sum_assignment(cost: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
@@ -118,7 +130,7 @@ def linear_sum_assignment(cost: torch.Tensor, n_valid: torch.Tensor) -> torch.Te
     p, q, g = cost.shape
     if q > MAX_QUERIES or smem_bytes(q, g) > SMEM_LIMIT:
         raise ValueError(f"linear_sum_assignment: a problem of {q} queries x {g} gt columns "
-                         f"needs {smem_bytes(q, g)} bytes of shared memory and {q} threads; "
+                         f"needs {smem_bytes(q, g)} bytes of shared memory; "
                          f"grit_lsa takes at most {SMEM_LIMIT} bytes and {MAX_QUERIES} queries")
     # .to and not .float(): the solver is f32 whatever the costs' type
     cost = cost.to(torch.float32).contiguous()

@@ -2,6 +2,9 @@
 
   python3 kernel_variants.py                  # every variant
   python3 kernel_variants.py swin_block.cu    # the variants of the named sources
+  python3 kernel_variants.py --csrc DIR --label parent lsa.cu
+                                              # another checkout's sources (e.g. the
+                                              # parent commit's), results named by label
 
 A tool for finding where a Hopper kernel's time goes: each variant is a
 source under grit_tpu_torch/csrc with text substitutions, compiled by its own
@@ -48,6 +51,21 @@ call for the same function, at the shapes of a b8 384x640 caption forward
     each variant's outputs checked within 2e-5 (fp32) / 3e-2 (bf16) of the
     first's max.
 
+  lsa.cu, grit_lsa (the detector's matcher) through its C entry at a b4
+    detector step's problems ([28, 150, 100], the fills cycling through
+    chip_smoke.LSA_FILLS), continuous and integer costs: as it is; staging
+    alone (the kernel returns once the costs are in shared memory); no
+    potential updates (u, v and minv never move by delta: the picks, and so
+    the iterations, may differ, so it shows the updates' share only
+    roughly); and the warp design's choices on an iteration's chain: the
+    next row loaded after the updates, the lane's minimum by a tree, the
+    first column's row and u picked with it, the lowest lane by a second
+    reduction, delta by a shuffle.  Every variant but the two cut ones is
+    checked equal to the plain version's assignments.  A variant's text may
+    have one form for each design of the source (the block design of the
+    parent commit, the warp design): the first form whose texts all occur
+    is built, and a variant no form of which fits is not.
+
 Prints one line per kernel and writes chiprun_out/kernel_variants.json.
 Needs a card and nvcc; exits non-zero without them.
 """
@@ -61,13 +79,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from grit_tpu_torch.ops import _cuda
 from grit_tpu_torch.ops.window_attention import bwd_batch_chunks
 
-OUT = Path("chiprun_out") / "kernel_variants"
+OUT_ROOT = Path("chiprun_out")
 # the b8 384x640 Swin-B stages: (C, heads, padded map (Hp, Wp), blocks)
 STAGES = ((128, 4, (96, 168), 2), (256, 8, (48, 84), 2), (512, 16, (24, 48), 18),
           (1024, 32, (12, 24), 2))
@@ -154,8 +173,13 @@ extern "C" int variant_bwd_entry(const void* qkv, const void* dout, const void* 
     # the variant library exports grit_decode_tail (grit_msda, grit_msda_bwd) itself
     "decode_layer.cu": "\n",
     "msda.cu": "\n",
+    "lsa.cu": "\n",
 }
-# (source, variant name, [(text, replacement), ...])
+# grit_lsa's warp design: the next iteration's row loads
+LSA_NEXT_ROW = ("#pragma unroll\n      for (int k = 0; k < C; ++k) x[k] = cols[(size_t)max(p1, 0) * Q"
+                " + k];\n")
+# (source, variant name, [(text, replacement), ...]); or, for a source with
+# more than one design, a list of such lists: the first whose texts all occur
 VARIANTS = [
     ("gemm_sm90.cu", "as is", []),
     ("gemm_sm90.cu", "main loop alone", [
@@ -205,8 +229,60 @@ VARIANTS = [
     ("swin_block.cu", "main loop alone", [
         ("    if (row >= M) continue;\n#pragma unroll\n    for (int q = 0; q < TQ; ++q) {",
          "    if (row >= M || K > 0) continue;\n#pragma unroll\n    for (int q = 0; q < TQ; ++q) {")]),
+    ("lsa.cu", "as is", []),
+    ("lsa.cu", "staging alone", [
+        [("  __syncthreads();\n  if (threadIdx.x >= 32) return;",
+          "  __syncthreads();\n  if (G > 0) return;\n  if (threadIdx.x >= 32) return;")],
+        [("  __syncthreads();   // before thread 0 sets p[Q] for row 0\n",
+          "  __syncthreads();   // before thread 0 sets p[Q] for row 0\n  if (G > 0) return;\n")]]),
+    ("lsa.cu", "no potential updates", [
+        [("        if ((used >> k) & 1u) {\n          uc[k] += delta;\n          v[k] -= delta;\n"
+          "        } else {\n          minv[k] -= delta;\n        }\n", ""),
+         ("      ucur += delta;\n", "")],
+        [("      if (col) {\n        if (used) {\n          u[p[tid]] += delta;\n"
+          "          v -= delta;\n        } else {\n          minv -= delta;\n        }\n      }\n"
+          "      if (tid == 0) u[i] += delta;", "")]]),
+    # the warp design's choices on the iteration's chain (outputs checked)
+    ("lsa.cu", "next row loaded after the updates", [[
+        (LSA_NEXT_ROW, ""), ("      ucur += delta;\n", "      ucur += delta;\n" + LSA_NEXT_ROW)]]),
+    ("lsa.cu", "lane minimum by a tree", [[(
+        "      for (int k = 1; k < C; ++k) lmin = fminf(lmin, bv[k]);\n",
+        "      for (int k = 0; k < C; ++k) t[k] = bv[k];\n#pragma unroll\n"
+        "      for (int s = 1; s < C; s *= 2)\n#pragma unroll\n"
+        "        for (int k = 0; k + s < C; k += 2 * s) t[k] = fminf(t[k], t[k + s]);\n"
+        "      lmin = t[0];\n"), ("      float lmin = bv[0];\n", "      float lmin, t[C];\n")]]),
+    ("lsa.cu", "first column's row and u picked with it", [[
+        ("      int kb = C - 1;\n#pragma unroll\n"
+         "      for (int k = C - 1; k >= 0; --k) kb = bv[k] == lmin ? k : kb;\n",
+         "      int kb = 0, pb = pc[0];\n      float ub = uc[0];\n#pragma unroll\n"
+         "      for (int k = C - 1; k >= 0; --k)\n        if (bv[k] == lmin) {\n          kb = k;\n"
+         "          pb = pc[k];\n          ub = uc[k];\n        }\n"),
+        ("pick(pc, kb)", "pb"), ("pick(uc, kb)", "ub")]]),
+    ("lsa.cu", "lowest lane by a second reduce", [[(
+        "__ffs(__ballot_sync(FULL, key == wmin)) - 1", "__reduce_min_sync(FULL, key == wmin ? lane : 32)")]]),
+    ("lsa.cu", "delta by a shuffle", [[(
+        "const float delta = key_value(wmin);", "const float delta = __shfl_sync(FULL, lmin, src);")]]),
 ]
-SELECTED = set(sys.argv[1:])
+# grit_lsa's variants that cut a part out: timed only, their outputs not checked
+LSA_CUT = {"staging alone", "no potential updates"}
+
+
+def _options(argv: list[str]) -> tuple[Path, str, set]:
+    """(source directory, label, selected sources) from the command line."""
+    csrc, label, rest = _cuda.CSRC, "", []
+    args = iter(argv)
+    for a in args:
+        if a == "--csrc":
+            csrc = Path(next(args)).resolve()
+        elif a == "--label":
+            label = next(args)
+        else:
+            rest.append(a)
+    return csrc, label, set(rest)
+
+
+CSRC, LABEL, SELECTED = _options(sys.argv[1:])
+SUFFIX = f"_{LABEL}" if LABEL else ""
 
 
 def graph_ms(fn, reps: int = 10) -> float:
@@ -229,18 +305,25 @@ def graph_ms(fn, reps: int = 10) -> float:
 
 def build() -> list:
     """Compile every variant; returns [(source, name, library)]."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    csrc = _cuda.CSRC
+    out = OUT_ROOT / f"kernel_variants{SUFFIX}"
+    out.mkdir(parents=True, exist_ok=True)
+    csrc = CSRC
     jobs = []
     for i, (src, name, subs) in enumerate(VARIANTS):
         if SELECTED and src not in SELECTED:
             continue
         text = (csrc / src).read_text()
+        if subs and isinstance(subs[0], list):   # one form a design: the first that fits
+            fits = [form for form in subs if all(old in text for old, _ in form)]
+            if not fits:   # a variant of another design of the source
+                print(f"{src} / {name}: not built, no form of it fits {csrc / src}", flush=True)
+                continue
+            subs = fits[0]
         for old, new in subs:
             if text.count(old) < 1:
                 raise RuntimeError(f"{src} / {name}: {old!r} not in the source")
             text = text.replace(old, new)
-        cu, shim, lib = OUT / f"v{i}.cu", OUT / f"v{i}_entry.cu", OUT / f"v{i}.so"
+        cu, shim, lib = out / f"v{i}.cu", out / f"v{i}_entry.cu", out / f"v{i}.so"
         cu.write_text(text)
         shim.write_text(SHIMS[src])
         cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-I", str(csrc), "-o", str(lib),
@@ -254,9 +337,10 @@ def build() -> list:
             raise RuntimeError(f"nvcc failed for {src} / {name}:\n{log[-4000:]}")
         built.append((src, name, ctypes.CDLL(str(lib))))
     for src, _, lib in built:
-        if src in ("decode_layer.cu", "msda.cu"):
-            for fn in (("grit_decode_tail",) if src == "decode_layer.cu"
-                       else ("grit_msda", "grit_msda_bwd")):
+        exports = {"decode_layer.cu": ("grit_decode_tail",),
+                   "msda.cu": ("grit_msda", "grit_msda_bwd"), "lsa.cu": ("grit_lsa",)}
+        if src in exports:
+            for fn in exports[src]:
                 getattr(lib, fn).argtypes = _cuda._SIGNATURES[fn]
                 getattr(lib, fn).restype = ctypes.c_int
             continue
@@ -400,6 +484,46 @@ def msda_variants(built: list, totals: dict, close: dict) -> None:
                 except RuntimeError as exc:   # a variant the card refuses is reported
                     print(f"msda {dn} b{batch} {name}: failed: {exc}", flush=True)
                     torch.cuda.synchronize()
+
+
+def lsa_variants(built: list, totals: dict, close: dict) -> None:
+    """grit_lsa's variants through the C entry at a b4 detector step's
+    problems, continuous and integer costs; "as is" checked equal to the
+    plain version's assignments (``close``: the count that differ)."""
+    import chip_smoke
+    from grit_tpu_torch.ops import lsa as lsa_ops
+
+    libs = [(name, lib) for src, name, lib in built if src == "lsa.cu"]
+    if not libs:
+        return
+    p, q, g = (chip_smoke.DET_LAYERS + 1) * chip_smoke.DET_BATCH, 150, chip_smoke.MAX_BOXES
+    fills = [chip_smoke.LSA_FILLS[i % len(chip_smoke.LSA_FILLS)] for i in range(p)]
+    n_valid = torch.tensor(fills, device="cuda")
+    rng = np.random.default_rng(6000)
+    for kind in ("continuous", "integer"):
+        c = (rng.standard_normal((p, q, g)) * 3 if kind == "continuous"
+             else rng.integers(0, 5, (p, q, g)))
+        cost = torch.from_numpy(c.astype(np.float32)).cuda()
+        want = lsa_ops.lsa_plain(cost.cpu(), n_valid.cpu())
+        assign = torch.empty(p, g, dtype=torch.int64, device="cuda")
+        for name, lib in libs:
+
+            def call(lib=lib):
+                _cuda.check(lib.grit_lsa(cost.data_ptr(), n_valid.data_ptr(), assign.data_ptr(),
+                                         p, q, g, stream()), name)
+
+            key = f"grit_lsa {kind} [{p}, {q}, {g}]: {name}"
+            try:
+                call()
+                torch.cuda.synchronize()
+                if name not in LSA_CUT:
+                    close[key] = int((assign.cpu() != want).sum())
+                    if close[key]:
+                        raise RuntimeError(f"{close[key]} assignments differ from the plain version")
+                totals[key] = graph_ms(call)
+            except RuntimeError as exc:   # a variant the card refuses is reported
+                print(f"{key}: failed: {exc}", flush=True)
+                torch.cuda.synchronize()
 
 
 def main() -> None:
@@ -553,17 +677,20 @@ def main() -> None:
             totals[key] = totals.get(key, 0.0) + graph_ms(lambda: F.linear(x, w, bias)) * depth
     decode_tail_variants(built, totals, close)
     msda_variants(built, totals, close)
+    lsa_variants(built, totals, close)
     for key, ms in totals.items():
         per = (f"b{DET_BATCH} 832x1344 detector step"
                if key.startswith(("gemm_f32", "win_attn_f32", "win_attn_bwd_f32"))
-               else "call" if key.startswith(("decode_tail", "K3", "K6")) else f"b{BATCH} forward")
+               else "call" if key.startswith(("decode_tail", "K3", "K6", "grit_lsa"))
+               else f"b{BATCH} forward")
         bits = f", bit-equal to the first: {same[key]}" if key in same else ""
         if key in close:
-            bits = f", {close[key]:.2e} of the first's max from it"
+            bits = (f", {close[key]} assignments differ from the plain version's"
+                    if key.startswith("grit_lsa") else f", {close[key]:.2e} of the first's max from it")
         print(f"{key:<45} {ms:.3f} ms a {per}{bits}  [{card}]")
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "kernel_variants.json"), "w") as f:
-        json.dump({"card": card, "ms_per_run": totals, "bit_equal_to_first": same,
+    with open(os.path.join("chiprun_out", f"kernel_variants{SUFFIX}.json"), "w") as f:
+        json.dump({"card": card, "csrc": str(CSRC), "ms_per_run": totals, "bit_equal_to_first": same,
                    "max_rel_to_first": close}, f, indent=1)
 
 

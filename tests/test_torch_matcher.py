@@ -39,14 +39,11 @@ def _costs(kind: str, p: int, q: int, g: int, seed: int) -> np.ndarray:
     return rng.integers(0, 5, (p, q, g)).astype(np.float32)   # ties everywhere
 
 
-@pytest.mark.parametrize("kind", ["continuous", "integer"])
-@pytest.mark.parametrize("q, g", [(150, 100), (20, 8), (12, 12), (50, 1)])
-def test_lsa_plain_equals_the_jax_solver_and_scipy(q, g, kind):
-    """Fills from 0 to G, one problem each, all solved in one call: the
-    assignments equal the JAX solver's, -1 past the fill, and each total cost
-    is scipy's optimum on the valid sub-problem."""
-    fills = np.unique(np.linspace(0, g, 5).astype(np.int64))
-    cost = _costs(kind, len(fills), q, g, seed=q * 1000 + g + (kind == "integer"))
+def _check_plain(cost: np.ndarray, fills: np.ndarray) -> None:
+    """``lsa_plain`` on ``cost`` [P, Q, G] with one fill a problem, all in one
+    call: the assignments equal the JAX solver's, -1 past the fill, and each
+    total cost is scipy's optimum on the valid sub-problem."""
+    g = cost.shape[2]
     want = np.asarray(_jax_lsa(jnp.asarray(cost), jnp.asarray(fills, jnp.int32)))
     got = lsa_ops.lsa_plain(torch.from_numpy(cost), torch.from_numpy(fills)).numpy()
     assert got.dtype == np.int64 and got.shape == (len(fills), g)
@@ -60,6 +57,43 @@ def test_lsa_plain_equals_the_jax_solver_and_scipy(q, g, kind):
         best = cost[b, rows, cols].astype(np.float64).sum()
         ours = cost[b, got[b, :n], np.arange(n)].astype(np.float64).sum()
         assert abs(ours - best) <= 1e-5 * max(1.0, abs(best)), (b, n, ours, best)
+
+
+@pytest.mark.parametrize("kind", ["continuous", "integer"])
+@pytest.mark.parametrize("q, g", [(150, 100), (20, 8), (12, 12), (50, 1)])
+def test_lsa_plain_equals_the_jax_solver_and_scipy(q, g, kind):
+    """Fills from 0 to G, one problem each (``_check_plain``)."""
+    fills = np.unique(np.linspace(0, g, 5).astype(np.int64))
+    _check_plain(_costs(kind, len(fills), q, g, seed=q * 1000 + g + (kind == "integer")), fills)
+
+
+@pytest.mark.parametrize("kind", ["continuous", "integer"])
+def test_lsa_plain_at_the_detector_fills(kind):
+    """The padding-heavy problems a detector step solves: 150 queries x 100
+    boxes at fills 1, 3, 7, 13 and 20 (``_check_plain``)."""
+    fills = np.array([1, 3, 7, 13, 20])
+    _check_plain(_costs(kind, len(fills), 150, 100, seed=17 + (kind == "integer")), fills)
+
+
+@pytest.mark.parametrize("q, g", [(150, 100), (20, 8)])
+def test_lsa_plain_counts_the_dijkstra_iterations(q, g):
+    """``return_counts``: an all-zero problem of G rows (fill 0 or G) takes
+    G(G+1)/2 Dijkstra iterations (row i takes i + 1: 5050 at 150 x 100) and
+    one walk step a row; the assignments with counts are ``lsa_plain``'s
+    without and the JAX solver's."""
+    cost = np.concatenate([np.zeros((2, q, g), np.float32),
+                           _costs("continuous", 2, q, g, seed=5),
+                           _costs("integer", 2, q, g, seed=6)])
+    fills = np.array([0, g, 1, g, g // 2, g])
+    got, counts = lsa_ops.lsa_plain(torch.from_numpy(cost), torch.from_numpy(fills),
+                                    return_counts=True)
+    iterations, walk = counts["iterations"], counts["walk"]
+    assert iterations.dtype == walk.dtype == torch.int64 and iterations.shape == (len(fills),)
+    assert iterations[:2].tolist() == [g * (g + 1) // 2] * 2 and walk[:2].tolist() == [g] * 2
+    assert (iterations >= g).all() and (walk >= g).all()
+    assert torch.equal(got, lsa_ops.lsa_plain(torch.from_numpy(cost), torch.from_numpy(fills)))
+    want = np.asarray(_jax_lsa(jnp.asarray(cost), jnp.asarray(fills, jnp.int32)))
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_linear_sum_assignment_on_the_cpu_is_the_plain_version():
@@ -77,8 +111,8 @@ def test_linear_sum_assignment_on_the_cpu_is_the_plain_version():
         lsa_ops.linear_sum_assignment(torch.zeros(2, 3, 4), torch.tensor([1, 1]))
     with pytest.raises(ValueError, match="n_valid"):
         lsa_ops.linear_sum_assignment(torch.zeros(2, 5, 4), torch.tensor([1]))
-    # the detector step's problem fits a block: 150 queries x 100 boxes
-    assert lsa_ops.smem_bytes(150, 100) == 4 * (15000 + 100 + 151 + 150 + 192)
+    # the detector step's problem fits a block: 150 queries x 100 boxes of f32 costs
+    assert lsa_ops.smem_bytes(150, 100) == 4 * (15000 + 32)
     assert lsa_ops.smem_bytes(150, 100) <= lsa_ops.SMEM_LIMIT < lsa_ops.smem_bytes(400, 200)
 
 
