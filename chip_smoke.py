@@ -112,8 +112,11 @@ Phases, each of which must pass:
      freezing-mode XE steps at b64 on its float16 features, each path's
      kernel launches counted from 0 around its run;
  13. ln_rows_kernel and ln_merge_kernel (the LayerNorm launches inside K1,
-     K2, K10b and K10a) alone at the b8 and b128 caption shapes, device time
-     by graph replay beside their bound and F.layer_norm (phase_ln_kernels);
+     K2, K10b and K10a) alone at each shape of the b8 and b128 caption
+     forwards (bf16) and the b4 832x1344 detector step (fp32 and bf16) and
+     on an odd map: device time by graph replay beside its bound and
+     F.layer_norm, held to the plain version and bit-equal from call to call
+     (phase_ln_kernels);
      phase 9's K8 backward also beside SDPA's backward with the mask
      requiring grad.  Each phase's seconds are printed ([time] lines).
  14. the other Swin presets (after 10; the "presets" phases): large (C 192,
@@ -202,6 +205,7 @@ import collections
 import contextlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -1668,104 +1672,166 @@ def phase_merge_kernels(paths=None, counted: bool = True, preset: str = "") -> N
                 cuda_ms(lambda: wa.ln_linear_plain(x, *ln, wt)), 0)
 
 
-def phase_ln_kernels(card: str) -> None:
-    """ln_rows_kernel (the LayerNorm launch inside K1, K2 and K10b) and
-    ln_merge_kernel (K10a's first launch) alone, through their C entries, in
-    bf16 at every shape a b8 and a b128 caption forward gives them: device time
-    by graph_ms, summed over one forward's launches; the bound (bytes: each row
-    read once and written once, K1's window rows read from the real tokens
-    only); and F.layer_norm over the same rows (for ln_merge the rows gathered
-    already) as the library yardstick.  ln_merge's output is held to the plain
-    LayerNorm of the gathered rows.  Timing launches: counted nowhere."""
+# the runs whose LayerNorm launches phase_ln_kernels times: (run, dtype,
+# batch, stages, image size).  fp32 is both training CLIs' type
+LN_RUNS = (("caption b8", torch.bfloat16, 8, STAGES, HW),
+           ("caption b128", torch.bfloat16, 128, STAGES, HW),
+           ("detector b4", torch.float32, DET_BATCH, DET_STAGES, DET_HW),
+           ("detector b4", torch.bfloat16, DET_BATCH, DET_STAGES, DET_HW))
+# an odd map [B, H, W, C] at stage 4's width: PatchMerging's zero edge,
+# timed and checked beside the detector's shapes
+LN_ODD_MAP = (4, 13, 21, 1024)
+
+
+def ln_cases(run: str, batch: int, stages, hw) -> list:
+    """The launches of ln_rows_kernel and ln_merge_kernel in one b``batch``
+    caption forward or detector training step: [(label, kind, calls, C, map
+    (B, Hp, Wp), real (h, w))], kind "rows", "window" or "merge".  A caption
+    forward: K10b (the patch-embed norm), then at each stage K1's LN1 (window
+    mode on the padded map, reading the real tokens), K2's LN2 (row mode on
+    the padded map's rows) and K10a's norm over the 2x2 neighbourhoods of
+    the real map.  A detector step (forward_train) runs LN1 as F.layer_norm
+    and LN2 on the real rows; its K1 (the validation forward) and the odd
+    map ``LN_ODD_MAP`` are timed with 0 calls."""
+    train = run.startswith("detector")
+    h0, w0 = hw[0] // 4, hw[1] // 4
+    out = [("K10b", "rows", 1, stages[0][1], (batch, h0, w0), (h0, w0))]
+    for name, c, _, (h, w), (hp, wp), depth in stages:
+        out.append((f"K1 LN1 {name}", "window", 0 if train else depth, c, (batch, hp, wp), (h, w)))
+        out.append((f"K2 LN2 {name}", "rows", depth, c,
+                    (batch, h, w) if train else (batch, hp, wp), (h, w)))
+        out.append((f"K10a {name}", "merge", 1, c, (batch, h, w), (h, w)))
+    if train:
+        b, h, w, c = LN_ODD_MAP
+        out.append((f"K10a odd {h}x{w}", "merge", 0, c, (b, h, w), (h, w)))
+    return out
+
+
+def ln_case_inputs(case, dtype, g, shift: int = 0) -> dict:
+    """One LN case's tensors on the card: ``launch(lib)`` gives a call of the
+    kernel through ``lib``'s C entry (grit_ln_rows or grit_ln_merge, counted
+    nowhere) into ``out``; ``plain()`` the plain version's output (window
+    mode: the rows gathered in window order, pad rows zero); ``library()``
+    F.layer_norm on the same rows (window mode: the padded map's rows; merge:
+    the rows gathered already); ``bytes`` each input read once, each output
+    written once (window mode reads the real tokens only)."""
     import torch.nn.functional as F
 
-    print("[ln] ln_rows_kernel and ln_merge_kernel alone at the b8 and b128 caption shapes",
-          flush=True)
-    lib = _cuda.library()
-    bf, eps = torch.bfloat16, 1e-5
-    code = _cuda.DTYPE_CODE[bf]
-    g = torch.Generator(device=DEV).manual_seed(7)
+    _, kind, _, c, (b, hp, wp), (h, w) = case
+    es = torch.finfo(dtype).bits // 8
+    eps, code = wa.LN_EPS, _cuda.DTYPE_CODE[dtype]
+    width = 4 * c if kind == "merge" else c
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=DEV) * scale
 
-    def ln_rows(x, w, b, y, rows, c, geo=None):
-        mode = int(geo is not None)
-        geo = geo or (1, 1, 1, 0, 1, 1)
-        return lambda: _cuda.check(lib.grit_ln_rows(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), rows, c, mode, *geo, eps,
-            code, _cuda.stream()), "ln_rows")
+    x = torch.zeros(b, hp, wp, c, dtype=dtype, device=DEV)
+    x[:, :h, :w] = (rnd(b, h, w, c) * 2 + 0.5).to(dtype)
+    nw, nb = 1 + rnd(width, scale=0.1), rnd(width, scale=0.1)
+    if kind == "merge":
+        rows = b * ((h + 1) // 2) * ((w + 1) // 2)
+        gathered = wa._merge_rows(x).reshape(rows, width)
+        src, nbytes = gathered, (b * h * w * c + rows * width) * es + 8 * width
 
+        def launch(lib):
+            return lambda: _cuda.check(lib.grit_ln_merge(
+                x.data_ptr(), nw.data_ptr(), nb.data_ptr(), out.data_ptr(), rows, h, w, c, eps,
+                code, _cuda.stream()), "ln_merge")
+    else:
+        rows = b * hp * wp
+        src = x.view(rows, c)
+        geo = (hp, wp, WINDOW, shift, h, w) if kind == "window" else (1, 1, 1, 0, 1, 1)
+        read = b * h * w if kind == "window" else rows
+        nbytes = (read + rows) * c * es + 8 * c
+
+        def launch(lib):
+            return lambda: _cuda.check(lib.grit_ln_rows(
+                x.data_ptr(), nw.data_ptr(), nb.data_ptr(), out.data_ptr(), rows, c,
+                int(kind == "window"), *geo, eps, code, _cuda.stream()), "ln_rows")
+    out = torch.empty(rows, width, dtype=dtype, device=DEV)
+
+    def plain():
+        if kind != "window":
+            return wa.layernorm_rows_plain(src, nw, nb, eps)
+        tokens = wa._window_tokens(rows, geo).to(DEV)
+        pad = ((tokens // wp) % hp >= h) | (tokens % wp >= w)
+        return wa.layernorm_rows_plain(src[tokens], nw, nb, eps).masked_fill(pad[:, None], 0)
+
+    def library():
+        return F.layer_norm(src, (width,), nw.to(dtype), nb.to(dtype), eps)
+
+    return {"launch": launch, "out": out, "plain": plain, "library": library,
+            "bytes": nbytes, "rows": rows, "width": width}
+
+
+def phase_ln_kernels(card: str) -> None:
+    """ln_rows_kernel (the LayerNorm launch inside K1, K2 and K10b) and
+    ln_merge_kernel (K10a's first launch) alone, through their C entries, at
+    every shape of ``LN_RUNS`` (``ln_cases``): the b8 and b128 caption
+    forwards in bf16, the b4 832x1344 detector step in fp32 and bf16, and an
+    odd map.  Per shape: device time by graph_ms, the bound (bytes: each
+    input read once, each output written once), its share, F.layer_norm on
+    the same rows (the library yardstick), the largest error against the
+    plain version (window mode at shift 0 and WINDOW // 2) within TOL, and
+    two calls bit-equal; then the sums over the run's launches.  Timing
+    launches: counted nowhere."""
+    print("[ln] ln_rows_kernel and ln_merge_kernel alone at the caption and detector shapes",
+          flush=True)
+    lib = _cuda.library()
+    g = torch.Generator(device=DEV).manual_seed(7)
     out = {}
-    for batch in (8, 128):
-        acc = {k: {"ms": 0.0, "bytes": 0.0, "library_ms": 0.0, "launches": 0}
+    for run, dt, batch, stages, hw in LN_RUNS:
+        dn = "bf16" if dt == torch.bfloat16 else "fp32"
+        acc = {k: {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "launches": 0}
                for k in ("ln_rows_kernel", "ln_merge_kernel")}
-        acc["ln_merge_kernel"]["max_rel_err"] = 0.0   # against the plain LN, over the stages
-
-        def add(kernel, calls, ms, nbytes, lib_ms):
+        shapes = []
+        for case in ln_cases(run, batch, stages, hw):
+            label, kind, calls, c = case[:4]
+            kernel = "ln_merge_kernel" if kind == "merge" else "ln_rows_kernel"
+            err = 0.0
+            # window mode checked at both shifts, timed at 0
+            for shift in ((WINDOW // 2, 0) if kind == "window" else (0,)):
+                t = ln_case_inputs(case, dt, g, shift)
+                call = t["launch"](lib)
+                call()
+                first = t["out"].clone()
+                call()
+                if not torch.equal(first, t["out"]):
+                    fail(f"{kernel} {run} {dn} {label}: two calls differ")
+                ref = t["plain"]().float()
+                err = max(err, ((first.float() - ref).abs().max() / ref.abs().max()).item())
+                if not err <= TOL[dt]:
+                    fail(f"{kernel} {run} {dn} {label}: max rel err {err:.3e} > {TOL[dt]:.0e}")
+            # the median of three replays: a short launch's replay now and
+            # then reads several times its time
+            ms, lib_ms = (statistics.median(graph_ms(fn) for _ in range(3))
+                          for fn in (call, t["library"]))
+            bound = t["bytes"] / PEAK_BYTES * 1e3
+            shapes.append({"label": label, "kernel": kernel, "kind": kind, "calls": calls,
+                           "rows": t["rows"], "width": t["width"], "ms": ms, "bound_ms": bound,
+                           "bound_share": bound / ms, "library_ms": lib_ms, "max_rel_err": err})
             a = acc[kernel]
             a["ms"] += calls * ms
-            a["bytes"] += calls * nbytes
+            a["bound_ms"] += calls * bound
             a["library_ms"] += calls * lib_ms
             a["launches"] += calls
-
-        # K10b: the patch-embed norm
-        c = STAGES[0][1]
-        rows = batch * (HW[0] // 4) * (HW[1] // 4)
-        x, w, b = rnd(rows, c).to(bf), 1 + rnd(c, scale=0.1), rnd(c, scale=0.1)
-        y = torch.empty_like(x)
-        add("ln_rows_kernel", 1, graph_ms(ln_rows(x, w, b, y, rows, c)), 4.0 * rows * c + 8 * c,
-            graph_ms(lambda: F.layer_norm(x, (c,), w.to(bf), b.to(bf), eps)))
-        for name, c, _, (h, wd), (hp, wp), depth in STAGES:
-            rows = batch * hp * wp
-            xm = torch.zeros(batch, hp, wp, c, dtype=bf, device=DEV)
-            xm[:, :h, :wd] = rnd(batch, h, wd, c).to(bf)
-            w, b = 1 + rnd(c, scale=0.1), rnd(c, scale=0.1)
-            y = torch.empty(rows, c, dtype=bf, device=DEV)
-            lib_ms = graph_ms(lambda: F.layer_norm(xm.view(rows, c), (c,), w.to(bf), b.to(bf), eps))
-            # K1's LN1 gathers each window's rows from the real tokens; K2's LN2
-            # runs on every row of the padded map
-            add("ln_rows_kernel", depth,
-                graph_ms(ln_rows(xm, w, b, y, rows, c, (hp, wp, WINDOW, 0, h, wd))),
-                2.0 * (batch * h * wd * c + rows * c) + 8 * c, lib_ms)
-            add("ln_rows_kernel", depth, graph_ms(ln_rows(xm, w, b, y, rows, c)),
-                4.0 * rows * c + 8 * c, lib_ms)
-            # K10a's norm over the 2x2 neighbourhoods of the real map
-            xr = xm[:, :h, :wd].contiguous()
-            mrows = batch * ((h + 1) // 2) * ((wd + 1) // 2)
-            w4, b4 = 1 + rnd(4 * c, scale=0.1), rnd(4 * c, scale=0.1)
-            y4 = torch.empty(mrows, 4 * c, dtype=bf, device=DEV)
-            rows4 = wa._merge_rows(xr).reshape(mrows, 4 * c)
-
-            def merge():
-                _cuda.check(lib.grit_ln_merge(xr.data_ptr(), w4.data_ptr(), b4.data_ptr(),
-                                              y4.data_ptr(), mrows, h, wd, c, eps, code,
-                                              _cuda.stream()), "ln_merge")
-
-            merge()
-            ref = F.layer_norm(rows4.float(), (4 * c,), w4, b4, eps)
-            err = ((y4.float() - ref).abs().max() / ref.abs().max()).item()
-            if not err <= TOL[bf]:
-                fail(f"ln_merge_kernel b{batch} {name}: max rel err {err:.3e} > {TOL[bf]:.0e}")
-            acc["ln_merge_kernel"]["max_rel_err"] = max(acc["ln_merge_kernel"]["max_rel_err"], err)
-            add("ln_merge_kernel", 1, graph_ms(merge), 2.0 * (batch * h * wd * c + mrows * 4 * c)
-                + 32 * c, graph_ms(lambda: F.layer_norm(rows4, (4 * c,), w4.to(bf), b4.to(bf),
-                                                         eps)))
-            del xm, y, xr, y4, rows4
+            print(f"[ln] {run} {dn} {label} ({kind}, {t['rows']} x {t['width']}, x{calls}): "
+                  f"{kernel} {ms:.4f} ms, bound {bound:.4f} ms ({bound / ms:.0%}), "
+                  f"F.layer_norm {lib_ms:.4f} ms, max rel err {err:.1e}, bit-equal  [{card}]",
+                  flush=True)
+            del t, first, ref
         for kernel, a in acc.items():
-            a["bound_ms"] = a["bytes"] / PEAK_BYTES * 1e3
             a["bound_share"] = a["bound_ms"] / a["ms"]
-            print(f"[ln] {kernel} b{batch} bf16 caption forward: {a['ms']:.3f} ms over "
-                  f"{a['launches']} launches (graph replay), bound {a['bound_ms']:.3f} ms by "
-                  f"bytes ({a['bound_share']:.0%} of it), F.layer_norm on the same rows "
-                  f"{a['library_ms']:.3f} ms" + (f", max rel err {a['max_rel_err']:.3e} against "
-                                                  f"the plain LN" if "max_rel_err" in a else "")
-                  + f"  [{card}]", flush=True)
-        out[f"b{batch}"] = acc
+            print(f"[ln] {run} {dn} {kernel}, summed over {a['launches']} launches: "
+                  f"{a['ms']:.3f} ms (graph replay), bound {a['bound_ms']:.3f} ms by bytes "
+                  f"({a['bound_share']:.0%} of it), F.layer_norm on the same rows "
+                  f"{a['library_ms']:.3f} ms  [{card}]", flush=True)
+        out[f"{run} {dn}"] = {**acc, "shapes": shapes}
     want = forward_launches()
-    if (out["b8"]["ln_rows_kernel"]["launches"] != want["K1"] + want["K2"] + want["K10b"]
-            or out["b8"]["ln_merge_kernel"]["launches"] != want["K10a"]):
-        fail(f"ln kernels: launches {out['b8']} differ from a forward's {want}")
+    b8 = out["caption b8 bf16"]
+    if (b8["ln_rows_kernel"]["launches"] != want["K1"] + want["K2"] + want["K10b"]
+            or b8["ln_merge_kernel"]["launches"] != want["K10a"]):
+        fail(f"ln kernels: launches {b8} differ from a forward's {want}")
     RESULTS["ln_kernels"] = out
 
 

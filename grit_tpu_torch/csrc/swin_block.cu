@@ -51,7 +51,9 @@
 // The TPU kernel keeps the whole weight in VMEM and walks row blocks; here the
 // product's column tiles spread over the SMs and the weight comes through L2.
 // K10b replaces ::_ln_kernel (through fused_layernorm; the patch-embed norm):
-// ln_rows in row mode, one pass, one warp a row.  Both are memory passes.
+// ln_rows in row mode.  Both LayerNorm kernels are memory passes: a row read
+// once into registers in 16-byte chunks, its lanes sized to its width (see
+// ln_rows_kernel).
 //
 // What bounds them on an H100: the GEMMs are tensor-core work and the
 // attention core a memory pass; in bf16 both run on kernels designed for
@@ -67,6 +69,9 @@
 // FMAs.  LN is a memory pass.  Every intermediate (xn, qkv, the
 // attention output, the 4C-wide MLP hidden) goes to device memory and back;
 // keeping them on chip, as the TPU kernels keep them in VMEM, is later work.
+#include <algorithm>
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace grit {
@@ -110,85 +115,244 @@ __device__ __forceinline__ void epi_store4(const Epi& e, int row, int col, int N
 }
 
 // ---------------------------------------------------------------------------
-// LayerNorm over rows, one warp per row.  Window mode gathers row r from the
-// map token win_row_to_token(r) and zeroes pad tokens; row mode reads row r.
+// LayerNorm over rows (ln_rows_kernel: K10b, the norms of K1 and K2, K10a's
+// on merged rows) and over PatchMerging's 4C rows gathered from the map
+// (ln_merge_kernel: K10a).  f32 statistics, var = E[x^2] - mu^2, one rounding
+// to the storage type.  Both are memory passes: what bounds them is each
+// input byte read once and each output byte written once.  A row is read
+// once from device memory into registers in 16-byte chunks (8 bf16 or 4 f32
+// values), normalised from the registers and stored in 16-byte chunks; g and
+// b come as float4s.  A row takes G lanes, K chunks each: chunk j in lane
+// j % G, slot j / G, so that each load instruction of a lane group reads G
+// neighbouring chunks.  G is the fewest lanes that hold the row at most
+// LN_CHUNKS_ROWS chunks a lane where rows are read in place, and
+// LN_CHUNKS_GATHER where a warp first works out where its rows come from
+// (window mode's win_row_to_token, PatchMerging's 2x2 gather): integer work
+// that a warp pays once for all the chunks it holds.  G is a power of two
+// up to a warp (a warp holds 32 / G rows) and whole warps past it, at most
+// LN_MAX_LANES: a longer row gives each lane more chunks (up to LN_MAX_K).
+// These were the fastest choices at the caption and detector shapes
+// (kernel_variants.py); they serve every width of the presets (C 64 ..
+// 1536, 4C up to 6144), and the instance is chosen at launch by K.  The
+// statistics are summed in the first design's order (one warp a row, lane l
+// taking every 32nd element; ln_stats) from a copy of the block's rows in
+// shared memory, so the outputs are the same bits as that design's: the
+// redesign changes no result downstream.  A block holds LN_THREADS / G rows
+// (one row of more lanes), and no lane walks rows: every load of the grid is
+// issued as soon as its block is resident.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(256) ln_rows_kernel(
-    const T* __restrict__ x, const float* __restrict__ g, const float* __restrict__ b,
-    T* __restrict__ out, int rows, int C, int window_mode, WinMap m, float eps) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (r >= rows) return;
-  bool pad = false;
-  const size_t src = window_mode ? win_row_to_token(m, r, &pad) : (size_t)r;
-  const T* xr = x + src * C;
-  T* o = out + (size_t)r * C;
-  if (pad) {
-    for (int c = lane; c < C; c += 32) o[c] = from_f<T>(0.0f);
-    return;
-  }
-  float s = 0.0f, s2 = 0.0f;
-  for (int c = lane; c < C; c += 32) {
-    const float v = to_f<T>(xr[c]);
-    s += v;
-    s2 += v * v;
-  }
-  s = warp_sum(s);
-  s2 = warp_sum(s2);
-  const float mu = s / C;
-  const float rs = rsqrtf(s2 / C - mu * mu + eps);
-  for (int c = lane; c < C; c += 32) {
-    o[c] = from_f<T>((to_f<T>(xr[c]) - mu) * rs * g[c] + b[c]);
-  }
-}
+constexpr int LN_THREADS = 128;      // a block's threads (a row of more lanes: its lanes)
+constexpr int LN_MAX_LANES = 256;    // lanes a row takes at most
+constexpr int LN_CHUNKS_ROWS = 2;    // 16-byte chunks a lane holds at most, rows read in
+constexpr int LN_CHUNKS_GATHER = 4;  // place / gathered, in a row of up to LN_MAX_LANES lanes
+constexpr int LN_MAX_K = 6;          // ... and in a longer one (fp32 4C = 6144: 6 a lane)
+constexpr int LN_BLOCK = LN_MAX_LANES > LN_THREADS ? LN_MAX_LANES : LN_THREADS;
 
-// ---------------------------------------------------------------------------
-// K10a's first launch: LayerNorm over the 4C channels of PatchMerging's rows,
-// gathered from the map x [B, H, W, C].  Output row (b, y2, x2) is the
-// concatenation of tokens (2y2, 2x2), (2y2+1, 2x2), (2y2, 2x2+1), (2y2+1, 2x2+1),
-// zeros where an odd H or W ends the map (they count in the statistics, as
-// the zero pad before the norm does).  One warp per row; g, b: f32 [4C].
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(256) ln_merge_kernel(
-    const T* __restrict__ x, const float* __restrict__ g, const float* __restrict__ b,
-    T* __restrict__ out, int rows, int H, int W, int C, float eps) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (r >= rows) return;
-  const int H2 = (H + 1) / 2, W2 = (W + 1) / 2;
-  const int bi = r / (H2 * W2), rem = r - bi * (H2 * W2);
-  const int y2 = rem / W2, x2 = rem - y2 * W2;
-  const T* src[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int y = 2 * y2 + (q & 1), xx = 2 * x2 + (q >> 1);
-    src[q] = (y < H && xx < W) ? x + (((size_t)bi * H + y) * W + xx) * C : nullptr;
+// a 16-byte chunk of the storage type as V floats, and V floats rounded back
+template <typename T> struct Chunk;
+template <> struct Chunk<float> {
+  static constexpr int V = 4;
+  __device__ static void to_f(const uint4& u, float* v) {
+    v[0] = __uint_as_float(u.x);
+    v[1] = __uint_as_float(u.y);
+    v[2] = __uint_as_float(u.z);
+    v[3] = __uint_as_float(u.w);
   }
-  float s = 0.0f, s2 = 0.0f;
+  __device__ static uint4 from_f(const float* v) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                      __float_as_uint(v[3]));
+  }
+};
+template <> struct Chunk<bf16> {
+  static constexpr int V = 8;
+  __device__ static void to_f(const uint4& u, float* v) {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    if (src[q] == nullptr) continue;
-    for (int c = lane; c < C; c += 32) {
-      const float v = to_f<T>(src[q][c]);
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  __device__ static unsigned pack(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&h);
+  }
+  __device__ static uint4 from_f(const float* v) {
+    return make_uint4(pack(v[0], v[1]), pack(v[2], v[3]), pack(v[4], v[5]), pack(v[6], v[7]));
+  }
+};
+
+// A staged row's statistics in the first design's order, so that the
+// outputs are that design's bits: lane l of a warp adds elements l, l + 32,
+// ... of each of the row's `quarters` blocks of C in turn, then warp_sum.
+// Called by a whole warp.
+template <typename T>
+__device__ __forceinline__ float2 ln_warp_sums(const T* x, int C, int quarters, int l) {
+  float s = 0.0f, s2 = 0.0f;
+  for (int q = 0; q < quarters; ++q) {
+#pragma unroll 8
+    for (int c = l; c < C; c += 32) {
+      const float v = to_f<T>(x[q * C + c]);
       s += v;
       s2 += v * v;
     }
   }
-  s = warp_sum(s);
-  s2 = warp_sum(s2);
-  const int C4 = 4 * C;
-  const float mu = s / C4;
-  const float rs = rsqrtf(s2 / C4 - mu * mu + eps);
-  T* o = out + (size_t)r * C4;
+  return make_float2(warp_sum(s), warp_sum(s2));
+}
+
+// A row's K chunks a lane (zero where nothing was read) -> its mean and
+// rsqrt(var + eps) in every lane of its group.  The block's rows are staged
+// in shared memory, G * K chunks apart; a warp of up to 32 lanes a row sums
+// each of its 32 / G rows in turn (ln_warp_sums), the first warp of a longer
+// row sums it and hands the sums on through shared memory.  `need`: the row
+// is normalised (not padding, not past the last row), else it is not summed;
+// every thread of the block takes part.
+template <typename T, int K>
+__device__ __forceinline__ float2 ln_stats(const uint4 (&raw)[K], bool need, int lane, int G,
+                                           int n, int C, int quarters, float eps) {
+  extern __shared__ uint4 ln_staged[];
+  __shared__ float2 red[LN_BLOCK / 32];
+  const int slot = threadIdx.x / G;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    for (int c = lane; c < C; c += 32) {
-      const float v = src[q] == nullptr ? 0.0f : to_f<T>(src[q][c]);
-      o[q * C + c] = from_f<T>((v - mu) * rs * g[q * C + c] + b[q * C + c]);
+  for (int k = 0; k < K; ++k)
+    if (lane + k * G < n) ln_staged[slot * G * K + lane + k * G] = raw[k];
+  const T* rows = reinterpret_cast<const T*>(ln_staged);
+  const int stride = G * K * Chunk<T>::V;
+  float2 sums = make_float2(0.0f, 0.0f);
+  if (G <= 32) {
+    const unsigned needs = __ballot_sync(0xffffffffu, need);
+    const int first = (threadIdx.x & ~31) / G;
+    __syncwarp();
+    for (int i = 0; i < 32 / G; ++i) {
+      if ((needs >> (i * G)) & (0xffffffffu >> (32 - G))) {
+        const float2 t = ln_warp_sums(rows + (first + i) * stride, C, quarters, threadIdx.x & 31);
+        if (slot == first + i) sums = t;
+      }
     }
+  } else {
+    __syncthreads();
+    if (lane < 32 && need) {
+      const float2 t = ln_warp_sums(rows + slot * stride, C, quarters, lane);
+      if (lane == 0) red[slot] = t;
+    }
+    __syncthreads();
+    sums = red[slot];
   }
+  const int width = quarters * C;
+  const float mu = sums.x / width;
+  return make_float2(mu, rsqrtf(sums.y / width - mu * mu + eps));
+}
+
+// The row's n chunks normalised (st: mean, rsqrt) from the K chunks each lane
+// holds and stored at o; a window-padding row (zero_row) is stored as zeros.
+template <typename T, int K>
+__device__ __forceinline__ void ln_store(const uint4 (&raw)[K], float2 st, int lane, int G, int n,
+                                         bool zero_row, const float* __restrict__ g,
+                                         const float* __restrict__ b, T* __restrict__ o) {
+  constexpr int V = Chunk<T>::V;
+  const float mu = st.x, rs = st.y;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = lane + k * G;
+    if (j >= n) break;
+    float v[V];
+    Chunk<T>::to_f(raw[k], v);
+    if (zero_row) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) v[i] = 0.0f;
+    } else {
+      const float4* g4 = reinterpret_cast<const float4*>(g + j * V);
+      const float4* b4 = reinterpret_cast<const float4*>(b + j * V);
+#pragma unroll
+      for (int q = 0; q < V / 4; ++q) {
+        const float4 gq = __ldg(g4 + q), bq = __ldg(b4 + q);
+        v[4 * q] = (v[4 * q] - mu) * rs * gq.x + bq.x;
+        v[4 * q + 1] = (v[4 * q + 1] - mu) * rs * gq.y + bq.y;
+        v[4 * q + 2] = (v[4 * q + 2] - mu) * rs * gq.z + bq.z;
+        v[4 * q + 3] = (v[4 * q + 3] - mu) * rs * gq.w + bq.w;
+      }
+    }
+    *reinterpret_cast<uint4*>(o + (size_t)j * V) = Chunk<T>::from_f(v);
+  }
+}
+
+// Row r of x [rows, C], or in window mode the map token win_row_to_token(r)
+// (a pad token: a zero row, not read).
+template <typename T, int K>
+__global__ void __launch_bounds__(LN_BLOCK, 1024 / LN_BLOCK) ln_rows_kernel(
+    const T* __restrict__ x, const float* __restrict__ g, const float* __restrict__ b,
+    T* __restrict__ out, int rows, int C, int G, int window_mode, WinMap m, float eps) {
+  constexpr int V = Chunk<T>::V;
+  const int n = C / V, lane = threadIdx.x % G;
+  const int r = blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
+  const bool live = r < rows;
+  bool pad = false;
+  size_t src = 0;
+  if (live) src = window_mode ? win_row_to_token(m, r, &pad) : (size_t)r;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + src * C);
+  uint4 raw[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = lane + k * G;
+    raw[k] = live && !pad && j < n ? __ldg(xr + j) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  const float2 st = ln_stats<T, K>(raw, live && !pad, lane, G, n, C, 1, eps);
+  if (live) ln_store<T, K>(raw, st, lane, G, n, pad, g, b, out + (size_t)r * C);
+}
+
+// K10a's first launch: row (b, y2, x2) of the output [B ceil(H/2) ceil(W/2),
+// 4C] is the concatenation of the map x [B, H, W, C]'s tokens (2y2, 2x2),
+// (2y2+1, 2x2), (2y2, 2x2+1), (2y2+1, 2x2+1), zeros where an odd H or W ends
+// the map (they count in the statistics, as the zero pad before the norm
+// does); g, b: f32 [4C].
+template <typename T, int K>
+__global__ void __launch_bounds__(LN_BLOCK, 1024 / LN_BLOCK) ln_merge_kernel(
+    const T* __restrict__ x, const float* __restrict__ g, const float* __restrict__ b,
+    T* __restrict__ out, int rows, int H, int W, int C, int G, float eps) {
+  constexpr int V = Chunk<T>::V;
+  const int nq = C / V, n = 4 * nq, lane = threadIdx.x % G;
+  const int r = blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
+  const bool live = r < rows;
+  const int H2 = (H + 1) / 2, W2 = (W + 1) / 2;
+  const int bi = r / (H2 * W2), rem = r - bi * (H2 * W2);
+  const int y2 = rem / W2, x2 = rem - y2 * W2;
+  const bool y_in = 2 * y2 + 1 < H, x_in = 2 * x2 + 1 < W;  // the second row / column exists
+  const T* base = x + (((size_t)bi * H + 2 * y2) * W + 2 * x2) * C;
+  uint4 raw[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = lane + k * G, q = j / nq;  // quarter q: token (2y2 + (q & 1), 2x2 + (q >> 1))
+    const bool in = live && j < n && (y_in || !(q & 1)) && (x_in || !(q & 2));
+    const uint4* src =
+        reinterpret_cast<const uint4*>(base + ((size_t)(q & 1) * W + (q >> 1)) * C) + (j - q * nq);
+    raw[k] = in ? __ldg(src) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  const float2 st = ln_stats<T, K>(raw, live, lane, G, n, C, 4, eps);
+  if (live) ln_store<T, K>(raw, st, lane, G, n, false, g, b, out + (size_t)r * 4 * C);
+}
+
+// lanes a row of n 16-byte chunks takes: the fewest that hold it at most
+// `most` a lane, a power of two up to a warp and whole warps past it, at
+// most LN_MAX_LANES
+inline int ln_lanes(int n, int most) {
+  const int need = (n + most - 1) / most;
+  if (need > 32) return std::min(32 * ((need + 31) / 32), LN_MAX_LANES);
+  int g = 1;
+  while (g < need) g *= 2;
+  return g;
+}
+
+// dynamic shared memory of a block: its rows staged, K chunks a thread
+inline size_t ln_smem_bytes(int G, int per_block, int K) {
+  return (size_t)G * per_block * K * sizeof(uint4);
+}
+
+// launch(std::integral_constant<int, k>) for the instance of k chunks a lane
+template <int K = 1, class F>
+int ln_dispatch(int k, F&& launch) {
+  if (k == K) return launch(std::integral_constant<int, K>{});
+  if constexpr (K < LN_MAX_K) return ln_dispatch<K + 1>(k, launch);
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -340,14 +504,23 @@ int launch_gemm_f32(const float* A, const float* W, int M, int N, int K, const E
   return (int)cudaGetLastError();
 }
 
+// ln_rows_kernel over rows of C values (C % 8 in bf16, C % 4 in f32: whole
+// 16-byte chunks; the rows 16-byte aligned)
 template <typename T>
 int launch_ln(const void* x, const void* g, const void* b, void* out, int rows, int C,
               int window_mode, WinMap m, float eps, cudaStream_t st) {
-  const int per_block = 8;
-  ln_rows_kernel<T><<<(rows + per_block - 1) / per_block, 32 * per_block, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const float*>(g), static_cast<const float*>(b),
-      static_cast<T*>(out), rows, C, window_mode, m, eps);
-  return (int)cudaGetLastError();
+  constexpr int V = Chunk<T>::V;
+  if (C <= 0 || C % V) return (int)cudaErrorInvalidValue;
+  const int n = C / V, G = ln_lanes(n, window_mode ? LN_CHUNKS_GATHER : LN_CHUNKS_ROWS);
+  const int per_block = G < LN_THREADS ? LN_THREADS / G : 1;
+  return ln_dispatch((n + G - 1) / G, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    ln_rows_kernel<T, K><<<(rows + per_block - 1) / per_block, G * per_block,
+                           ln_smem_bytes(G, per_block, K), st>>>(
+        static_cast<const T*>(x), static_cast<const float*>(g), static_cast<const float*>(b),
+        static_cast<T*>(out), rows, C, G, window_mode, m, eps);
+    return (int)cudaGetLastError();
+  });
 }
 
 // the attention core in the storage type of `dtype` (1: bf16, on the tensor cores)
@@ -366,14 +539,23 @@ int launch_win_attn(int dtype, const void* q, const void* k, const void* v, size
                              dense_windows, static_cast<float*>(out), num_windows, C, heads, m, st);
 }
 
+// ln_merge_kernel over the 4C rows of the map's 2x2 neighbourhoods (C as
+// launch_ln's)
 template <typename T>
 int launch_ln_merge(const void* x, const void* g, const void* b, void* out, int rows, int H,
                     int W, int C, float eps, cudaStream_t st) {
-  const int per_block = 8;
-  ln_merge_kernel<T><<<(rows + per_block - 1) / per_block, 32 * per_block, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const float*>(g), static_cast<const float*>(b),
-      static_cast<T*>(out), rows, H, W, C, eps);
-  return (int)cudaGetLastError();
+  constexpr int V = Chunk<T>::V;
+  if (C <= 0 || C % V) return (int)cudaErrorInvalidValue;
+  const int n = 4 * C / V, G = ln_lanes(n, LN_CHUNKS_GATHER);
+  const int per_block = G < LN_THREADS ? LN_THREADS / G : 1;
+  return ln_dispatch((n + G - 1) / G, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    ln_merge_kernel<T, K><<<(rows + per_block - 1) / per_block, G * per_block,
+                            ln_smem_bytes(G, per_block, K), st>>>(
+        static_cast<const T*>(x), static_cast<const float*>(g), static_cast<const float*>(b),
+        static_cast<T*>(out), rows, H, W, C, G, eps);
+    return (int)cudaGetLastError();
+  });
 }
 
 // the three column blocks of a packed [rows, 3C] tensor

@@ -73,6 +73,13 @@ EPILOGUES = {"bias": 0, "gelu": 1, "resid": 2, "resid_map": 3, "map": 4}
 #: SIMT kernel masks its 128- or 64-column tiles in whole float4s over
 #: 16-deep K steps.  Every product of the five Swin presets meets both
 GEMM_TILES = {torch.bfloat16: (8, 8), torch.float32: (4, 16)}
+#: values in one 16-byte chunk of the LayerNorm kernels (ln_rows_kernel,
+#: ln_merge_kernel): they read and write a row in whole chunks, and a row
+#: takes at most 256 lanes of 6 chunks: ``LN_MAX_WIDTH`` values.  Every LN
+#: width of the Swin presets (C, and 4C in PatchMerging) is whole chunks in
+#: both types, the widest (fp32 4C = 6144) the most
+LN_CHUNK = {torch.bfloat16: 8, torch.float32: 4}
+LN_MAX_WIDTH = {torch.bfloat16: 12288, torch.float32: 6144}
 #: K5 takes windows up to 12 (N <= 144), odd ones too: the bf16 kernel's two
 #: N x N bf16 tiles and its double-buffered rows, and the fp32 kernel's Q, K,
 #: V, dO and N x N f32 tile, fill a block's 227 KB of shared memory.  K8's
@@ -98,6 +105,20 @@ def check_gemm_shape(n_out: int, k_in: int, dtype, what: str = "gemm") -> None:
     if n_out <= 0 or k_in <= 0 or n_out % tn or k_in % tk:
         raise ValueError(f"{what}: the {_dtype_name(dtype)} GEMM does not take a product of "
                          f"{k_in} -> {n_out} columns (out % {tn}, in % {tk})")
+
+
+def check_ln_shape(c: int, dtype, what: str = "layernorm") -> None:
+    """Raise ``ValueError`` unless the LayerNorm kernels of ``dtype`` take
+    rows of ``c`` values (``LN_CHUNK``; for PatchMerging's norm ``c`` is the
+    map's channels).  Every wrapper that launches one checks its width with
+    this before any launch; ``_cuda.require`` checks that each tensor is
+    16-byte aligned."""
+    if dtype not in LN_CHUNK:
+        raise ValueError(f"{what}: unsupported dtype {dtype}")
+    v, most = LN_CHUNK[dtype], LN_MAX_WIDTH[dtype]
+    if c <= 0 or c % v or c > most:
+        raise ValueError(f"{what}: the {_dtype_name(dtype)} LayerNorm kernels take rows of whole "
+                         f"16-byte chunks of {v} values, at most {most} values; got {c} values")
 
 
 def _ln_fast(xf: torch.Tensor, w, b, eps: float) -> torch.Tensor:
@@ -321,6 +342,7 @@ def block_step(x, norm_w, norm_b, qkv_w, qkv_b, proj_w, proj_b, table, *,
         raise ValueError(f"block_step: head dim must be 32, got {c}/{num_heads}")
     if hp % window or wp % window or window * window > 256:
         raise ValueError(f"block_step: map {hp}x{wp} does not tile windows of {window}")
+    check_ln_shape(c, dt, "block_step ln1")
     check_gemm_shape(3 * c, c, dt, "block_step qkv")
     check_gemm_shape(c, c, dt, "block_step proj")
     for t, name, t_dt, shape in (
@@ -624,6 +646,7 @@ def _mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, eps: float, residual: bo
     dt = x.dtype
     if dt not in _cuda.DTYPE_CODE:
         raise ValueError(f"mlp: unsupported dtype {dt}")
+    check_ln_shape(c, dt, "mlp ln2")
     check_gemm_shape(hid, c, dt, "mlp fc1")
     check_gemm_shape(c, hid, dt, "mlp fc2")
     for t, name, t_dt, shape in (
@@ -839,10 +862,12 @@ def _ln_linear(x, norm_w, norm_b, w, eps: float, merge: bool) -> torch.Tensor:
         if 4 * c != k_in:
             raise ValueError(f"patch_merge: map of {c} channels for a weight over {k_in}")
         lead, hw = (b, (h + 1) // 2, (wd + 1) // 2), (h, wd)
+        check_ln_shape(c, dt, "patch_merge")
     else:
         if x.shape[-1] != k_in:
             raise ValueError(f"ln_linear: rows of {x.shape[-1]} channels for a weight over {k_in}")
         lead, hw = tuple(x.shape[:-1]), (1, 1)
+        check_ln_shape(k_in, dt, "ln_linear")
     rows = 1
     for s in lead:
         rows *= s
@@ -913,6 +938,7 @@ def _layernorm_rows(x, norm_w, norm_b, eps: float) -> torch.Tensor:
     c = x.shape[-1]
     if dt not in _cuda.DTYPE_CODE:
         raise ValueError(f"layernorm_rows: unsupported dtype {dt}")
+    check_ln_shape(c, dt, "layernorm_rows")
     _cuda.require(x, "x", dt)
     _cuda.require(norm_w, "norm_w", torch.float32, (c,))
     _cuda.require(norm_b, "norm_b", torch.float32, (c,))

@@ -2,9 +2,12 @@
 
   python3 kernel_variants.py                  # every variant
   python3 kernel_variants.py swin_block.cu    # the variants of the named sources
+  python3 kernel_variants.py ln               # swin_block.cu's LayerNorm group alone
   python3 kernel_variants.py --csrc DIR --label parent lsa.cu
                                               # another checkout's sources (e.g. the
                                               # parent commit's), results named by label
+  python3 kernel_variants.py --parent DIR ln  # also DIR's sources as they are, as the
+                                              # variant "parent", timed in turn with the rest
 
 A tool for finding where a Hopper kernel's time goes: each variant is a
 source under grit_tpu_torch/csrc with text substitutions, compiled by its own
@@ -31,6 +34,22 @@ call for the same function, at the shapes of a b8 384x640 caption forward
     k steps; one block an SM; the main loop alone; beside F.linear in fp32;
     each variant's outputs checked equal to the first's bit for bit (every
     variant keeps the fmaf chain of each output).
+  swin_block.cu's LayerNorm kernels (the "ln" group: ln_rows_kernel and
+    ln_merge_kernel) through their C entries grit_ln_rows and grit_ln_merge
+    at each shape of chip_smoke.phase_ln_kernels (chip_smoke.LN_RUNS and
+    ln_cases: the b8 and b128 caption forwards in bf16, the b4 832x1344
+    detector step in fp32 and bf16, an odd map): as it is; at most 4
+    chunks a lane where rows are read in place (row mode), 2 where they are
+    gathered (window mode, the merge); up to 512 lanes a row; 256 threads a
+    block; beside F.layer_norm on the same rows; each shape's time the
+    median of three graph replays, each variant's outputs checked within
+    chip_smoke.TOL of the plain version's (and, with --parent, compared bit
+    for bit with the parent's), and each run's sums over its launches by
+    kernel.  With
+    --csrc on another checkout (e.g. the parent commit's), its "as is" runs
+    at the same shapes and its other forms are not built; with --parent it
+    runs as the variant "parent" in the same process, each shape's
+    variants timed in turns (three rounds).
 
   decode_layer.cu, K11 (the decode-layer tail, eight launches) through its
     wrapper at the decode shapes of a b8, a b16 and a b128 caption batch
@@ -75,6 +94,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -175,6 +195,13 @@ extern "C" int variant_bwd_entry(const void* qkv, const void* dout, const void* 
     "msda.cu": "\n",
     "lsa.cu": "\n",
 }
+# swin_block.cu's LayerNorm variants, named "ln: ..." (one form each: a
+# checkout with another LayerNorm design builds none of them)
+LN_VARIANTS = [("ln: " + name, [[(old, new)]]) for name, old, new in (
+    ("rows in place 4 chunks a lane", "LN_CHUNKS_ROWS = 2;", "LN_CHUNKS_ROWS = 4;"),
+    ("gathered rows 2 chunks a lane", "LN_CHUNKS_GATHER = 4;", "LN_CHUNKS_GATHER = 2;"),
+    ("512 lanes a row", "LN_MAX_LANES = 256;", "LN_MAX_LANES = 512;"),
+    ("256 threads a block", "LN_THREADS = 128;", "LN_THREADS = 256;"))]
 # grit_lsa's warp design: the next iteration's row loads
 LSA_NEXT_ROW = ("#pragma unroll\n      for (int k = 0; k < C; ++k) x[k] = cols[(size_t)max(p1, 0) * Q"
                 " + k];\n")
@@ -229,6 +256,7 @@ VARIANTS = [
     ("swin_block.cu", "main loop alone", [
         ("    if (row >= M) continue;\n#pragma unroll\n    for (int q = 0; q < TQ; ++q) {",
          "    if (row >= M || K > 0) continue;\n#pragma unroll\n    for (int q = 0; q < TQ; ++q) {")]),
+    *(("swin_block.cu", name, subs) for name, subs in LN_VARIANTS),
     ("lsa.cu", "as is", []),
     ("lsa.cu", "staging alone", [
         [("  __syncthreads();\n  if (threadIdx.x >= 32) return;",
@@ -267,22 +295,37 @@ VARIANTS = [
 LSA_CUT = {"staging alone", "no potential updates"}
 
 
-def _options(argv: list[str]) -> tuple[Path, str, set]:
-    """(source directory, label, selected sources) from the command line."""
-    csrc, label, rest = _cuda.CSRC, "", []
+def _options(argv: list[str]) -> tuple[Path, str, Path | None, set]:
+    """(source directory, label, the parent's source directory or None,
+    selected sources) from the command line."""
+    csrc, label, parent, rest = _cuda.CSRC, "", None, []
     args = iter(argv)
     for a in args:
         if a == "--csrc":
             csrc = Path(next(args)).resolve()
         elif a == "--label":
             label = next(args)
+        elif a == "--parent":
+            parent = Path(next(args)).resolve()
         else:
             rest.append(a)
-    return csrc, label, set(rest)
+    return csrc, label, parent, set(rest)
 
 
-CSRC, LABEL, SELECTED = _options(sys.argv[1:])
+CSRC, LABEL, PARENT, SELECTED = _options(sys.argv[1:])
 SUFFIX = f"_{LABEL}" if LABEL else ""
+
+
+def is_ln(src: str, name: str) -> bool:
+    """A variant that the LayerNorm group times: swin_block.cu as it is (or
+    the parent's), or an "ln: ..." one."""
+    return src == "swin_block.cu" and (name in ("as is", "parent") or name.startswith("ln:"))
+
+
+def selected(src: str, name: str) -> bool:
+    """Whether the command line selects a variant: every one without names;
+    a source's all; "ln" the LayerNorm group's."""
+    return not SELECTED or src in SELECTED or ("ln" in SELECTED and is_ln(src, name))
 
 
 def graph_ms(fn, reps: int = 10) -> float:
@@ -307,10 +350,13 @@ def build() -> list:
     """Compile every variant; returns [(source, name, library)]."""
     out = OUT_ROOT / f"kernel_variants{SUFFIX}"
     out.mkdir(parents=True, exist_ok=True)
-    csrc = CSRC
     jobs = []
-    for i, (src, name, subs) in enumerate(VARIANTS):
-        if SELECTED and src not in SELECTED:
+    # with --parent, each source as it is in the parent's directory too
+    entries = [(src, name, subs, CSRC) for src, name, subs in VARIANTS]
+    if PARENT:
+        entries += [(src, "parent", [], PARENT) for src, name, _ in VARIANTS if name == "as is"]
+    for i, (src, name, subs, csrc) in enumerate(entries):
+        if not selected(src, name):
             continue
         text = (csrc / src).read_text()
         if subs and isinstance(subs[0], list):   # one form a design: the first that fits
@@ -344,6 +390,10 @@ def build() -> list:
                 getattr(lib, fn).argtypes = _cuda._SIGNATURES[fn]
                 getattr(lib, fn).restype = ctypes.c_int
             continue
+        if src == "swin_block.cu":   # the LayerNorm group calls the C entries
+            for fn in ("grit_ln_rows", "grit_ln_merge"):
+                getattr(lib, fn).argtypes = _cuda._SIGNATURES[fn]
+                getattr(lib, fn).restype = ctypes.c_int
         n_ptr = 4 if src in ("gemm_sm90.cu", "swin_block.cu") else 3
         lib.variant_entry.argtypes = ([ctypes.c_void_p] * n_ptr
                                       + [ctypes.c_int] * (3 if n_ptr == 4 else 7)
@@ -526,6 +576,57 @@ def lsa_variants(built: list, totals: dict, close: dict) -> None:
                 torch.cuda.synchronize()
 
 
+def ln_variants(built: list, totals: dict, close: dict, parent_bits: dict) -> None:
+    """The LayerNorm group: each variant of ln_rows_kernel and
+    ln_merge_kernel through the C entries at each shape of
+    chip_smoke.phase_ln_kernels, by graph replay beside F.layer_norm, its
+    outputs checked within chip_smoke.TOL of the plain version's
+    (``close``) and, with --parent, compared bit for bit with the parent's
+    (``parent_bits``); ``totals`` also holds each run's sums over its
+    launches."""
+    import chip_smoke
+
+    libs = [(name, lib) for src, name, lib in built if is_ln(src, name)]
+    if not libs:
+        return
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for run, dt, batch, stages, hw in chip_smoke.LN_RUNS:
+        dn = "bf16" if dt == torch.bfloat16 else "fp32"
+        tol = chip_smoke.TOL[dt]
+        for case in chip_smoke.ln_cases(run, batch, stages, hw):
+            label, kind, calls = case[:3]
+            kernel = "ln_merge_kernel" if kind == "merge" else "ln_rows_kernel"
+            t = chip_smoke.ln_case_inputs(case, dt, g)
+            ref = t["plain"]().float()
+            checked, outs = {"F.layer_norm": t["library"]}, {}
+            for name, lib in libs:
+                key = f"ln {run} {dn} {label}: {name}"
+                try:
+                    call = t["launch"](lib)
+                    t["out"].fill_(float("nan"))
+                    call()
+                    close[key] = ((t["out"].float() - ref).abs().max() / ref.abs().max()).item()
+                    if not close[key] <= tol:
+                        raise RuntimeError(f"{close[key]:.3e} of the plain version's max apart")
+                    checked[name], outs[name] = call, t["out"].clone()
+                except RuntimeError as exc:   # a variant the card refuses is reported
+                    print(f"{key}: failed: {exc}", flush=True)
+                    torch.cuda.synchronize()
+            if "parent" in outs:   # whether each variant's outputs are the parent's bits
+                for name, o in outs.items():
+                    parent_bits[f"ln {run} {dn} {label}: {name}"] = torch.equal(o, outs["parent"])
+            # three rounds, each timing every variant in turn: the median of each
+            times = {name: [] for name in checked}
+            for _ in range(3):
+                for name, call in checked.items():
+                    times[name].append(graph_ms(call))
+            for name, ms in times.items():
+                totals[f"ln {run} {dn} {label}: {name}"] = statistics.median(ms)
+                total = f"{kernel} {run} {dn}, summed over the run: {name}"
+                totals[total] = totals.get(total, 0.0) + calls * statistics.median(ms)
+            del t, ref, checked, outs
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("kernel_variants: FAIL: needs a CUDA device", file=sys.stderr)
@@ -645,7 +746,8 @@ def main() -> None:
                 key = f"win_attn_bwd_f32: {name.replace('backward: ', '')}"
                 totals[key] = totals.get(key, 0.0) + graph_ms(call) * (depth // 2)
     for c, heads, (hp, wp), depth in DET_STAGES:
-        if not any(src == "swin_block.cu" for src, _, _ in built):
+        if not any(src == "swin_block.cu" and not name.startswith("ln:")
+                   for src, name, _ in built) or SELECTED == {"ln"}:
             break
         rows = DET_BATCH * hp * wp
         a = torch.randn(rows, c, generator=g, device="cuda")
@@ -656,7 +758,7 @@ def main() -> None:
             out = torch.empty(rows, n, device="cuda", dtype=f32)
             first = None
             for src, name, lib in built:
-                if src != "swin_block.cu":
+                if src != "swin_block.cu" or name.startswith("ln:"):
                     continue
 
                 def call(lib=lib):
@@ -678,20 +780,27 @@ def main() -> None:
     decode_tail_variants(built, totals, close)
     msda_variants(built, totals, close)
     lsa_variants(built, totals, close)
+    parent_bits: dict[str, bool] = {}   # an LN variant's outputs equal to the parent's
+    ln_variants(built, totals, close, parent_bits)
     for key, ms in totals.items():
         per = (f"b{DET_BATCH} 832x1344 detector step"
                if key.startswith(("gemm_f32", "win_attn_f32", "win_attn_bwd_f32"))
-               else "call" if key.startswith(("decode_tail", "K3", "K6", "grit_lsa"))
+               else "call" if key.startswith(("decode_tail", "K3", "K6", "grit_lsa", "ln "))
+               else "run" if key.startswith(("ln_rows_kernel", "ln_merge_kernel"))
                else f"b{BATCH} forward")
         bits = f", bit-equal to the first: {same[key]}" if key in same else ""
         if key in close:
             bits = (f", {close[key]} assignments differ from the plain version's"
-                    if key.startswith("grit_lsa") else f", {close[key]:.2e} of the first's max from it")
-        print(f"{key:<45} {ms:.3f} ms a {per}{bits}  [{card}]")
+                    if key.startswith("grit_lsa") else
+                    f", {close[key]:.2e} of the plain version's max from it" if key.startswith("ln ")
+                    else f", {close[key]:.2e} of the first's max from it")
+        if key in parent_bits:
+            bits += f", the parent's bits: {parent_bits[key]}"
+        print(f"{key:<45} {ms:.4f} ms a {per}{bits}  [{card}]")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", f"kernel_variants{SUFFIX}.json"), "w") as f:
         json.dump({"card": card, "csrc": str(CSRC), "ms_per_run": totals, "bit_equal_to_first": same,
-                   "max_rel_to_first": close}, f, indent=1)
+                   "max_rel_to_first": close, "ln_parent_bits": parent_bits}, f, indent=1)
 
 
 if __name__ == "__main__":
