@@ -1,0 +1,4 @@
+"""1 - the union of device intervals over the span of the profiled stretch
+of training steps."""
+
+from gritbench.readers import idle_share as read  # noqa: F401
