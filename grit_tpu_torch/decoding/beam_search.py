@@ -30,6 +30,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from grit_tpu_torch.utils.misc import trace_annotation
+
 NEG_INF = float("-inf")
 
 
@@ -76,79 +78,82 @@ def beam_search(decode_step: Callable, init_cache, vis_inputs, batch_size: int,
     decode_step per image ([B, ...]), which folds the beams itself
     (``vis_fold``), as grit_tpu's ``tile_vis=False``.
     """
-    b, k = batch_size, beam_size
-    dev = next(_leaves(init_cache)).device
-    seq_logprob = torch.full((b, k), NEG_INF, device=dev)
-    seq_logprob[:, 0] = 0.0
-    seq_mask = torch.ones((b, k), device=dev)
-    prev_words = torch.full((b, k), bos_idx, dtype=torch.long, device=dev)
-    cache = init_cache
-    base = (torch.arange(b, device=dev) * k)[:, None]
-    words, parents, wlogp, margins, all_logp = [], [], [], [], []
+    with trace_annotation("grit.beam_search"):
+        b, k = batch_size, beam_size
+        dev = next(_leaves(init_cache)).device
+        seq_logprob = torch.full((b, k), NEG_INF, device=dev)
+        seq_logprob[:, 0] = 0.0
+        seq_mask = torch.ones((b, k), device=dev)
+        prev_words = torch.full((b, k), bos_idx, dtype=torch.long, device=dev)
+        cache = init_cache
+        base = (torch.arange(b, device=dev) * k)[:, None]
+        words, parents, wlogp, margins, all_logp = [], [], [], [], []
 
-    for t in range(max_len):
-        alive = (seq_mask > 0) & (prev_words != eos_idx)
-        if not return_all_probs and not bool((alive | (seq_logprob <= -999.0)).any()):
-            break   # all beams frozen: the remaining steps change nothing
-        word_logprob, cache = decode_step(prev_words.reshape(b * k, 1), t, vis_inputs, cache)
-        v = word_logprob.shape[-1]
-        word_logprob = word_logprob.reshape(b, k, v)
-        if t > 0:
-            seq_mask = seq_mask * (prev_words != eos_idx).float()
-        word_logprob_m = word_logprob * seq_mask[..., None]
-        candidate = seq_logprob[..., None] + word_logprob_m
-        frozen = torch.full_like(candidate, -999.0)
-        frozen[..., 0] = seq_logprob
-        candidate = torch.where(seq_mask[..., None] > 0, candidate, frozen)
+        for t in range(max_len):
+            alive = (seq_mask > 0) & (prev_words != eos_idx)
+            if not return_all_probs and not bool((alive | (seq_logprob <= -999.0)).any()):
+                break   # all beams frozen: the remaining steps change nothing
+            word_logprob, cache = decode_step(prev_words.reshape(b * k, 1), t, vis_inputs, cache)
+            v = word_logprob.shape[-1]
+            word_logprob = word_logprob.reshape(b, k, v)
+            if t > 0:
+                seq_mask = seq_mask * (prev_words != eos_idx).float()
+            word_logprob_m = word_logprob * seq_mask[..., None]
+            candidate = seq_logprob[..., None] + word_logprob_m
+            frozen = torch.full_like(candidate, -999.0)
+            frozen[..., 0] = seq_logprob
+            candidate = torch.where(seq_mask[..., None] > 0, candidate, frozen)
 
-        vals, idx = torch.sort(candidate.reshape(b, k * v), dim=1, descending=True,
-                               stable=True)
-        sel_beam, sel_words = idx[:, :k] // v, idx[:, :k] % v
-        if return_margins:
-            margins.append((vals[:, :k] - vals[:, 1:k + 1]).min(1).values)
-        flat = (base + sel_beam).reshape(-1)
-        cache = _map_tree(lambda x: x.index_select(0, flat), cache)
-        seq_mask = torch.gather(seq_mask, 1, sel_beam)
-        this_wlogp = torch.gather(word_logprob_m.reshape(b, k * v), 1, idx[:, :k])
-        seq_logprob = vals[:, :k]
-        prev_words = sel_words
-        words.append(sel_words)
-        parents.append(sel_beam)
-        wlogp.append(this_wlogp)
+            with trace_annotation("grit.beam_sort"):
+                vals, idx = torch.sort(candidate.reshape(b, k * v), dim=1, descending=True,
+                                       stable=True)
+                sel_beam, sel_words = idx[:, :k] // v, idx[:, :k] % v
+            if return_margins:
+                margins.append((vals[:, :k] - vals[:, 1:k + 1]).min(1).values)
+            flat = (base + sel_beam).reshape(-1)
+            with trace_annotation("grit.cache_reorder"):
+                cache = _map_tree(lambda x: x.index_select(0, flat), cache)
+            seq_mask = torch.gather(seq_mask, 1, sel_beam)
+            this_wlogp = torch.gather(word_logprob_m.reshape(b, k * v), 1, idx[:, :k])
+            seq_logprob = vals[:, :k]
+            prev_words = sel_words
+            words.append(sel_words)
+            parents.append(sel_beam)
+            wlogp.append(this_wlogp)
+            if return_all_probs:
+                all_logp.append(torch.gather(word_logprob, 1,
+                                             sel_beam[..., None].expand(-1, -1, v)))
+
+        # steps skipped by the early exit record word 0, log-prob 0, identity parents
+        ident = torch.arange(k, device=dev)[None].expand(b, k)
+        for _ in range(max_len - len(words)):
+            words.append(torch.zeros((b, k), dtype=torch.long, device=dev))
+            parents.append(ident)
+            wlogp.append(torch.zeros((b, k), device=dev))
+            if return_margins:
+                margins.append(torch.full((b,), float("inf"), device=dev))
+
+        beam_idx = ident
+        seq_rev, lp_rev = [], []
+        for t in reversed(range(max_len)):
+            seq_rev.append(torch.gather(words[t], 1, beam_idx))
+            lp_rev.append(torch.gather(wlogp[t], 1, beam_idx))
+            beam_idx = torch.gather(parents[t], 1, beam_idx)
+        sequences = torch.stack(seq_rev[::-1], 2)   # [B, K, T]
+        log_probs = torch.stack(lp_rev[::-1], 2)
+
+        order = torch.sort(-seq_logprob, dim=1, stable=True).indices
+        scores = torch.gather(seq_logprob, 1, order)[:, :out_size]
+        sel = order[..., None].expand(-1, -1, max_len)
+        sequences = torch.gather(sequences, 1, sel)[:, :out_size]
+        log_probs = torch.gather(log_probs, 1, sel)[:, :out_size]
+        all_log_probs = None
         if return_all_probs:
-            all_logp.append(torch.gather(word_logprob, 1,
-                                         sel_beam[..., None].expand(-1, -1, v)))
-
-    # steps skipped by the early exit record word 0, log-prob 0, identity parents
-    ident = torch.arange(k, device=dev)[None].expand(b, k)
-    for _ in range(max_len - len(words)):
-        words.append(torch.zeros((b, k), dtype=torch.long, device=dev))
-        parents.append(ident)
-        wlogp.append(torch.zeros((b, k), device=dev))
-        if return_margins:
-            margins.append(torch.full((b,), float("inf"), device=dev))
-
-    beam_idx = ident
-    seq_rev, lp_rev = [], []
-    for t in reversed(range(max_len)):
-        seq_rev.append(torch.gather(words[t], 1, beam_idx))
-        lp_rev.append(torch.gather(wlogp[t], 1, beam_idx))
-        beam_idx = torch.gather(parents[t], 1, beam_idx)
-    sequences = torch.stack(seq_rev[::-1], 2)   # [B, K, T]
-    log_probs = torch.stack(lp_rev[::-1], 2)
-
-    order = torch.sort(-seq_logprob, dim=1, stable=True).indices
-    scores = torch.gather(seq_logprob, 1, order)[:, :out_size]
-    sel = order[..., None].expand(-1, -1, max_len)
-    sequences = torch.gather(sequences, 1, sel)[:, :out_size]
-    log_probs = torch.gather(log_probs, 1, sel)[:, :out_size]
-    all_log_probs = None
-    if return_all_probs:
-        alp = torch.stack(all_logp, 2)                            # [B, K, T, V]
-        all_log_probs = torch.gather(
-            alp, 1, order[..., None, None].expand(-1, -1, *alp.shape[2:]))[:, :out_size]
-    return BeamResult(sequences, log_probs, scores, all_log_probs,
-                      torch.stack(margins, 1) if return_margins else None)
+            alp = torch.stack(all_logp, 2)                            # [B, K, T, V]
+            all_log_probs = torch.gather(
+                alp, 1, order[..., None, None].expand(-1, -1, *alp.shape[2:]))[:, :out_size]
+        return BeamResult(sequences, log_probs, scores, all_log_probs,
+                          torch.stack(margins, 1) if return_margins else None)
 
 
 def greedy_search(decode_step: Callable, init_cache, vis_inputs, batch_size: int,

@@ -33,6 +33,7 @@ from grit_tpu_torch.engine.xe import TrainState
 from grit_tpu_torch.models.layers import set_generator
 from grit_tpu_torch.parallel.distributed import world_size
 from grit_tpu_torch.parallel.mesh import global_sum, unwrap
+from grit_tpu_torch.utils.misc import trace_annotation
 from grit_tpu_torch.utils.nested import first_rows, to_device
 
 
@@ -71,17 +72,22 @@ def make_detector_train_step(criterion, *, clip_max_norm: float = 0.1) -> Callab
         set_generator(unwrap(model), state.generator)
         apply_detector_lr(optimizer, lr_scale, sp_lr_scale)
         optimizer.zero_grad(set_to_none=True)
-        losses = criterion(model(images, training=True), targets, assigns=assigns)
-        total = criterion.total_loss(losses)
-        (total * world_size()).backward()     # DDP averages over the ranks
-        params = [p for g in optimizer.param_groups for p in g["params"]]
-        for p in params:
-            # a parameter off the path (``level_embed``) still decays, as with
-            # the JAX package's structurally complete gradients
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        gnorm = clip_grad_norm(params, clip_max_norm)
-        optimizer.step()
+        with trace_annotation("grit.forward"):
+            outputs = model(images, training=True)
+        with trace_annotation("grit.criterion"):
+            losses = criterion(outputs, targets, assigns=assigns)
+            total = criterion.total_loss(losses)
+        with trace_annotation("grit.backward"):
+            (total * world_size()).backward()     # DDP averages over the ranks
+        with trace_annotation("grit.optimizer"):
+            params = [p for g in optimizer.param_groups for p in g["params"]]
+            for p in params:
+                # a parameter off the path (``level_embed``) still decays, as
+                # with the JAX package's structurally complete gradients
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            gnorm = clip_grad_norm(params, clip_max_norm)
+            optimizer.step()
         state.global_steps += 1
         metrics = {"loss": total.detach(), "grad_norm": gnorm}
         metrics.update({k: v.detach() for k, v in losses.items() if not k[-1].isdigit()})

@@ -32,6 +32,7 @@ import torch
 from grit_tpu_torch.engine.optim import cosine_lr_schedule
 from grit_tpu_torch.parallel.distributed import world_size
 from grit_tpu_torch.parallel.mesh import global_sum, unwrap
+from grit_tpu_torch.utils.misc import trace_annotation
 from grit_tpu_torch.utils.nested import first_rows, to_device
 
 
@@ -85,12 +86,16 @@ def make_xe_train_step(*, pad_idx: int, sched_cfg: dict,
         if backbone_lr is not None:
             state.optimizer.param_groups[1]["lr"] = backbone_lr
         state.optimizer.zero_grad(set_to_none=True)
-        total, count = nll_sum(model(batch["samples"], batch["captions"]), batch["captions"],
-                               pad_idx)
-        # this rank's share of the global batch's token mean
-        share = total / global_sum(count).clamp(min=1.0)
-        (share * world_size()).backward()    # DDP averages over the ranks
-        state.optimizer.step()
+        with trace_annotation("grit.forward"):
+            log_probs = model(batch["samples"], batch["captions"])
+        with trace_annotation("grit.criterion"):
+            total, count = nll_sum(log_probs, batch["captions"], pad_idx)
+            # this rank's share of the global batch's token mean
+            share = total / global_sum(count).clamp(min=1.0)
+        with trace_annotation("grit.backward"):
+            (share * world_size()).backward()    # DDP averages over the ranks
+        with trace_annotation("grit.optimizer"):
+            state.optimizer.step()
         state.global_steps += 1
         return state, {"loss": share.detach(), "lr": lr}
 

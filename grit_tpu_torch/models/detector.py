@@ -17,6 +17,7 @@ from grit_tpu_torch.models.det_module import DetectionModule
 from grit_tpu_torch.models.layers import Conv2d
 from grit_tpu_torch.models.norm import GroupNorm
 from grit_tpu_torch.models.swin import SwinTransformer
+from grit_tpu_torch.utils.misc import trace_annotation
 from grit_tpu_torch.utils.nested import ImageBatch, device_normalize, downsample_mask
 
 
@@ -34,14 +35,17 @@ class Detector(nn.Module):
         """-> (hs [n_layers+1, B, Lq, C], init_ref, inter_refs, the backbone's
         four maps, their pad masks)."""
         images = device_normalize(images)
-        features = self.backbone(images.images)
-        n_stages = len(self.backbone.depths)
-        patch = self.backbone.patch_size
-        strides = [patch * 2 ** s for s in range(1, n_stages)] + [patch * 2 ** n_stages]
-        masks = [downsample_mask(images.mask, s) for s in strides]
-        srcs = [proj(f.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-                for proj, f in zip(self.input_proj, features)]
-        return (*self.det_module(srcs, masks), features, masks)
+        with trace_annotation("grit.backbone"):
+            features = self.backbone(images.images)
+        with trace_annotation("grit.det_module"):
+            n_stages = len(self.backbone.depths)
+            patch = self.backbone.patch_size
+            strides = [patch * 2 ** s for s in range(1, n_stages)] + [patch * 2 ** n_stages]
+            masks = [downsample_mask(images.mask, s) for s in strides]
+            srcs = [proj(f.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+                    for proj, f in zip(self.input_proj, features)]
+            decoded = self.det_module(srcs, masks)
+        return (*decoded, features, masks)
 
     def forward(self, images: ImageBatch) -> dict:
         hs, _, _, features, masks = self.decode(images)

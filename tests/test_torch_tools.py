@@ -68,14 +68,20 @@ def test_profile_eval_splits_a_caption_batch_and_traces_it(capsys, tmp_path):
     assert "no device events" in capsys.readouterr().out
 
 
-def _event(name, ts, dur, cat="kernel"):
-    return {"ph": "X", "cat": cat, "name": name, "pid": 0, "tid": 7, "ts": ts, "dur": dur}
+def _event(name, ts, dur, cat="kernel", tid=7, corr=None):
+    e = {"ph": "X", "cat": cat, "name": name, "pid": 0, "tid": tid, "ts": ts, "dur": dur}
+    if corr is not None:
+        e["args"] = {"correlation": corr}
+    return e
 
 
 def test_agg_trace_sums_device_events_of_a_hand_made_trace(tmp_path, capsys):
     """Device time by name and by class, launch counts, busy time as the union
-    of overlapping device intervals, the idle share over the trace's span
-    (host events included), in a .json.gz as well."""
+    of overlapping device intervals, the idle share over the window from the
+    first device event to the last (host set-up before it left out), in a
+    .json.gz as well; with ``grit.*`` spans the window is theirs, and
+    ``--by-span`` sums the kernels launched inside each span, on any thread,
+    nested spans counting toward their parents."""
     events = [
         _event("aten::linear", 0.0, 1000.0, cat="cpu_op"),
         _event("void (anonymous namespace)::gemm_bf16_sm90_kernel<0, false>(...)", 100.0, 200.0),
@@ -97,15 +103,40 @@ def test_agg_trace_sums_device_events_of_a_hand_made_trace(tmp_path, capsys):
         assert res["device"]
         gemm = res["by_name"]["void (anonymous namespace)::gemm_bf16_sm90_kernel<0, false>(...)"]
         assert gemm == [pytest.approx(0.3), 2]
-        # 100-350 (two overlapping launches), 400-450, 500-600, 700-800: 0.5 ms of 1 ms
-        assert res["busy_ms"] == pytest.approx(0.5) and res["span_ms"] == pytest.approx(1.0)
-        assert res["idle_share"] == pytest.approx(0.5)
+        # 100-350 (two overlapping launches), 400-450, 500-600, 700-800: 0.5 ms
+        # of the 0.7 ms from the first device event to the last
+        assert res["busy_ms"] == pytest.approx(0.5) and res["span_ms"] == pytest.approx(0.7)
+        assert res["idle_share"] == pytest.approx(2 / 7)
         assert res["by_class"] == {"gemm (hand-written)": pytest.approx(0.3),
                                    "matcher (hand-written)": pytest.approx(0.05),
                                    "cuBLAS / cuDNN products": pytest.approx(0.1),
                                    "memcpy / memset": pytest.approx(0.1)}
+        assert res["by_span"] == {}
     assert set(agg_trace.main([str(tmp_path)])) == {str(plain), str(zipped)}
-    assert "idle share 0.500" in capsys.readouterr().out
+    assert "idle share 0.286" in capsys.readouterr().out
+
+    # the same device events under the port's spans: the forward (the
+    # backbone nested in it) 50-460, the backward 480-900 launching from
+    # another thread; the benchmark's own range is no span
+    launches = [_event("cudaLaunchKernel", ts, 2, cat="cuda_runtime", tid=tid, corr=c)
+                for ts, tid, c in ((90, 1, 1), (240, 1, 2), (390, 1, 3), (490, 2, 4))]
+    kernels = [dict(e, args={"correlation": c}) for e, c in zip(events[1:5], (1, 2, 3, 4))]
+    spanned = [events[0], *kernels, events[5], *launches,
+               _event("grit.forward", 50.0, 410.0, cat="user_annotation", tid=1),
+               _event("grit.backbone", 60.0, 200.0, cat="user_annotation", tid=1),
+               _event("grit.backward", 480.0, 420.0, cat="user_annotation", tid=1),
+               _event("gritbench.train_step", 0.0, 1000.0, cat="user_annotation", tid=1)]
+    path = tmp_path / "spans" / "t.json"
+    path.parent.mkdir()
+    path.write_text(json.dumps(spanned))
+    res = agg_trace.main([str(path), "--by-span"])[str(path)]
+    # the window 50-900: busy 0.5 ms of 0.85
+    assert res["span_ms"] == pytest.approx(0.85) and res["idle_share"] == pytest.approx(0.35 / 0.85)
+    assert res["by_span"] == {"grit.forward": pytest.approx(0.35),
+                              "grit.backbone": pytest.approx(0.3),
+                              "grit.backward": pytest.approx(0.1)}
+    out = capsys.readouterr().out
+    assert "by grit.* span" in out and "grit.backbone" in out and "gritbench" not in out
 
 
 def test_bench_epoch_drives_the_trainer_for_one_xe_and_one_scst_epoch(capsys, tmp_path):
