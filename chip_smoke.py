@@ -1835,6 +1835,143 @@ def phase_ln_kernels(card: str) -> None:
     RESULTS["ln_kernels"] = out
 
 
+# K2's backward at the shapes of the two training cells: the b64 XE step's
+# three trained stages in bf16 and the b4 832x1344 detector step's four in
+# fp32, on the real tokens (a training block's K2 runs on the unpadded rows)
+MLP_BWD_RUNS = (("XE b64", torch.bfloat16, 64, STAGES[1:], HW),
+                ("detector b4", torch.float32, DET_BATCH, DET_STAGES, DET_HW))
+
+
+def phase_mlp_bwd_kernels(card: str) -> None:
+    """K2's backward (``wa._mlp_backward``) at every shape of ``MLP_BWD_RUNS``.
+    Its two passes alone against their plain versions on the card:
+    ``gelu_bwd`` (g, du, the bias gradient) and ``ln_rows_bwd`` (dx, the
+    norm's gradients; with the residual's dy at one shape a run), two calls
+    bit-equal, device ms by graph replay beside the bound (each input read
+    once, each output written once) and the plain version's.  The whole
+    backward against autograd of ``_mlp_recompute`` (the float32 chain it
+    replaces): every gradient within TOL, both timed by graph replay, the
+    kernel launches of one call of each, and the counters of one call
+    (``mlp_bwd``, ``gelu_bwd_*``, ``ln_rows_bwd_*`` one each, no GEMM
+    kernel).  Then the sums over each run's calls (a stage's depth)."""
+    print("[mlp_bwd] K2's backward at the XE b64 and detector b4 training shapes", flush=True)
+    g = torch.Generator(device=DEV).manual_seed(22)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=DEV) * scale
+
+    def check(what, out, ref, dt):
+        err = ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+        if not err <= TOL[dt]:
+            fail(f"{what}: max rel err {err:.3e} > {TOL[dt]:.0e}")
+        return err
+
+    out = {}
+    for run, dt, batch, stages, hw in MLP_BWD_RUNS:
+        dn = "bf16" if dt == torch.bfloat16 else "fp32"
+        es = esize(dt)
+        acc = collections.defaultdict(float)
+        shapes = []
+        for k, (name, c, _, (h, w), _, depth) in enumerate(stages):
+            rows, hid = batch * h * w, 4 * c
+            label = f"{run} {dn} {name} ({rows} x {c})"
+            # the pre-activation of a Swin MLP at init is ~N(0, 1): fc1 on LN'd rows
+            u, dg = rnd(rows, hid).to(dt), rnd(rows, hid, scale=0.02).to(dt)
+            calls = []
+            for _ in range(2):
+                calls.append(wa.gelu_bwd(u.clone(), dg.clone()))
+            ref = wa.gelu_bwd_plain(u, dg)
+            if not all(bits_equal(a, b) for a, b in zip(*calls)):
+                fail(f"gelu_bwd {label}: two calls differ")
+            gelu_err = max(check(f"gelu_bwd {label} {part}", a, r, dt)
+                           for part, a, r in zip(("g", "du", "db"), calls[0], ref))
+            del calls, ref
+            ub, dgb = u.clone(), dg.clone()   # overwritten call after call while timed
+            gelu_ms = graph_ms(lambda: wa.gelu_bwd(ub, dgb))
+            gelu_plain_ms = graph_ms(lambda: wa.gelu_bwd_plain(u, dg), reps=3)
+            gelu_bound = (4 * rows * hid * es + hid * es) / PEAK_BYTES * 1e3
+            del ub, dgb, u, dg
+
+            x = (rnd(rows, c) * 2 + 0.5).to(dt)
+            nw, nb = 1 + rnd(c, scale=0.1), rnd(c, scale=0.1)
+            d_xn, dy = rnd(rows, c, scale=0.02).to(dt), rnd(rows, c, scale=0.02).to(dt)
+            ln_err = 0.0
+            for resid in ((None, dy) if k == 0 else (None,)):
+                first = wa.ln_rows_bwd(x, nw, d_xn, resid)
+                if not all(bits_equal(a, b) for a, b in zip(first, wa.ln_rows_bwd(x, nw, d_xn,
+                                                                                 resid))):
+                    fail(f"ln_rows_bwd {label}: two calls differ")
+                ref = wa.ln_rows_bwd_plain(x, nw, d_xn, resid)
+                ln_err = max(ln_err, *(check(f"ln_rows_bwd {label} {part}", a, r, dt)
+                                       for part, a, r in zip(("dx", "dw", "db"), first, ref)))
+            ln_ms = graph_ms(lambda: wa.ln_rows_bwd(x, nw, d_xn))
+            ln_plain_ms = graph_ms(lambda: wa.ln_rows_bwd_plain(x, nw, d_xn), reps=3)
+            ln_bound = (3 * rows * c * es + 12 * c) / PEAK_BYTES * 1e3
+
+            params = [nw, nb, rnd(hid, c, scale=c ** -0.5).to(dt), rnd(hid, scale=0.02).to(dt),
+                      rnd(c, hid, scale=hid ** -0.5).to(dt), rnd(c, scale=0.02).to(dt)]
+            before = dict(wa.LAUNCHES)
+            new = wa._mlp_backward(dy, x, *params, wa.LN_EPS, False)
+            counted = {key: n - before[key] for key, n in wa.LAUNCHES.items() if n != before[key]}
+            want = {"mlp_bwd": 1, f"gelu_bwd_{wa._dtype_name(dt)}": 1,
+                    f"ln_rows_bwd_{wa._dtype_name(dt)}": 1}
+            if counted != want:
+                fail(f"K2 backward {label}: counters moved by {counted}, want {want}")
+
+            def autograd_chain():
+                leaves = [t.detach().requires_grad_() for t in (x, *params)]
+                return torch.autograd.grad(
+                    wa._mlp_recompute(*leaves, wa.LN_EPS, False), leaves, dy)
+
+            old = autograd_chain()
+            bwd_err = max(check(f"K2 backward {label} d{part}", a, r, dt) for part, a, r in
+                          zip(("x", "norm_w", "norm_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b"),
+                              new, old))
+            del new, old
+            bwd_ms = graph_ms(lambda: wa._mlp_backward(dy, x, *params, wa.LN_EPS, False))
+            chain_ms = graph_ms(autograd_chain, reps=3)
+            launches = graph_launches(lambda: wa._mlp_backward(dy, x, *params, wa.LN_EPS, False))
+            chain_launches = graph_launches(autograd_chain)
+            # the five products (u, dg, both weight gradients, d_xn) over the
+            # peak, or each input and output once over the bandwidth
+            bwd_bound = max(10.0 * rows * c * hid / PEAK_FLOPS[dt],
+                            (3 * rows * c + 4 * c * hid) * es / PEAK_BYTES) * 1e3
+            del x, d_xn, dy, params, first, ref
+            row = {"label": label, "stage": name, "rows": rows, "width": c, "calls": depth,
+                   "gelu_bwd_ms": gelu_ms, "gelu_bwd_bound_ms": gelu_bound,
+                   "gelu_bwd_plain_ms": gelu_plain_ms, "gelu_bwd_max_rel_err": gelu_err,
+                   "ln_rows_bwd_ms": ln_ms, "ln_rows_bwd_bound_ms": ln_bound,
+                   "ln_rows_bwd_plain_ms": ln_plain_ms, "ln_rows_bwd_max_rel_err": ln_err,
+                   "backward_ms": bwd_ms, "backward_bound_ms": bwd_bound,
+                   "autograd_chain_ms": chain_ms, "backward_max_rel_err": bwd_err,
+                   "backward_launches": launches, "autograd_chain_launches": chain_launches}
+            shapes.append(row)
+            for key in ("gelu_bwd_ms", "gelu_bwd_bound_ms", "gelu_bwd_plain_ms", "ln_rows_bwd_ms",
+                        "ln_rows_bwd_bound_ms", "ln_rows_bwd_plain_ms", "backward_ms",
+                        "backward_bound_ms", "autograd_chain_ms", "backward_launches",
+                        "autograd_chain_launches"):
+                acc[key] += depth * row[key]
+            acc["calls"] += depth
+            print(f"[mlp_bwd] {label} x{depth}: gelu_bwd {gelu_ms:.4f} ms (bound {gelu_bound:.4f},"
+                  f" {gelu_bound / gelu_ms:.0%}; plain {gelu_plain_ms:.3f}; err {gelu_err:.1e}), "
+                  f"ln_rows_bwd {ln_ms:.4f} ms (bound {ln_bound:.4f}, {ln_bound / ln_ms:.0%}; "
+                  f"plain {ln_plain_ms:.3f}; err {ln_err:.1e}); backward {bwd_ms:.3f} ms in "
+                  f"{launches} launches (bound {bwd_bound:.3f}) against the autograd chain "
+                  f"{chain_ms:.3f} ms in {chain_launches} (err {bwd_err:.1e}); bit-equal  "
+                  f"[{card}]", flush=True)
+        print(f"[mlp_bwd] {run} {dn}, summed over {acc['calls']:.0f} calls: gelu_bwd "
+              f"{acc['gelu_bwd_ms']:.3f} ms (bound {acc['gelu_bwd_bound_ms']:.3f}, plain "
+              f"{acc['gelu_bwd_plain_ms']:.2f}), ln_rows_bwd {acc['ln_rows_bwd_ms']:.3f} ms "
+              f"(bound {acc['ln_rows_bwd_bound_ms']:.3f}, plain "
+              f"{acc['ln_rows_bwd_plain_ms']:.2f}); "
+              f"backward {acc['backward_ms']:.2f} ms in {acc['backward_launches']:.0f} launches "
+              f"(bound {acc['backward_bound_ms']:.2f}) against the autograd chain "
+              f"{acc['autograd_chain_ms']:.2f} ms in {acc['autograd_chain_launches']:.0f}  "
+              f"[{card}]", flush=True)
+        out[f"{run} {dn}"] = {**acc, "shapes": shapes}
+    RESULTS["mlp_bwd"] = out
+
+
 def phase_dense_attention_kernel(batch: int) -> None:
     """K8 (the window-attention core on separate q, k, v and a dense bias)
     against its plain version, forward and backward (dq, dk, dv and the bias
@@ -2341,6 +2478,13 @@ def train_launches() -> dict:
             "K12": adam_ops.LAUNCHES["adam"], **core_launches()}
 
 
+def mlp_bwd_launches(dtype) -> dict:
+    """K2's backward calls and the launches of its two passes in ``dtype``."""
+    dn = wa._dtype_name(dtype)
+    return {"K2 bwd": wa.LAUNCHES["mlp_bwd"], "gelu_bwd": wa.LAUNCHES[f"gelu_bwd_{dn}"],
+            "ln_rows_bwd": wa.LAUNCHES[f"ln_rows_bwd_{dn}"]}
+
+
 def train_want(stages=None) -> dict:
     """What one bf16 XE step of ``training_setup`` launches (``stages``: its
     Swin's, default Swin-B's)."""
@@ -2370,6 +2514,11 @@ def phase_train(card: str) -> None:
           f"kernels {f32_launches()} (want none)")
     if counts != want or any(f32_launches().values()):
         fail(f"training kernel launch counts {counts} != {want}, fp32 {f32_launches()}")
+    # K2's backward once a trained block, each of its passes once a call
+    bwd = mlp_bwd_launches(torch.bfloat16)
+    print(f"[train] K2's backward in one step: {bwd} (want {want['K4']} each)")
+    if set(bwd.values()) != {want["K4"]}:
+        fail(f"training: K2's backward launches {bwd}, want {want['K4']} each")
     for k, n in counts.items():
         RESULTS[k]["launches_train"] = n
     times = []
@@ -3286,15 +3435,18 @@ def phase_detector(card: str, dtype, backbone: str | None = None, full: bool = T
                  "gemm_bf16": bf * gemms, "win_attn": bf * blocks, "win_attn_bwd": bf * blocks,
                  "gemm_f32": (1 - bf) * gemms, "win_attn_f32": (1 - bf) * blocks,
                  "win_attn_bwd_f32": (1 - bf) * blocks,
-                 "lsa": 1}   # the matcher: every level and image in one grit_lsa launch
+                 "lsa": 1,   # the matcher: every level and image in one grit_lsa launch
+                 **dict.fromkeys(("K2 bwd", "gelu_bwd", "ln_rows_bwd"), blocks)}
     want_eval = {"K1": blocks, "K2": blocks, "K3": DET_LAYERS, "K4": 0, "K5": 0, "K6": 0,
                  "K10a": len(det_stages), "K10b": 1, "K12": 0,
                  "gemm_bf16": bf * gemms, "win_attn": bf * blocks, "win_attn_bwd": 0,
                  "gemm_f32": (1 - bf) * gemms, "win_attn_f32": (1 - bf) * blocks,
-                 "win_attn_bwd_f32": 0, "lsa": 0}
+                 "win_attn_bwd_f32": 0, "lsa": 0,
+                 **dict.fromkeys(("K2 bwd", "gelu_bwd", "ln_rows_bwd"), 0)}
 
     def launches() -> dict:
-        return {**train_launches(), **f32_launches(), "lsa": lsa_ops.LAUNCHES["lsa"]}
+        return {**train_launches(), **f32_launches(), "lsa": lsa_ops.LAUNCHES["lsa"],
+                **mlp_bwd_launches(dtype)}
 
     def train_batch(offset: int) -> dict:
         return {"samples": detector_images(DET_BATCH, offset),
@@ -5069,6 +5221,7 @@ def main() -> None:
         ("merge kernels online", lambda: phase_merge_kernels(
             paths=(("online", ONLINE_BATCH, ONLINE_STAGES, ONLINE_BUCKET),), counted=False)),
         ("ln kernels", lambda: phase_ln_kernels(card)),
+        ("mlp bwd kernels", lambda: phase_mlp_bwd_kernels(card)),
         ("dense attention kernel", lambda: phase_dense_attention_kernel(args.batch)),
         ("decode kernel", phase_decode_kernel),
         ("tp kernels", phase_tp_kernels),

@@ -24,6 +24,8 @@
 // K2 is three launches on rows [R, C]: ln_rows (row mode), gemm (EPI_GELU,
 // exact-erf GELU; the TPU's rational/A&S approximations existed only because
 // Mosaic has no erf), gemm (EPI_RESID).  fused_block_mlp_step is K1 then K2.
+// K2's backward is torch's products around two memory passes of this file,
+// gelu_bwd_kernel and ln_rows_bwd_kernel (design notes there).
 //
 // K4 replaces ::_block_kernel (through fused_block_attention, forward with
 // save_attn): on the LayerNorm'd, zero-padded map it is K1's launches 2-4
@@ -558,6 +560,296 @@ int launch_ln_merge(const void* x, const void* g, const void* b, void* out, int 
   });
 }
 
+// ---------------------------------------------------------------------------
+// K2's backward (ops/window_attention.py::_mlp_backward).  The TPU's
+// _mlp_bwd is jax.vjp of the plain recompute, which XLA fuses into a few
+// passes; here the five products stay on torch's matmul and the element-wise
+// work between them is two memory passes, each bound by its bytes:
+//   gelu_bwd_kernel over the hidden rows [R, H]: reads the pre-activation u
+//   and dg = dy fc2_w, writes g = gelu(u) over u and du = dg gelu'(u) over
+//   dg (f32 arithmetic, each rounded once to the storage type), and its
+//   block's f32 column sums of the rounded du (fc1's bias gradient).  Four
+//   storage values an element, 16-byte accesses: a warp spans 32 chunks of a
+//   row, a block's 8 warps walk 8 rows each.
+//   ln_rows_bwd_kernel over the rows [R, C]: a row held in registers as
+//   ln_rows_kernel holds it (G lanes, K 16-byte chunks a lane); recomputes
+//   the row's mean and rsqrt(var + eps) with var = E[x^2] - mu^2, reads d_xn
+//   (and dy where the residual was added), writes dx = rsqrt * (d_xn w -
+//   mean(d_xn w) - xhat mean(d_xn w xhat)) (+ dy) rounded once, and its
+//   block's f32 column sums of d_xn xhat and d_xn (the norm's scale and bias
+//   gradients).  A lane group walks LNB_ROWS rows, so a block's partial row
+//   covers LNB_ROWS row groups.  Every MLP width of the Swin presets (C 64
+//   .. 1536) takes K <= 2 chunks a lane, without spills; the K >= 3
+//   instances (past 4096 bf16 / 2048 fp32 values) spill registers.
+// col_sums_kernel then sums the blocks' partial rows in a fixed order: no
+// atomics, the same bits from call to call.
+// ---------------------------------------------------------------------------
+constexpr int GB_CHUNKS = 32;  // 16-byte chunks of a row a block spans (a warp's lanes)
+constexpr int GB_WARPS = 8;    // a block's warps, each on its own rows
+constexpr int GB_ROWS = 8;     // rows a warp walks, loaded all at once
+constexpr int GB_TILE_ROWS = GB_WARPS * GB_ROWS;
+constexpr int LNB_ROWS = 8;    // rows a lane group of ln_rows_bwd_kernel walks
+constexpr int CS_COLS = 32, CS_SPLIT = 16;  // col_sums_kernel: columns x row ranges a block
+
+template <typename T>
+__global__ void __launch_bounds__(GB_CHUNKS * GB_WARPS) gelu_bwd_kernel(
+    T* u, T* dg, float* __restrict__ part, int rows, int H) {
+  constexpr int V = Chunk<T>::V;
+  __shared__ float red[GB_WARPS][GB_CHUNKS * V];
+  const int n = H / V, tx = threadIdx.x % GB_CHUNKS, ty = threadIdx.x / GB_CHUNKS;
+  const int j = blockIdx.y * GB_CHUNKS + tx;
+  const int r0 = blockIdx.x * GB_TILE_ROWS + ty;
+  uint4* u4 = reinterpret_cast<uint4*>(u);
+  uint4* d4 = reinterpret_cast<uint4*>(dg);
+  uint4 ru[GB_ROWS], rd[GB_ROWS];
+#pragma unroll
+  for (int i = 0; i < GB_ROWS; ++i) {
+    const int r = r0 + i * GB_WARPS;
+    const bool live = j < n && r < rows;
+    ru[i] = live ? u4[(size_t)r * n + j] : make_uint4(0u, 0u, 0u, 0u);
+    rd[i] = live ? d4[(size_t)r * n + j] : make_uint4(0u, 0u, 0u, 0u);
+  }
+  float acc[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < GB_ROWS; ++i) {
+    const int r = r0 + i * GB_WARPS;
+    if (j >= n || r >= rows) continue;
+    float uf[V], df[V], g[V], du[V];
+    Chunk<T>::to_f(ru[i], uf);
+    Chunk<T>::to_f(rd[i], df);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float e = erff(uf[v] * 0.7071067811865476f);
+      g[v] = uf[v] * 0.5f * (1.0f + e);
+      du[v] = df[v] * (0.5f * (1.0f + e) +
+                       uf[v] * 0.3989422804014327f * expf(-0.5f * uf[v] * uf[v]));
+    }
+    const uint4 dq = Chunk<T>::from_f(du);
+    u4[(size_t)r * n + j] = Chunk<T>::from_f(g);
+    d4[(size_t)r * n + j] = dq;
+    Chunk<T>::to_f(dq, du);  // the bias gradient sums du as stored
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] += du[v];
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) red[ty][tx * V + v] = acc[v];
+  __syncthreads();
+  const int c = blockIdx.y * GB_CHUNKS * V + threadIdx.x;
+  if (threadIdx.x < GB_CHUNKS * V && c < H) {
+    float s = 0.0f;
+#pragma unroll
+    for (int w = 0; w < GB_WARPS; ++w) s += red[w][threadIdx.x];
+    part[(size_t)blockIdx.x * H + c] = s;
+  }
+}
+
+// (a, b) summed over the G lanes of a row: G a power of two up to a warp
+// (xor shuffles: every lane ends with the same bits), or whole warps up to
+// LN_MAX_LANES (through red).  Called by every thread of the block.
+__device__ __forceinline__ float2 row_sum2(float2 v, int G, float2* red) {
+  if (G <= 32) {
+    for (int o = G / 2; o > 0; o >>= 1) {
+      v.x += __shfl_xor_sync(0xffffffffu, v.x, o);
+      v.y += __shfl_xor_sync(0xffffffffu, v.y, o);
+    }
+    return v;
+  }
+  v = make_float2(warp_sum(v.x), warp_sum(v.y));
+  __syncthreads();  // the previous sum's reads of red are done
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  const int first = threadIdx.x / G * (G / 32);
+  float2 s = make_float2(0.0f, 0.0f);
+  for (int i = 0; i < G / 32; ++i) {
+    s.x += red[first + i].x;
+    s.y += red[first + i].y;
+  }
+  return s;
+}
+
+// Rows of block b: row group (b LNB_ROWS + i) of `slots` neighbouring rows
+// at step i, one a lane group.  part [gridDim.x, 2C]: the block's sums of
+// d_xn xhat (columns 0 .. C-1) and of d_xn (C .. 2C-1).  dy may be null.
+template <typename T, int K>
+__global__ void __launch_bounds__(LN_BLOCK, 2) ln_rows_bwd_kernel(
+    const T* __restrict__ x, const float* __restrict__ w, const T* __restrict__ dxn,
+    const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ part, int rows, int C,
+    int G, float eps) {
+  constexpr int V = Chunk<T>::V;
+  extern __shared__ float lnb_sums[];  // [slots, 2C]
+  __shared__ float2 red[LN_BLOCK / 32];
+  const int n = C / V, lane = threadIdx.x % G, slot = threadIdx.x / G, slots = blockDim.x / G;
+  const uint4* x4 = reinterpret_cast<const uint4*>(x);
+  const uint4* g4 = reinterpret_cast<const uint4*>(dxn);
+  const uint4* y4 = reinterpret_cast<const uint4*>(dy);
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  float wv[K][V], pw[K][V], pb[K][V];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = lane + k * G;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      wv[k][v] = j < n ? __ldg(w + j * V + v) : 0.0f;
+      pw[k][v] = pb[k][v] = 0.0f;
+    }
+  }
+  for (int i = 0; i < LNB_ROWS; ++i) {
+    const int r = (blockIdx.x * LNB_ROWS + i) * slots + slot;
+    const bool live = r < rows;
+    uint4 rx[K], rg[K], ry[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = lane + k * G;
+      const bool ok = live && j < n;
+      const size_t at = (size_t)r * n + j;
+      rx[k] = ok ? __ldg(x4 + at) : zero;
+      rg[k] = ok ? __ldg(g4 + at) : zero;
+      ry[k] = ok && dy ? __ldg(y4 + at) : zero;
+    }
+    float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float xf[V];
+      Chunk<T>::to_f(rx[k], xf);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        s1 += xf[v];
+        s2 += xf[v] * xf[v];
+      }
+    }
+    const float2 st = row_sum2(make_float2(s1, s2), G, red);
+    const float mu = st.x / C;
+    const float rs = rsqrtf(st.y / C - mu * mu + eps);
+    float a1 = 0.0f, a2 = 0.0f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float xf[V], gf[V];
+      Chunk<T>::to_f(rx[k], xf);
+      Chunk<T>::to_f(rg[k], gf);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float xh = (xf[v] - mu) * rs, gw = gf[v] * wv[k][v];
+        a1 += gw;
+        a2 += gw * xh;
+        pw[k][v] += gf[v] * xh;
+        pb[k][v] += gf[v];
+      }
+    }
+    const float2 sa = row_sum2(make_float2(a1, a2), G, red);
+    const float m1 = sa.x / C, m2 = sa.y / C;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = lane + k * G;
+      if (!live || j >= n) continue;
+      float xf[V], gf[V], yf[V];
+      Chunk<T>::to_f(rx[k], xf);
+      Chunk<T>::to_f(rg[k], gf);
+      Chunk<T>::to_f(ry[k], yf);
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        xf[v] = rs * (gf[v] * wv[k][v] - m1 - (xf[v] - mu) * rs * m2) + yf[v];
+      reinterpret_cast<uint4*>(dx)[(size_t)r * n + j] = Chunk<T>::from_f(xf);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = lane + k * G;
+    if (j >= n) continue;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      lnb_sums[slot * 2 * C + j * V + v] = pw[k][v];
+      lnb_sums[slot * 2 * C + C + j * V + v] = pb[k][v];
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < 2 * C; c += blockDim.x) {
+    float s = 0.0f;
+    for (int q = 0; q < slots; ++q) s += lnb_sums[q * 2 * C + c];
+    part[(size_t)blockIdx.x * 2 * C + c] = s;
+  }
+}
+
+// out[c] = the sum over p of part[p, c] (P partial rows of N columns), in a
+// fixed order: CS_SPLIT ranges of rows, each summed in turn, then the ranges
+// in turn; one rounding to TO
+template <typename TO>
+__global__ void __launch_bounds__(CS_COLS * CS_SPLIT) col_sums_kernel(
+    const float* __restrict__ part, int P, int N, TO* __restrict__ out) {
+  __shared__ float red[CS_SPLIT][CS_COLS];
+  const int tx = threadIdx.x % CS_COLS, ty = threadIdx.x / CS_COLS;
+  const int c = blockIdx.x * CS_COLS + tx;
+  const int per = (P + CS_SPLIT - 1) / CS_SPLIT, p1 = min(P, (ty + 1) * per);
+  float s = 0.0f;
+  if (c < N) {
+#pragma unroll 8
+    for (int p = ty * per; p < p1; ++p) s += part[(size_t)p * N + c];
+  }
+  red[ty][tx] = s;
+  __syncthreads();
+  if (ty == 0 && c < N) {
+    float t = 0.0f;
+#pragma unroll
+    for (int q = 0; q < CS_SPLIT; ++q) t += red[q][tx];
+    out[c] = from_f<TO>(t);
+  }
+}
+
+template <typename TO>
+int launch_col_sums(const float* part, int P, int N, void* out, cudaStream_t st) {
+  col_sums_kernel<TO><<<(N + CS_COLS - 1) / CS_COLS, CS_COLS * CS_SPLIT, 0, st>>>(
+      part, P, N, static_cast<TO*>(out));
+  return (int)cudaGetLastError();
+}
+
+inline int gelu_bwd_blocks(int rows) { return (rows + GB_TILE_ROWS - 1) / GB_TILE_ROWS; }
+
+template <typename T>
+int launch_gelu_bwd(void* u, void* dg, float* part, void* db, int rows, int H, cudaStream_t st) {
+  constexpr int V = Chunk<T>::V;
+  if (rows <= 0 || H <= 0 || H % V) return (int)cudaErrorInvalidValue;
+  const int blocks = gelu_bwd_blocks(rows);
+  gelu_bwd_kernel<T><<<dim3(blocks, (H / V + GB_CHUNKS - 1) / GB_CHUNKS), GB_CHUNKS * GB_WARPS,
+                       0, st>>>(static_cast<T*>(u), static_cast<T*>(dg), part, rows, H);
+  const int err = (int)cudaGetLastError();
+  return err ? err : launch_col_sums<T>(part, blocks, H, db, st);
+}
+
+// ln_rows_bwd_kernel's lanes a row (launch_ln's rule for rows read in place)
+// and the rows a block takes
+inline int ln_bwd_lanes(int n) { return ln_lanes(n, LN_CHUNKS_ROWS); }
+inline int ln_bwd_slots(int G) { return G < LN_THREADS ? LN_THREADS / G : 1; }
+
+inline int ln_rows_bwd_blocks(int rows, int C, int V) {
+  if (rows <= 0 || C <= 0 || C % V) return -1;
+  const int slots = ln_bwd_slots(ln_bwd_lanes(C / V)), per = slots * LNB_ROWS;
+  return (rows + per - 1) / per;
+}
+
+template <typename T>
+int launch_ln_rows_bwd(const void* x, const void* w, const void* dxn, const void* dy, void* dx,
+                       float* part, void* dwb, int rows, int C, float eps, cudaStream_t st) {
+  constexpr int V = Chunk<T>::V;
+  const int blocks = ln_rows_bwd_blocks(rows, C, V);
+  if (blocks < 0) return (int)cudaErrorInvalidValue;
+  const int n = C / V, G = ln_bwd_lanes(n), slots = ln_bwd_slots(G);
+  const size_t smem = (size_t)slots * 2 * C * sizeof(float);
+  const int err = ln_dispatch((n + G - 1) / G, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          ln_rows_bwd_kernel<T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    ln_rows_bwd_kernel<T, K><<<blocks, G * slots, smem, st>>>(
+        static_cast<const T*>(x), static_cast<const float*>(w), static_cast<const T*>(dxn),
+        static_cast<const T*>(dy), static_cast<T*>(dx), part, rows, C, G, eps);
+    return (int)cudaGetLastError();
+  });
+  return err ? err : launch_col_sums<float>(part, blocks, 2 * C, dwb, st);
+}
+
 // the three column blocks of a packed [rows, 3C] tensor
 template <typename T>
 const void* col_block(const void* p, int C, int k) { return static_cast<const T*>(p) + k * C; }
@@ -680,6 +972,39 @@ int grit_window_attn_dense_bwd(const void* q, const void* k, const void* v, cons
       static_cast<const float*>(bias), bias_windows, static_cast<float*>(dq),
       static_cast<float*>(dk), static_cast<float*>(dv), static_cast<float*>(dbias), batch, chunks,
       C, heads, m, st);
+}
+
+// K2's backward passes (see gelu_bwd_kernel, ln_rows_bwd_kernel).  The
+// *_blocks entries give the rows of the f32 scratch `part` that a call over
+// `rows` rows fills (-1: a width the kernel does not take).
+int grit_gelu_bwd_blocks(int rows) { return gelu_bwd_blocks(rows); }
+
+// u, dg: [rows, H], in: the pre-activation and dL/dg; out: gelu(u) and
+// dL/du.  part f32 [grit_gelu_bwd_blocks(rows), H]; db [H] in the storage
+// type: the column sums of dL/du (H % 8 in bf16, H % 4 in fp32).
+int grit_gelu_bwd(void* u, void* dg, void* part, void* db, int rows, int H, int dtype,
+                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
+  if (dtype == 1) return launch_gelu_bwd<bf16>(u, dg, p, db, rows, H, st);
+  return launch_gelu_bwd<float>(u, dg, p, db, rows, H, st);
+}
+
+int grit_ln_rows_bwd_blocks(int rows, int C, int dtype) {
+  return ln_rows_bwd_blocks(rows, C, dtype == 1 ? Chunk<bf16>::V : Chunk<float>::V);
+}
+
+// x, dxn, dy (null: no residual), dx: [rows, C] (launch_ln's widths); w f32
+// [C]; part f32 [grit_ln_rows_bwd_blocks(rows, C, dtype), 2C]; dwb f32 [2C]:
+// the scale's gradient, then the bias's.
+int grit_ln_rows_bwd(const void* x, const void* w, const void* dxn, const void* dy, void* dx,
+                     void* part, void* dwb, int rows, int C, float eps, int dtype,
+                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
+  if (dtype == 1)
+    return launch_ln_rows_bwd<bf16>(x, w, dxn, dy, dx, p, dwb, rows, C, eps, st);
+  return launch_ln_rows_bwd<float>(x, w, dxn, dy, dx, p, dwb, rows, C, eps, st);
 }
 
 // K10a: out [rows, N] = LN(rows of x) W^T, W [N, K] in the storage type, g, b f32

@@ -29,7 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures of the exported launchers (every one returns cudaGetLastError)
+# C signatures of the exported entries (every launcher returns cudaGetLastError;
+# a *_blocks entry the rows of the scratch its launcher fills)
 _SIGNATURES = {
     "grit_ln_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "grit_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
@@ -47,6 +48,10 @@ _SIGNATURES = {
     "grit_decode_tail": [_P] * 12 + [_I] * 9 + [_F, _I, _I, _P],
     "grit_decode_tail_finish": [_P] * 7 + [_I, _I, _F, _I, _P],
     "grit_lsa": [_P, _P, _P, _I, _I, _I, _P],
+    "grit_gelu_bwd_blocks": [_I],
+    "grit_gelu_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "grit_ln_rows_bwd_blocks": [_I, _I, _I],
+    "grit_ln_rows_bwd": [_P] * 7 + [_I, _I, _F, _I, _P],
 }
 
 

@@ -34,9 +34,12 @@ and ``layernorm_rows`` its ``_ln_kernel`` (via ``fused_layernorm``).
 ``block_attention_train`` and ``mlp`` are differentiable
 (``torch.autograd.Function``): the attention branch's backward runs K5 for
 the attention core and plain matrix products for the projections, as the
-TPU's ``_block_attention_bwd`` does; the MLP's backward recomputes the branch
-from its row input with plain matrix products and differentiates that, as
-``_mlp_bwd`` does.  Gradients come back in each argument's dtype.
+TPU's ``_block_attention_bwd`` does; the MLP's backward recomputes the
+branch's pre-activation from its row input, as ``_mlp_bwd`` does, and takes
+the gradient of ``_mlp_recompute`` with plain matrix products around two
+passes of its own (``gelu_bwd`` over the hidden rows, ``ln_rows_bwd`` over
+the rows; ``_mlp_backward``).  Gradients come back in each argument's
+dtype.
 
 Unlike the TPU path, the map is never rolled: the blocks take and return the
 padded map [B, Hp, Wp, C] in unshifted coordinates, and the kernels fold the
@@ -63,7 +66,9 @@ LN_EPS = 1e-5
 LAUNCHES = {"block_step": 0, "mlp": 0, "block_attention": 0, "window_attention_bwd": 0,
             "window_attention": 0, "window_attention_grad": 0, "ln_linear": 0,
             "layernorm_rows": 0, "gemm_bf16": 0, "gemm_f32": 0, "win_attn_bf16": 0,
-            "win_attn_f32": 0, "win_attn_bwd_bf16": 0, "win_attn_bwd_f32": 0}
+            "win_attn_f32": 0, "win_attn_bwd_bf16": 0, "win_attn_bwd_f32": 0,
+            "mlp_bwd": 0, "gelu_bwd_bf16": 0, "gelu_bwd_f32": 0, "ln_rows_bwd_bf16": 0,
+            "ln_rows_bwd_f32": 0}
 
 #: the GEMM's epilogues (csrc/common.cuh)
 EPILOGUES = {"bias": 0, "gelu": 1, "resid": 2, "resid_map": 3, "map": 4}
@@ -625,9 +630,10 @@ def mlp_plain(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, *, eps: float = LN_
 
 def _mlp_recompute(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, eps: float,
                    residual: bool) -> torch.Tensor:
-    """What K2's backward differentiates: ``mlp_plain`` with the two matrix
-    products taken in the rows' dtype (f32 accumulation, the pre-activation
-    rounded once more in bf16; identical in f32)."""
+    """The function whose gradient K2's backward (``_mlp_backward``) takes:
+    ``mlp_plain`` with the two matrix products taken in the rows' dtype (f32
+    accumulation, the pre-activation rounded once more in bf16; identical in
+    f32).  Autograd through it is the yardstick of that backward."""
     dt = x.dtype
     xf = x.float()
     xn = _ln_fast(xf, norm_w, norm_b, eps).to(dt)
@@ -641,7 +647,7 @@ def _mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, eps: float, residual: bo
     if x.device.type == "cpu":
         return mlp_plain(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, eps=eps,
                          residual=residual)
-    rows, c = x.shape
+    c = x.shape[1]
     hid = fc1_w.shape[0]
     dt = x.dtype
     if dt not in _cuda.DTYPE_CODE:
@@ -655,14 +661,7 @@ def _mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, eps: float, residual: bo
             (norm_w, "norm_w", torch.float32, (c,)), (norm_b, "norm_b", torch.float32, (c,))):
         if t is not None:
             _cuda.require(t, name, t_dt, shape)
-    lib = _cuda.library()
-    code = _cuda.DTYPE_CODE[dt]
-    st = _cuda.stream()
-    geo = (1, 1, 1, 0, 1, 1)  # unused in row mode
-    xn = torch.empty_like(x)
-    _cuda.check(lib.grit_ln_rows(x.data_ptr(), norm_w.data_ptr(), norm_b.data_ptr(),
-                                 xn.data_ptr(), rows, c, 0, *geo, eps, code, st),
-                "mlp ln2")
+    xn = _ln_rows(x, norm_w, norm_b, eps, "mlp ln2")
     h = gemm(xn, fc1_w, fc1_b, epilogue="gelu")
     out = gemm(h, fc2_w, fc2_b, epilogue="resid" if residual else "bias",
                resid=x if residual else None)
@@ -670,9 +669,121 @@ def _mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, eps: float, residual: bo
     return out
 
 
+def gelu_bwd_plain(u, dg):
+    """Plain version of K2's GELU backward over the hidden rows: from the
+    pre-activation u [R, H] and dg, the gradient of the GELU's output, (g =
+    gelu(u), du = dg gelu'(u), fc1's bias gradient), with gelu'(u) = (1 +
+    erf(u / sqrt 2)) / 2 + u exp(-u^2 / 2) / sqrt(2 pi) in f32, g and du each
+    rounded once to u's dtype, and the bias gradient the f32 column sums of
+    du as rounded, rounded to u's dtype."""
+    dt = u.dtype
+    uf = u.float()
+    e = torch.erf(uf * 0.7071067811865476)
+    g = (uf * 0.5 * (1.0 + e)).to(dt)
+    du = (dg.float() * (0.5 * (1.0 + e) + uf * 0.3989422804014327
+                        * torch.exp(-0.5 * uf * uf))).to(dt)
+    return g, du, du.float().sum(0).to(dt)
+
+
+def gelu_bwd(u, dg):
+    """K2's GELU backward (see ``gelu_bwd_plain``) -> (g, du, fc1's bias
+    gradient).  On the card one pass (``gelu_bwd_kernel``) writes g over u
+    and du over dg, so both are consumed, and a second sums its blocks'
+    column partials in a fixed order.  CPU tensors run the plain version;
+    CUDA tensors launch the kernels or raise."""
+    if u.device.type == "cpu":
+        return gelu_bwd_plain(u, dg)
+    rows, hid = u.shape
+    dt = u.dtype
+    if dt not in LN_CHUNK or hid % LN_CHUNK[dt]:
+        raise ValueError(f"gelu_bwd: rows of {hid} {dt} values are not whole 16-byte chunks")
+    _cuda.require(u, "u", dt)
+    _cuda.require(dg, "dg", dt, (rows, hid))
+    lib = _cuda.library()
+    part = torch.empty((lib.grit_gelu_bwd_blocks(rows), hid), dtype=torch.float32,
+                       device=u.device)
+    db = torch.empty(hid, dtype=dt, device=u.device)
+    _cuda.check(lib.grit_gelu_bwd(u.data_ptr(), dg.data_ptr(), part.data_ptr(), db.data_ptr(),
+                                  rows, hid, _cuda.DTYPE_CODE[dt], _cuda.stream()), "gelu_bwd")
+    LAUNCHES["gelu_bwd_" + _dtype_name(dt)] += 1
+    return u, dg, db
+
+
+def ln_rows_bwd_plain(x, norm_w, d_xn, dy=None, *, eps: float = LN_EPS):
+    """Plain version of K2's LayerNorm backward over rows x [R, C]: from
+    d_xn, the gradient of the normalised rows, (dx, the scale's gradient, the
+    bias's gradient).  The row's statistics are recomputed as the forward's
+    (f32, var = E[x^2] - mu^2); dx = rsqrt(var + eps) (d_xn w - mean(d_xn w)
+    - xhat mean(d_xn w xhat)) (+ ``dy``, the residual's gradient) in f32,
+    rounded once to x's dtype; the parameter gradients are f32 column sums."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    rs = torch.rsqrt((xf * xf).mean(-1, keepdim=True) - mu * mu + eps)
+    xh = (xf - mu) * rs
+    gf = d_xn.float()
+    gw = gf * norm_w.float()
+    dx = rs * (gw - gw.mean(-1, keepdim=True) - xh * (gw * xh).mean(-1, keepdim=True))
+    if dy is not None:
+        dx = dx + dy.float()
+    return dx.to(x.dtype), (gf * xh).sum(0), gf.sum(0)
+
+
+def ln_rows_bwd(x, norm_w, d_xn, dy=None, *, eps: float = LN_EPS):
+    """K2's LayerNorm backward (see ``ln_rows_bwd_plain``).  On the card one
+    pass (``ln_rows_bwd_kernel``, a row in registers) and a second that sums
+    its blocks' column partials in a fixed order.  CPU tensors run the plain
+    version; CUDA tensors launch the kernels or raise."""
+    if x.device.type == "cpu":
+        return ln_rows_bwd_plain(x, norm_w, d_xn, dy, eps=eps)
+    rows, c = x.shape
+    dt = x.dtype
+    check_ln_shape(c, dt, "ln_rows_bwd")
+    _cuda.require(x, "x", dt)
+    _cuda.require(d_xn, "d_xn", dt, (rows, c))
+    if dy is not None:
+        _cuda.require(dy, "dy", dt, (rows, c))
+    _cuda.require(norm_w, "norm_w", torch.float32, (c,))
+    lib = _cuda.library()
+    code = _cuda.DTYPE_CODE[dt]
+    part = torch.empty((lib.grit_ln_rows_bwd_blocks(rows, c, code), 2 * c),
+                       dtype=torch.float32, device=x.device)
+    dwb = torch.empty(2 * c, dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    _cuda.check(lib.grit_ln_rows_bwd(
+        x.data_ptr(), norm_w.data_ptr(), d_xn.data_ptr(), None if dy is None else dy.data_ptr(),
+        dx.data_ptr(), part.data_ptr(), dwb.data_ptr(), rows, c, eps, code, _cuda.stream()),
+        "ln_rows_bwd")
+    LAUNCHES["ln_rows_bwd_" + _dtype_name(dt)] += 1
+    return dx, dwb[:c], dwb[c:]
+
+
+def _mlp_backward(dy, x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, eps: float,
+                  residual: bool):
+    """K2's backward: the gradients of ``_mlp_recompute`` to its seven inputs
+    (None for an absent ``fc2_b``).  The LayerNorm is the forward's own
+    launch, so the products see the forward's bits; fc1's pre-activation is
+    recomputed; the five products run on torch's matmul in the rows' dtype
+    (f32 accumulation), around ``gelu_bwd`` and ``ln_rows_bwd``.  The bias
+    gradients are f32 sums rounded to the biases' dtype.  CPU tensors take
+    the plain versions of every step."""
+    dy = dy.to(x.dtype).contiguous()
+    xn = _ln_rows(x, norm_w, norm_b, eps, "mlp backward ln2")
+    g, du, d_fc1_b = gelu_bwd(F.linear(xn, fc1_w, fc1_b), dy @ fc2_w)
+    d_fc2_w = dy.t() @ g
+    del g
+    d_fc1_w = du.t() @ xn
+    dx, d_norm_w, d_norm_b = ln_rows_bwd(x, norm_w, du @ fc1_w,
+                                         dy if residual else None, eps=eps)
+    if x.device.type != "cpu":
+        LAUNCHES["mlp_bwd"] += 1
+    return (dx, d_norm_w, d_norm_b, d_fc1_w, d_fc1_b, d_fc2_w,
+            None if fc2_b is None else dy.sum(0))
+
+
 class _MlpFn(torch.autograd.Function):
-    """K2 forward; backward recomputes the branch from the row input and
-    differentiates it (the TPU's ``_mlp_bwd``): nothing is kept but the inputs."""
+    """K2 forward; backward recomputes the branch from the row input (the
+    TPU's ``_mlp_bwd``) through ``_mlp_backward``: nothing is kept but the
+    inputs."""
 
     @staticmethod
     def forward(ctx, x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, eps, residual):
@@ -682,13 +793,7 @@ class _MlpFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        with torch.enable_grad():
-            leaves = [None if t is None else t.detach().requires_grad_()
-                      for t in ctx.saved_tensors]
-            y = _mlp_recompute(*leaves, *ctx.cfg)
-            grads = iter(torch.autograd.grad(y, [t for t in leaves if t is not None],
-                                             dy.to(y.dtype)))
-        return (*(None if t is None else next(grads) for t in leaves), None, None)
+        return (*_mlp_backward(dy, *ctx.saved_tensors, *ctx.cfg), None, None)
 
 
 def mlp(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, *, eps: float = LN_EPS,
@@ -931,22 +1036,30 @@ def layernorm_rows_plain(x, norm_w, norm_b, eps: float = LN_EPS) -> torch.Tensor
     return _ln_fast(x.float(), norm_w, norm_b, eps).to(x.dtype)
 
 
-def _layernorm_rows(x, norm_w, norm_b, eps: float) -> torch.Tensor:
+def _ln_rows(x, norm_w, norm_b, eps: float, what: str) -> torch.Tensor:
+    """One row-mode launch of ``ln_rows_kernel`` over the last axis of x
+    (``layernorm_rows_plain`` on the CPU), counted by its caller."""
     if x.device.type == "cpu":
         return layernorm_rows_plain(x, norm_w, norm_b, eps=eps)
     dt = x.dtype
     c = x.shape[-1]
     if dt not in _cuda.DTYPE_CODE:
-        raise ValueError(f"layernorm_rows: unsupported dtype {dt}")
-    check_ln_shape(c, dt, "layernorm_rows")
+        raise ValueError(f"{what}: unsupported dtype {dt}")
+    check_ln_shape(c, dt, what)
     _cuda.require(x, "x", dt)
     _cuda.require(norm_w, "norm_w", torch.float32, (c,))
     _cuda.require(norm_b, "norm_b", torch.float32, (c,))
     out = torch.empty_like(x)
     _cuda.check(_cuda.library().grit_ln_rows(
         x.data_ptr(), norm_w.data_ptr(), norm_b.data_ptr(), out.data_ptr(), x.numel() // c, c,
-        0, 1, 1, 1, 0, 1, 1, eps, _cuda.DTYPE_CODE[dt], _cuda.stream()), "layernorm_rows")
-    LAUNCHES["layernorm_rows"] += 1
+        0, 1, 1, 1, 0, 1, 1, eps, _cuda.DTYPE_CODE[dt], _cuda.stream()), what)
+    return out
+
+
+def _layernorm_rows(x, norm_w, norm_b, eps: float) -> torch.Tensor:
+    out = _ln_rows(x, norm_w, norm_b, eps, "layernorm_rows")
+    if x.is_cuda:
+        LAUNCHES["layernorm_rows"] += 1
     return out
 
 

@@ -27,6 +27,12 @@ class (head dim 32, window 12), the core's and the backward's plain versions
 are held to the same Pallas bodies within 2e-5 of each output's max (1e-5
 for the bias gradients).
 
+K2's backward (``_mlp_backward``: the LayerNorm launch, torch's products,
+``gelu_bwd`` and ``ln_rows_bwd``, plain versions here) is held against
+autograd of ``_mlp_recompute`` and the JAX package's ``_mlp_bwd`` in fp32 and
+bf16, and each of its two passes' plain versions against autograd of its
+formula (tolerances beside the tests).
+
 The one-launch helpers that chip_smoke.py times on the card (``gemm``,
 ``attention_core``) run their plain versions here, and those compose to
 K1's, K2's and K4's plain versions exactly; every GEMM shape of the shipped
@@ -140,6 +146,99 @@ def test_mlp_plain_matches_jax(rows, c):
     out = twa.mlp(*map(_t, (x, lw, lb, w1, b1, w2, b2)))
     ref = jwa._mlp_ref2(x, lw, lb, w1.T, b1, w2.T, b2, 1e-5, True)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
+def _share(a, ref) -> float:
+    """max |a - ref| as a share of max |ref|, in f32."""
+    a, ref = (np.asarray(t.float() if isinstance(t, torch.Tensor) else t, np.float32)
+              for t in (a, ref))
+    return float(np.abs(a - ref).max() / np.abs(ref).max())
+
+
+# K2's backward as the CUDA path composes it: the LayerNorm launch, torch's
+# products, gelu_bwd, ln_rows_bwd (their plain versions on the CPU).  fp32:
+# 1e-5 of each gradient's max from both yardsticks.  bf16: 4e-3 (one bf16 step
+# of the largest value) from autograd of _mlp_recompute, which rounds at the
+# same points and differs only in the order of the derivatives' f32 terms;
+# 2e-2 from the JAX _mlp_bwd, which keeps fc1's pre-activation in f32
+# (autograd itself reads up to 7e-3 from it)
+MLP_BWD_TOL = {"f32": (1e-5, 1e-5), "bf16": (4e-3, 2e-2)}
+
+
+@pytest.mark.parametrize("dtype,residual,bias", [
+    ("f32", True, True), ("f32", False, True), ("f32", False, False),
+    ("bf16", True, True), ("bf16", False, True), ("bf16", False, False)])
+def test_mlp_backward_matches_autograd_and_jax(dtype, residual, bias):
+    """The gradients of ``mlp`` (``_mlp_backward``) to its inputs, with and
+    without the residual, and without fc2's bias (a tensor-parallel rank's
+    partial), against autograd of ``_mlp_recompute`` and the JAX package's
+    ``_mlp_bwd`` (jax.vjp of ``_mlp_ref2``); each gradient in its input's
+    dtype."""
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    rows, c = 50, 32
+    f = _f(np.random.default_rng(31))
+    x, lw, lb = f(rows, c) * 2 + 0.3, 1 + f(c, sc=0.1), f(c, sc=0.1)
+    w1, b1, w2, b2 = f(4 * c, c, sc=c ** -0.5), f(4 * c, sc=0.1), f(c, 4 * c, sc=0.5 / c), f(c)
+    dy = f(rows, c)
+    if not bias:
+        b2 = np.zeros_like(b2)
+    ins = [_t(x).to(tdt), _t(lw), _t(lb), *(_t(a).to(tdt) for a in (w1, b1, w2, b2))]
+    leaves = [t.clone().requires_grad_() for t in ins[:6]]
+    fc2_b = ins[6].clone().requires_grad_() if bias else None
+    got = torch.autograd.grad(twa.mlp(*leaves, fc2_b, residual=residual),
+                              leaves + [fc2_b] * bias, _t(dy).to(tdt))
+    leaves = [t.clone().requires_grad_() for t in ins[:6]]
+    fc2_b = ins[6].clone().requires_grad_() if bias else None
+    ref = torch.autograd.grad(twa._mlp_recompute(*leaves, fc2_b, 1e-5, residual),
+                              leaves + [fc2_b] * bias, _t(dy).to(tdt))
+    res = (jnp.asarray(x, jdt), jnp.asarray(lw), jnp.asarray(lb), jnp.asarray(w1.T, jdt),
+           jnp.asarray(b1, jdt), jnp.asarray(w2.T, jdt), jnp.asarray(b2, jdt))
+    jax_grads = jwa._mlp_bwd(1e-5, residual, res, jnp.asarray(dy, jdt))
+    tol_autograd, tol_jax = MLP_BWD_TOL[dtype]
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.dtype == ins[i].dtype, i
+        j = np.asarray(jax_grads[i], np.float32)
+        j = j.T if i in (3, 5) else j
+        assert _share(g, r) <= tol_autograd, (i, _share(g, r))
+        assert _share(g, j) <= tol_jax, (i, _share(g, j))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_gelu_bwd_plain_matches_autograd(dtype):
+    """``gelu_bwd_plain`` against autograd of the GELU as ``_mlp_recompute``
+    writes it, in f32 on the rounded pre-activation: g equal, du within 1e-6
+    of its max (the derivative's terms in another order; bf16: one bf16 step,
+    4e-3), the bias gradient the f32 sum of du as rounded."""
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    f = _f(np.random.default_rng(32))
+    u, dg = _t(f(40, 64) * 2).to(tdt), _t(f(40, 64)).to(tdt)
+    uf = u.float().clone().requires_grad_()
+    t = uf * 0.5 * (1.0 + torch.erf(uf * 0.7071067811865476))
+    du_ref, = torch.autograd.grad(t, uf, dg.float())
+    g, du, db = twa.gelu_bwd_plain(u, dg)
+    assert g.dtype == du.dtype == db.dtype == tdt
+    assert torch.equal(g, t.detach().to(tdt))
+    assert _share(du, du_ref) <= (4e-3 if dtype == "bf16" else 1e-6)
+    assert torch.equal(db, du.float().sum(0).to(tdt))
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_ln_rows_bwd_plain_matches_autograd(residual):
+    """``ln_rows_bwd_plain`` against autograd of ``_ln_fast`` (the forward's
+    formula, var = E[x^2] - mu^2) in f32: dx (+ the residual's ``dy``) and the
+    scale's and bias's gradients within 1e-5 of each max."""
+    f = _f(np.random.default_rng(33))
+    x, w, b, d_xn, dy = (_t(a) for a in (f(40, 48) * 3 + 1.0, 1 + f(48, sc=0.1),
+                                         f(48, sc=0.1), f(40, 48), f(40, 48)))
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    ref = list(torch.autograd.grad(twa._ln_fast(*leaves, 1e-5), leaves, d_xn))
+    if residual:
+        ref[0] = ref[0] + dy
+    got = twa.ln_rows_bwd_plain(x, w, d_xn, dy if residual else None, eps=1e-5)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float32
+        assert _share(g, r) <= 1e-5, _share(g, r)
 
 
 @pytest.mark.parametrize("padded", [False, True])
