@@ -11,6 +11,11 @@ decoder at ``lr``, the backbone at ``lr_backbone``, no decay on biases and
 vectors; clip 0.1).  Dropout and drop-path masks are drawn from a generator
 the caller hands in, in the order the model's layers run, so that a step
 seeded alike draws the same masks.
+
+The step is written over data-parallel ranks (``global_steps``): each
+rank's share is run with its own masks, its loss normalised by the box
+count of the whole global batch, and the shares' gradients summed before
+the one clip and the optimizer's step.  One card is the step of one rank.
 """
 
 from __future__ import annotations
@@ -160,41 +165,81 @@ class AdamW:
             p.sub_(lr * (m_hat / (v_hat.sqrt() + eps) + wd * p))
 
 
-def train_steps(A: Arith, P0: dict, batches, cfg: dict, seed_masks: int, device,
-                half: bool = False) -> dict:
-    """``len(batches)`` training steps from the weights ``P0`` -> {"loss"
-    [steps], "grad_norm" [steps] (before the clip), "first_grad" {name: the
-    clipped gradient of step 1}, "params" (after the last step),
-    "assigns" of step 1}.  ``half``: the fault of a step whose loss leaves
-    out half of the batch, its mean taken over the rest."""
+def share_loss(A: Arith, params: dict, share, cfg: dict, masks: Masks, boxes_global: float,
+               half: bool = False):
+    """One rank's share of the global loss: its batch's weighted losses
+    normalised by the box count of the whole global batch.  ``half``: the
+    fault of a loss that leaves out half of the batch (the global count is
+    then of the halves)."""
+    images, pad, targets = share
     m = cfg["model"]
-    det_cfg = {"swin": m["swin"], "detector": m["detector"]}
+    keeps = [masks.keeps(images.shape[0], r, images.device)
+             for r in vision.drop_path_rates(m["swin"])]
+    hs, refs, _, _ = vision.detector(A, params, "", images, pad,
+                                     {"swin": m["swin"], "detector": m["detector"]},
+                                     keeps=keeps, dropout=masks.dropout)
+    logits, boxes = heads(A, params, hs, refs)
+    rows = images.shape[0] // 2 if half else images.shape[0]
+    loss, _ = criterion(logits, boxes, targets, cfg, rows)
+    # ``criterion`` normalises by this share's own count
+    own = float(targets["valid"][:rows].sum().clamp(min=1))
+    return loss * (own / boxes_global)
+
+
+def global_steps(A: Arith, P0: dict, steps, cfg: dict, mask_seeds: list[int], device,
+                 leave_out: int | None = None, half: bool = False) -> dict:
+    """``len(steps)`` training steps from the weights ``P0`` over
+    ``len(mask_seeds)`` data-parallel ranks, one rank's share at a time;
+    ``steps[i][r]`` is rank r's (images, pad, targets) at step i and
+    ``mask_seeds[r]`` seeds its masks.  The shares' gradients are summed, as
+    data parallel's mean of the ranks' world-scaled gradients is, then
+    clipped on their global norm -> {"loss" [steps] (summed over the
+    shares), "grad_norm" [steps] (before the clip), "first_grad" {name: the
+    clipped gradient of step 1}, "params" (after the last step)}.
+
+    Planted faults: ``leave_out`` = r, the mean over the ranks taken without
+    rank r's gradient (the others' world-scaled gradients averaged over
+    ``world - 1``); ``half``, every rank's loss over half of its batch, its
+    mean taken over the rest."""
+    world = len(mask_seeds)
+    p = cfg["model"]["detector"]["dropout"]
+    masks = [Masks(torch.Generator(device=device).manual_seed(int(s)), p) for s in mask_seeds]
     params = {k: v.detach().clone().requires_grad_(True) for k, v in P0.items()}
+    names = list(params)
     opt = AdamW(params, cfg["optimizer"])
-    gen = torch.Generator(device=device).manual_seed(int(seed_masks))
-    masks = Masks(gen, m["detector"]["dropout"])
-    rates = vision.drop_path_rates(m["swin"])
+    rows = (lambda t: t[: t.shape[0] // 2]) if half else (lambda t: t)
     out = {"loss": [], "grad_norm": []}
-    for i, (images, pad, targets) in enumerate(batches):
-        keeps = [masks.keeps(images.shape[0], r, device) for r in rates]
-        hs, refs, _, _ = vision.detector(A, params, "", images, pad, det_cfg, keeps=keeps,
-                                         dropout=masks.dropout)
-        logits, boxes = heads(A, params, hs, refs)
-        rows = images.shape[0] // 2 if half else None
-        loss, assigns = criterion(logits, boxes, targets, cfg, rows)
-        names = list(params)
-        grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True)
-        grads = {k: torch.zeros_like(params[k]) if g is None else g for k, g in zip(names, grads)}
+    for i, shares in enumerate(steps):
+        boxes_global = max(1.0, sum(float(rows(t["valid"]).sum()) for _, _, t in shares))
+        grads = {k: torch.zeros_like(v) for k, v in params.items()}
+        total = 0.0
+        for r, share in enumerate(shares):
+            loss = share_loss(A, params, share, cfg, masks[r], boxes_global, half)
+            got = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True)
+            if r != leave_out:
+                with torch.no_grad():
+                    for k, g in zip(names, got):
+                        if g is not None:
+                            grads[k] += g
+            total += float(loss.detach())
+            del loss, got
+        if leave_out is not None:
+            grads = {k: g * (world / (world - 1)) for k, g in grads.items()}
         norm = torch.linalg.vector_norm(torch.stack([g.norm() for g in grads.values()]))
         clip = cfg["optimizer"]["clip_max_norm"]
         scale = min(1.0, clip / (float(norm) + 1e-6)) if clip else 1.0
         grads = {k: g * scale for k, g in grads.items()}
         if i == 0:
             out["first_grad"] = {k: g.detach() for k, g in grads.items()}
-            out["assigns"] = assigns
         opt.step(grads)
-        out["loss"].append(float(loss.detach()))
+        out["loss"].append(total)
         out["grad_norm"].append(float(norm))
     out["params"] = {k: v.detach() for k, v in params.items()}
     return out
 
+
+def train_steps(A: Arith, P0: dict, batches, cfg: dict, seed_masks: int, device,
+                half: bool = False) -> dict:
+    """``len(batches)`` training steps on one card: ``global_steps`` with one
+    rank, whose share at step i is ``batches[i]``."""
+    return global_steps(A, P0, [[b] for b in batches], cfg, [seed_masks], device, half=half)
