@@ -183,6 +183,16 @@ Phases, each of which must pass:
      640 rows, fp32 and bf16, against their plain versions, bit-equal over
      two calls, 7 + 1 launches a call; K2 on a rank's half of each Swin-B
      stage's hidden units against mlp_plain.
+ 20. the routed experts of the mla_moe caption decoder (phase_moe_experts,
+     with the kernel phases): ops/moe.py's path (rows sorted by expert, the
+     library's grouped GEMM torch._grouped_mm for gate+up and for down) at
+     the benchmark's Kimi-VL-A3B shapes, a decode step's 640 rows and a b128
+     prefill's 128 x 211, 64 experts of 1408 over hidden 2048, 6 a row,
+     against the same arithmetic expert by expert: within 1e-2 of the
+     output's largest magnitude, bit-equal over two calls, one grouped GEMM
+     kernel a product (the one moe_roofline.caption counts); device ms
+     beside the bound and the loop; then a tiny mla_moe captioner in bf16
+     through make_caption_generator, its grouped GEMM calls counted from 0.
 
 Prints the card's name and power limit as nvidia-smi reports them, a JSON
 line of per-kernel results (all 18 TPU kernel bodies: the eleven ported
@@ -1136,6 +1146,128 @@ def half_layer(layer):
     state["pwff.fc2.weight"] = state["pwff.fc2.weight"].chunk(2, 1)[0]
     half.load_state_dict(state)
     return half
+
+
+def phase_moe_experts(card: str) -> None:
+    """Phase 20: ``ops.moe.routed_experts`` at the Kimi-VL-A3B cell's decode
+    and prefill shapes against ``grouped_plain`` on the same bf16 inputs
+    (f32 products), and a tiny ``mla_moe`` captioner through
+    ``make_caption_generator`` (see the module docstring)."""
+    import re
+
+    from gritbench import harness
+    from grit_tpu_torch.ops import moe as moe_ops
+
+    pattern = harness.load_module(harness.ROOT / "metrics" / "moe_roofline.caption.py",
+                                  "chip_smoke_moe_roofline").KERNEL
+    e, d, i, k, tol = 64, 2048, 1408, 6, 1e-2
+    g = torch.Generator(device=DEV).manual_seed(24)
+    w13 = (torch.randn(e, 2 * i, d, generator=g, device=DEV) * 0.02).bfloat16()
+    w2 = (torch.randn(e, d, i, generator=g, device=DEV) * 0.02).bfloat16()
+    bias = (torch.rand(e, generator=g, device=DEV) - 0.5) * 0.1
+    out = {}
+    for label, rows in (("decode", 640), ("prefill", 128 * 211)):
+        x = torch.randn(rows, d, generator=g, device=DEV).bfloat16()
+        scores = torch.sigmoid(torch.randn(rows, e, generator=g, device=DEV))
+        idx = torch.topk(scores + bias, k, dim=-1).indices
+        w = scores.gather(1, idx)
+        w = w / w.sum(1, keepdim=True) * 2.446
+        before = dict(moe_ops.LAUNCHES)
+        got = moe_ops.routed_experts(x, idx, w, w13, w2)
+        calls = {n: moe_ops.LAUNCHES[n] - before[n] for n in before}
+        if calls != {"moe_gate_up": 1, "moe_down": 1}:
+            fail(f"moe {label}: grouped GEMM calls {calls}, want one of each")
+        if not bits_equal(got, moe_ops.routed_experts(x, idx, w, w13, w2)):
+            fail(f"moe {label}: two calls differ")
+        order, srows, counts, offs = moe_ops.sort_by_expert(idx, e)
+        gu = moe_ops.grouped_plain(x[srows].float(), w13, offs)
+        h = torch.nn.functional.silu(gu[:, :i]) * gu[:, i:]
+        y = moe_ops.grouped_plain(h, w2, offs)
+        ref = got.new_empty(rows * k, d)
+        ref[order] = y * w.reshape(-1)[order, None]
+        ref = ref.view(rows, k, d).sum(1)
+        err = ((got - ref).abs().max() / ref.abs().max()).item()
+        if not err <= tol:
+            fail(f"moe {label}: max rel err {err:.3e} > {tol:.0e}")
+        xs = x[srows]
+        hb = h.bfloat16()
+        names = launch_times(lambda: (moe_ops.grouped_mm(xs, w13, offs, "moe_gate_up"),
+                                      moe_ops.grouped_mm(hb, w2, offs, "moe_down")),
+                             calls=3, name_of=lambda key: key)
+        gemms = {n: v for n, v in names.items() if re.search(pattern, n)}
+        if sum(c for _, c in gemms.values()) != 2:
+            fail(f"moe {label}: {pattern!r} matches {gemms} of the kernels {sorted(names)}")
+        gate_up_ms = cuda_ms(lambda: moe_ops.grouped_mm(xs, w13, offs, "moe_gate_up"))
+        down_ms = cuda_ms(lambda: moe_ops.grouped_mm(hb, w2, offs, "moe_down"))
+        routed_ms = cuda_ms(lambda: moe_ops.routed_experts(x, idx, w, w13, w2))
+        plain_ms = cuda_ms(lambda: (moe_ops.grouped_plain(xs, w13, offs),
+                                    moe_ops.grouped_plain(hb, w2, offs)), reps=3)
+        slots, hit = rows * k, int((counts > 0).sum())
+        bound = {"gate_up": max(2.0 * slots * d * 2 * i / PEAK_FLOPS[torch.bfloat16],
+                                2.0 * (hit * 2 * i * d + slots * d + slots * 2 * i) / PEAK_BYTES),
+                 "down": max(2.0 * slots * i * d / PEAK_FLOPS[torch.bfloat16],
+                             2.0 * (hit * d * i + slots * i + slots * d) / PEAK_BYTES)}
+        bound = {n: v * 1e3 for n, v in bound.items()}
+        out[label] = {"rows": rows, "slots": slots, "max_rel_err": err, "gate_up_ms": gate_up_ms,
+                      "down_ms": down_ms, "routed_ms": routed_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound, "kernels": {n: v for n, v in names.items()}}
+        print(f"[moe] {label} ({rows} rows x {k}): gate+up {gate_up_ms:.3f} ms (bound "
+              f"{bound['gate_up']:.3f}), down {down_ms:.3f} ms (bound {bound['down']:.3f}), "
+              f"the routed path {routed_ms:.3f} ms, the loop {plain_ms:.2f} ms; err {err:.1e}, "
+              f"bit-equal; grouped GEMM kernels {sorted(gemms)}  [{card}]", flush=True)
+        del x, scores, idx, w, got, gu, h, y, ref, xs, hb
+    torch.cuda.empty_cache()
+
+    RESULTS["moe_experts"] = out
+    out["tiny_captioner"] = moe_tiny_captioner(DEV)
+    calls = out["tiny_captioner"]["calls"]
+    print(f"[moe] tiny mla_moe captioner, bf16, beam 3 x 5: {calls} grouped GEMM calls over "
+          f"{out['tiny_captioner']['moe_layers']} MoE layers  [{card}]", flush=True)
+
+
+def moe_tiny_captioner(device) -> dict:
+    """The benchmark's tiny ``mla_moe`` captioner (``gritbench/tests/
+    tiny_lm.py``) in bf16 on ``device`` through ``make_caption_generator``,
+    from the cached detector features of its float32 twin on the CPU (its
+    Swin's head dim of 8 is below what the card's Swin kernels take): the
+    grouped GEMM calls counted from 0, one of each product a MoE layer in
+    the prefill and in each decode step."""
+    from gritbench import inputs, lm_weights
+    from gritbench.tests.tiny_lm import LM_CONFIG, LM_TRAFFIC
+    from gritbench.traffic.caption_generate_lm import port_config
+    from grit_tpu_torch.ops import moe as moe_ops
+
+    m = LM_CONFIG["model"]
+    models = {}
+    for name, place, dtype in (("f32", "cpu", torch.float32), ("card", device, torch.bfloat16)):
+        model = build_captioner(port_config(LM_CONFIG), device=place, dtype=dtype, seed=None)
+        shapes = [(n, tuple(p.shape)) for n, p in model.named_parameters()]
+        lm_weights.load(model, shapes, 11, place, det=m["detector"])
+        models[name] = model.eval()
+    imgs, pad = inputs.images(LM_TRAFFIC, inputs.generator(11, 17, "cpu"), "cpu")
+    with torch.no_grad():
+        features = models["f32"].detector(ImageBatch(imgs, pad))
+    generate = make_caption_generator(models["card"], beam_size=3, max_len=5,
+                                      bos_idx=m["bos_idx"], eos_idx=m["eos_idx"])
+    n_moe = sum(1 for n, _ in shapes if n.endswith(".mlp.w13"))
+    steps = []
+    decode = models["card"].decode_step
+
+    def counted_step(token, t, *a, **k):
+        steps.append(t)
+        return decode(token, t, *a, **k)
+
+    models["card"].decode_step = counted_step
+    for key in moe_ops.LAUNCHES:
+        moe_ops.LAUNCHES[key] = 0
+    tokens = generate(features, imgs.shape[0])
+    calls = dict(moe_ops.LAUNCHES)
+    layer_calls = 1 + sum(1 for t in steps if t > 0)
+    if calls != {"moe_gate_up": n_moe * layer_calls, "moe_down": n_moe * layer_calls}:
+        fail(f"moe: the tiny mla_moe captioner made {calls} grouped GEMM calls, want "
+             f"{n_moe} MoE layers x (the prefill + {layer_calls - 1} decode steps) of each")
+    return {"calls": calls, "moe_layers": n_moe, "decode_steps": layer_calls - 1,
+            "tokens": list(tokens.shape)}
 
 
 def phase_tp_kernels() -> None:
@@ -5225,6 +5357,7 @@ def main() -> None:
         ("dense attention kernel", lambda: phase_dense_attention_kernel(args.batch)),
         ("decode kernel", phase_decode_kernel),
         ("tp kernels", phase_tp_kernels),
+        ("moe experts", lambda: phase_moe_experts(card)),
         ("msda kernels", phase_msda_kernels),
         ("adam kernel", phase_adam_kernel),
         ("lsa kernel", phase_lsa_kernel),
@@ -5412,6 +5545,7 @@ def main() -> None:
                    "data_parallel": RESULTS.get("data_parallel"),
                    "tensor_parallel": RESULTS.get("tensor_parallel"),
                    "lsa": RESULTS.get("lsa"), "native_metrics": RESULTS.get("native_metrics"),
+                   "moe_experts": RESULTS.get("moe_experts"),
                    "presets": {k: v for k, v in RESULTS.items()
                                if any(k.startswith(p) for p in ("slice swin", "train swin",
                                                                 "detector_fp32 swin",

@@ -137,7 +137,8 @@ class Config:
         """
         import sys
 
-        open_ns = ("dataset.roots.", "dataset.valid_roots.", "dataset.num_copies.")
+        open_ns = ("dataset.roots.", "dataset.valid_roots.", "dataset.num_copies.",
+                   "model.language_model.")
         for ov in overrides:
             path, _, raw = ov.partition("=")
             path = path.strip()
@@ -153,6 +154,31 @@ class Config:
                 )
             self.set(path, value)
         return self
+
+
+#: The language model of Kimi-VL-A3B-Instruct (moonshotai/Kimi-VL-A3B-Instruct
+#: config.json), the keys that shape it: the ``mla_moe`` caption decoder's
+#: defaults (``models/lm_decoder.py``).  ``initializer_range`` is the
+#: DeepSeek-V3 family's (the catalog row omits it).
+KIMI_VL_A3B = {
+    "vocab_size": 163840, "hidden_size": 2048, "intermediate_size": 11264,
+    "moe_intermediate_size": 1408, "num_hidden_layers": 27, "num_attention_heads": 16,
+    "n_shared_experts": 2, "n_routed_experts": 64, "routed_scaling_factor": 2.446,
+    "kv_lora_rank": 512, "q_lora_rank": None, "qk_rope_head_dim": 64, "v_head_dim": 128,
+    "qk_nope_head_dim": 128, "topk_method": "noaux_tc", "n_group": 1, "topk_group": 1,
+    "num_experts_per_tok": 6, "moe_layer_freq": 1, "first_k_dense_replace": 1,
+    "norm_topk_prob": True, "scoring_func": "sigmoid", "rms_norm_eps": 1e-5,
+    "rope_theta": 800000, "rope_scaling": None, "attention_bias": False,
+    "tie_word_embeddings": False, "initializer_range": 0.02,
+}
+
+
+def language_model_config(model: Config) -> Config:
+    """The ``mla_moe`` decoder's language model: ``KIMI_VL_A3B`` with the
+    keys that ``model.language_model`` sets (the caption config's own tree
+    has no such block, as grit_tpu's has none)."""
+    given = model.get("language_model")
+    return Config(dict(KIMI_VL_A3B, **(given.to_dict() if given is not None else {})))
 
 
 def default_caption_config() -> Config:

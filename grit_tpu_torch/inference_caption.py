@@ -5,7 +5,11 @@
 
 Loads a reference ``.pth`` with ``load_state_dict(strict=True)`` and runs the
 port in bf16 on a GPU (fp32 with ``--device cpu``); config overrides use
-grit_tpu_torch.config's dotted syntax.
+grit_tpu_torch.config's dotted syntax.  Without ``--checkpoint`` the weights
+are the random ones of seed 0.  With ``model.cap_generator.decoder_name=
+mla_moe`` (the language-model decoder, ``models/lm_captioner.py``) the
+caption is printed as token ids of the language model's vocabulary: no
+tokenizer of it is in the repository.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import argparse
 import torch
 
 
-def caption_image(image_path, checkpoint, config=None, beam_size=None, device="cuda"):
+def caption_image(image_path, checkpoint=None, config=None, beam_size=None, device="cuda"):
     from PIL import Image
 
     from grit_tpu_torch.config import default_caption_config
@@ -31,27 +35,33 @@ def caption_image(image_path, checkpoint, config=None, beam_size=None, device="c
         raise RuntimeError("--device cuda: no CUDA device is available")
     config = config or default_caption_config()
     beam = beam_size or config.model.beam_size
-    text_field = TextField(vocab_path=config.dataset.vocab_path)
+    lm_decoder = config.model.cap_generator.decoder_name == "mla_moe"
+    text_field = None if lm_decoder else TextField(vocab_path=config.dataset.vocab_path)
     transform = get_transform(config.dataset.transform_cfg)["valid"]
     with Image.open(image_path) as im:
         arr = transform(im)
     batch = batch_images([arr], bucket_hw=tuple(config.dataset.transform_cfg.size))
 
-    model = build_captioner(config, device=device, seed=None)
-    model.load_state_dict(load_reference_checkpoint(checkpoint), strict=True)
-    if device.type == "cuda":
-        model = to_compute_dtype(model, torch.bfloat16)
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    model = build_captioner(config, device=device, dtype=dtype,
+                            seed=None if checkpoint else 0)
+    if checkpoint:
+        model.load_state_dict(load_reference_checkpoint(checkpoint), strict=True)
+        model = to_compute_dtype(model, dtype)
     generate = make_caption_generator(
         model, beam_size=beam, max_len=config.model.beam_len,
         bos_idx=config.model.bos_idx, eos_idx=config.model.eos_idx)
-    out = generate(batch.to(device), 1)
-    return text_field.decode(out.cpu().numpy())[0]
+    out = generate(batch.to(device), 1).cpu().numpy()
+    if text_field is None:
+        return " ".join(str(int(i)) for i in out[0])
+    return text_field.decode(out)[0]
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--image", required=True)
-    ap.add_argument("--checkpoint", required=True)
+    ap.add_argument("--checkpoint", default=None,
+                    help="a reference .pth; without it, the random weights of seed 0")
     ap.add_argument("--beam", type=int, default=None)
     ap.add_argument("--vocab", default=None)
     ap.add_argument("--device", default="cuda")

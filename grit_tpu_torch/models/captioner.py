@@ -17,6 +17,7 @@ from grit_tpu_torch.models.det_module import (DetectionModule, MSDeformAttnModul
 from grit_tpu_torch.models.detector import Detector
 from grit_tpu_torch.models.grid_net import GridFeatureNetwork
 from grit_tpu_torch.models.layers import set_generator
+from grit_tpu_torch.models.lm_decoder import LanguageModel
 from grit_tpu_torch.models.swin import SwinTransformer, build_swin
 from grit_tpu_torch.ops.posemb import sinusoid_encoding_table
 from grit_tpu_torch.utils.nested import ImageBatch
@@ -39,14 +40,19 @@ class GRITCaptioner(nn.Module):
         if isinstance(images, ImageBatch):
             vis = self.detector(images)
         else:
-            gen = self.cap_generator
+            device, dtype = self._feature_place()
             vis = {}
             for k, v in images.items():
-                v = torch.as_tensor(v, device=gen.word_emb.weight.device)
-                vis[k] = v.to(gen._dtype()) if v.is_floating_point() else v
+                v = torch.as_tensor(v, device=device)
+                vis[k] = v.to(dtype) if v.is_floating_point() else v
         gri, _ = self.grid_net(vis["gri_feat"], vis["gri_mask"])
         vis["gri_feat"] = gri[:, -1]
         return vis
+
+    def _feature_place(self):
+        """(device, compute dtype) of the decoder, for cached features."""
+        gen = self.cap_generator
+        return gen.word_emb.weight.device, gen._dtype()
 
     def forward(self, images: ImageBatch, seq: torch.Tensor, fold: int = 1) -> torch.Tensor:
         """Teacher forcing: images and int captions [B * fold, L] -> log-probs
@@ -81,8 +87,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights drawn from ``generator``: xavier-uniform for every
     matrix (the reference's Transformer.init_weights), zero biases, unit
     norm scales, MSDA offsets at the radial init (ms_deform_attn.py:57-65),
-    the detection heads' prior biases (``reset_head_parameters``) and the
-    sinusoid position table."""
+    the detection heads' prior biases (``reset_head_parameters``), the
+    sinusoid position table and a language model's own start
+    (``LanguageModel.reset_parameters``)."""
     for name, p in model.named_parameters():
         if p.dim() > 1:
             torch.nn.init.xavier_uniform_(p.view(p.shape[0], -1), generator=generator)
@@ -101,6 +108,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(mod, CaptionGenerator):
             n, d = mod.pos_emb.weight.shape
             mod.pos_emb.weight.copy_(sinusoid_encoding_table(n, d, 0))
+        elif isinstance(mod, LanguageModel):
+            mod.reset_parameters(generator)
     return model
 
 
@@ -119,12 +128,13 @@ def to_compute_dtype(model: nn.Module, dtype: torch.dtype, *,
     f32 gradients to f32 parameters, as flax does."""
     if not master_f32:
         for mod in model.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv2d, SelfAttention)):
+            if (isinstance(mod, (nn.Linear, nn.Conv2d, SelfAttention))
+                    or getattr(mod, "stacked_linear", False)):
                 for p in mod.parameters(recurse=False):
                     p.data = p.data.to(dtype)
     # the two modules that turn f32 inputs (images, embeddings) into activations
     for mod in model.modules():
-        if isinstance(mod, (SwinTransformer, CaptionGenerator)):
+        if isinstance(mod, (SwinTransformer, CaptionGenerator, LanguageModel)):
             mod.compute_dtype = dtype
     return model
 
@@ -173,8 +183,16 @@ def build_captioner(config, *, device=None, dtype: torch.dtype = torch.float32,
     a ``torch.Generator``; load a checkpoint over them with load_state_dict.
     ``train=True`` returns the model in ``train()`` with f32 master
     parameters; otherwise it is in ``eval()`` with its weights rounded to
-    ``dtype``."""
+    ``dtype``.  ``model.cap_generator.decoder_name="mla_moe"`` builds the
+    language-model captioner instead (``lm_captioner.build_lm_captioner``;
+    inference only)."""
     m = config.model
+    if m.cap_generator.decoder_name == "mla_moe":
+        from grit_tpu_torch.config import language_model_config
+        from grit_tpu_torch.models.lm_captioner import build_lm_captioner
+
+        return build_lm_captioner(config, language_model_config(m), device=device, dtype=dtype,
+                                  seed=seed, train=train)
     if not (m.use_gri_feat and m.use_reg_feat):
         # grit_tpu's CaptionGenerator._vis reads both features unconditionally
         # (grit_tpu/models/cap_generator.py:326-334) and its detector leaves the
