@@ -2329,6 +2329,78 @@ def phase_slice_b128(card: str, batch: int = 128) -> None:
     del model, gen
 
 
+def phase_decode_graph(card: str, batch: int = 128, reps: int = 5) -> None:
+    """The bf16 caption decode step issued op by op (``decode_step_eager``)
+    against replayed from CUDA graphs (``decode_step``), b128 beam 5 x 20
+    steps (EOS off) over one batch's visual inputs, in one process: the two
+    searches' results bit for bit; the first graphed search's seconds (its
+    captures) and the memory its graphs hold; wall ms a step (host clock over
+    a synchronised search, ``reps`` of each in turns); and one profiled search
+    of each: device busy ms a step and K11's kernels against its launch
+    counter (a replay's kernels must reach the profiler's trace)."""
+    config = default_caption_config()
+    m = config.model
+    model = build_captioner(config, device=DEV, dtype=torch.bfloat16, seed=0)
+    gen = model.cap_generator
+    with torch.inference_mode():
+        vis = model.compute_vis(synthetic_batch(batch))
+        kv = model.precompute_vis_kv(vis)
+
+    def search(step):
+        with torch.inference_mode():
+            return beam_search(
+                lambda tok, t, v, c: step(tok, t, v, c, vis_kv=kv, vis_fold=BEAM),
+                model.init_cache(batch * BEAM, STEPS), vis, batch, BEAM, STEPS, m.bos_idx,
+                m.vocab_size)
+
+    steps = {"eager": gen.decode_step_eager, "graphed": gen.decode_step}
+    ref = search(steps["eager"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held0, pool0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    first = search(steps["graphed"])
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    # what stays reserved once the cache is emptied: the buffers and the
+    # graphs' private pool
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() - held0
+    pool = torch.cuda.memory_reserved() - pool0
+    for name, res in (("first graphed", first), ("graphed", search(steps["graphed"]))):
+        if not all(torch.equal(a, b) for a, b in zip(res, ref) if a is not None):
+            fail(f"decode graph: the {name} search differs from the eager one")
+    wall = {name: [] for name in steps}
+    for _ in range(reps):
+        for name, step in steps.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            search(step)
+            torch.cuda.synchronize()
+            wall[name].append((time.perf_counter() - t0) * 1e3 / STEPS)
+    out = {"batch": batch, "capture_s": capture_s, "held_bytes": held, "pool_bytes": pool,
+           "sets": len(gen.step_graphs.sets)}
+    for name, step in steps.items():
+        before = tail_ops.LAUNCHES["decode_tail"]
+        prof = profile_run(lambda: search(step), f"b{batch} decode {name} [{card}]",
+                           f"decode_graph_{name}.txt", lines_shown=6, kernel="dt_")
+        counted = tail_ops.LAUNCHES["decode_tail"] - before
+        out[name] = {"wall_ms_a_step": wall[name], "busy_ms_a_step": prof["busy_ms"] / STEPS,
+                     "idle_share": prof["idle_share"], "launches": prof["launches"],
+                     "dt_kernels": prof["kernel_launches"], "decode_tail_counted": counted}
+        if prof["kernel_launches"] != 8 * counted:
+            print(f"[decode graph] {name}: {prof['kernel_launches']} K11 kernels in the "
+                  f"profile, {8 * counted} counted", flush=True)
+    med = {name: statistics.median(wall[name]) for name in steps}
+    print(f"[decode graph] b{batch} beam {BEAM} x {STEPS}: wall a step eager "
+          f"{med['eager']:.3f} ms, graphed {med['graphed']:.3f} ms; device busy a step "
+          f"{out['eager']['busy_ms_a_step']:.3f} / {out['graphed']['busy_ms_a_step']:.3f} ms; "
+          f"first graphed search {capture_s:.2f} s, graphs hold {held / 2 ** 20:.1f} MiB "
+          f"(reserved +{pool / 2 ** 20:.1f} MiB); results bit-equal  [{card}]", flush=True)
+    RESULTS["decode_graph"] = out
+    del model, gen, vis, kv
+
+
 def profile_run(fn, title: str, path: str, lines_shown: int = 22, kernel: str = "") -> dict:
     """torch.profiler over one call of ``fn``: device busy time and the
     kernels that take it, written to chiprun_out/<path> (the first
@@ -2347,9 +2419,10 @@ def profile_run(fn, title: str, path: str, lines_shown: int = 22, kernel: str = 
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0)
-        # a profiler annotation (Optimizer.step#Adam.step) spans its kernels: not a kernel
+        # a profiler annotation (Optimizer.step#Adam.step, the port's grit.* spans)
+        # spans its kernels: not a kernel
         if (dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.key.startswith("Optimizer.")):
+                and not e.key.startswith(("Optimizer.", "grit."))):
             rows.append((dev_us, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
@@ -2415,19 +2488,23 @@ def plain_arm():
     saved = wa.block_step, wa.mlp, msda_ops.msda, wa.block_attention_train
     saved_ln = wa.patch_merge, wa.layernorm_rows
     saved_tail = cap_generator_lib.use_fused_tail
+    saved_graphable = cap_generator_lib.CaptionGenerator.graphable
     saved_lsa = lsa_ops.linear_sum_assignment
     lsa_ops.linear_sum_assignment = lsa_ops.lsa_plain
     wa.block_step, wa.mlp, msda_ops.msda = wa.block_step_plain, wa.mlp_plain, msda_ops.msda_plain
     wa.block_attention_train = wa.block_attention_train_plain
     wa.patch_merge, wa.layernorm_rows = wa.patch_merge_plain, wa.layernorm_rows_plain
-    # K11's plain arm is the decode layer's module path
+    # K11's plain arm is the decode layer's module path, issued op by op: a
+    # graph captured on the kernel arm would replay K11
     cap_generator_lib.use_fused_tail = lambda layer, x: False
+    cap_generator_lib.CaptionGenerator.graphable = lambda self, token: False
     try:
         yield
     finally:
         wa.block_step, wa.mlp, msda_ops.msda, wa.block_attention_train = saved
         wa.patch_merge, wa.layernorm_rows = saved_ln
         cap_generator_lib.use_fused_tail = saved_tail
+        cap_generator_lib.CaptionGenerator.graphable = saved_graphable
         lsa_ops.linear_sum_assignment = saved_lsa
 
 
@@ -5368,6 +5445,7 @@ def main() -> None:
         ("yardsticks detector", lambda: phase_yardsticks("detector", DET_BATCH, DET_STAGES, 0)),
         ("slice", lambda: phase_slice(args.batch, card)),
         ("slice b128", lambda: phase_slice_b128(card)),
+        ("decode graph", lambda: phase_decode_graph(card)),
         ("parity", lambda: phase_parity(args.batch)),
         ("train", lambda: phase_train(card)),
         ("native metrics", phase_native_metrics),
@@ -5533,6 +5611,7 @@ def main() -> None:
                    "mapped": mapped, "yardsticks": YARDSTICKS, "cases": DETAIL,
                    "msda_phase": RESULTS.get("msda_phase"),
                    "slice": RESULTS.get("slice"), "slice_b128": RESULTS.get("slice_b128"),
+                   "decode_graph": RESULTS.get("decode_graph"),
                    "train": RESULTS.get("train"),
                    "trainer": RESULTS.get("trainer"),
                    "detector_fp32": RESULTS.get("detector_fp32"),

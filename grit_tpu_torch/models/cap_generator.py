@@ -21,7 +21,10 @@ the sinusoid table, so released checkpoints carry their own.
 - ``forward``: teacher forcing with a causal + pad mask;
 - ``decode_step``: one token against fixed-shape KV caches, the visual
   inputs kept per image (``vis_fold`` = beam size; the cross-attentions fold
-  the beams into their query rows).  The parallel layers take their visual
+  the beams into their query rows).  Where the step can be captured (on the
+  card, grad off, no dropout live, no tensor-parallel split) it replays from
+  CUDA graphs (``decoding/step_graphs.py``); elsewhere ``decode_step_eager``
+  issues its ops one by one.  The parallel layers take their visual
   K/V projected once (``precompute_vis_kv``); after its self-attention a
   parallel layer's decode step is one call of
   ``ops.decode_layer.fused_decode_layer_tail`` (kernel K11) whenever no
@@ -47,6 +50,7 @@ import math
 import torch
 from torch import nn
 
+from grit_tpu_torch.decoding.step_graphs import StepGraphs
 from grit_tpu_torch.models.attention import LN_EPS, FeedForward, MultiHeadAttention
 from grit_tpu_torch.models.layers import Dropout, Linear
 from grit_tpu_torch.ops import decode_layer
@@ -54,6 +58,9 @@ from grit_tpu_torch.ops.posemb import sinusoid_encoding_table
 from grit_tpu_torch.parallel.tensor import copy_to_tp, gather_from_tp
 
 DecodeCache = dict  # {'layers': [(k, v), ...], 'pad_hist': [B, T] bool}
+
+#: the visual inputs a decode step reads (``CaptionGenerator._vis``)
+VIS_KEYS = ("gri_feat", "gri_mask", "reg_feat", "reg_mask")
 
 
 def use_fused_tail(layer: "ParallelAttentionLayer", x: torch.Tensor) -> bool:
@@ -227,6 +234,8 @@ class CaptionGenerator(nn.Module):
         self.layers = nn.ModuleList(GENERATOR_LAYER[decoder_name](**kwargs)
                                     for _ in range(n_layers))
         self.fc = Linear(d_model, vocab_size, bias=False)
+        self.step_graphs = StepGraphs()
+        self._dropouts = tuple(m for m in self.modules() if isinstance(m, Dropout))
 
     def _vis(self, vis_inputs: dict):
         if self.decoder_name == "concat":
@@ -281,12 +290,38 @@ class CaptionGenerator(nn.Module):
         y1, y2, _, _ = self._vis(vis_inputs)
         return [layer.precompute_vis_kv(y1, y2) for layer in self.layers]
 
+    def graphable(self, token: torch.Tensor) -> bool:
+        """Whether the decode step replays from graphs: on the graphs' device
+        type, with grad off, no dropout live, and no tensor-parallel split (K11's
+        split tail holds an all-reduce, a split vocab head an all-gather)."""
+        return (token.device.type == self.step_graphs.device_type
+                and not torch.is_grad_enabled()
+                and self.tp_group is None
+                and all(layer.pwff.tp_group is None for layer in self.layers)
+                and not any(m.training and m.p > 0.0 for m in self._dropouts))
+
     def decode_step(self, token: torch.Tensor, t: int, vis_inputs: dict, cache: DecodeCache,
                     *, vis_kv=None, vis_fold: int = 1):
         """One step: token int [B, 1] -> (log-probs [B, V], cache).  ``cache``
         is updated in place.  ``vis_fold=f``: token/cache are beam-expanded
         [B*f, ...] while vis_inputs/vis_kv stay per image [B, ...].
-        ``vis_kv``: ``precompute_vis_kv``'s output, or None."""
+        ``vis_kv``: ``precompute_vis_kv``'s output, or None.
+
+        Where ``graphable``, step ``t`` replays from a CUDA graph: the log-probs
+        and cache returned are then the graphs' buffers, which this
+        generator's next step overwrites, so the caller consumes them first,
+        as ``beam_search`` does; the cache handed in is left as it was."""
+        if self.graphable(token):
+            return self.step_graphs(self.decode_step_eager, token, t,
+                                    {k: vis_inputs[k] for k in VIS_KEYS}, cache, vis_kv,
+                                    vis_fold, self.fc.out_features)
+        return self.decode_step_eager(token, t, vis_inputs, cache, vis_kv=vis_kv,
+                                      vis_fold=vis_fold)
+
+    def decode_step_eager(self, token: torch.Tensor, t: int, vis_inputs: dict,
+                          cache: DecodeCache, *, vis_kv=None, vis_fold: int = 1, out=None):
+        """``decode_step`` with its ops issued one by one; ``out``: where the
+        log-probs go (a new tensor when None)."""
         is_pad = token == self.pad_idx
         dt = self._dtype()
         mask_pad = (~is_pad)[..., None].to(dt)
@@ -301,5 +336,5 @@ class CaptionGenerator(nn.Module):
                                           None if vis_kv is None else vis_kv[i], vis_fold)
             layers.append(layer_cache)
         logits = self.logits(x)[:, 0]
-        return torch.log_softmax(logits.float(), dim=-1), {"layers": layers,
-                                                           "pad_hist": pad_hist}
+        return torch.log_softmax(logits.float(), dim=-1, out=out), {"layers": layers,
+                                                                    "pad_hist": pad_hist}

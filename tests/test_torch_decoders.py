@@ -419,3 +419,170 @@ def test_converter_round_trips_the_new_layers(decoder):
     assert set(back) == set(sd)
     for k in sd:
         np.testing.assert_array_equal(back[k], sd[k], err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the decode step replayed from graphs (decoding/step_graphs.py)
+# ---------------------------------------------------------------------------
+
+class ReplayedGraphs:
+    """Stand-in for ``step_graphs.CudaGraphs`` on the CPU: a capture runs the
+    step once and keeps it, a replay reruns it on the set's buffers and, as a
+    graph's replay, moves no launch counter."""
+
+    device_type = "cpu"
+
+    def __init__(self):
+        self.warm_ups = self.captures = self.replays = 0
+
+    def warm_up(self, fn, device):
+        self.warm_ups += 1
+        fn()
+
+    def capture(self, fn, device):
+        from grit_tpu_torch.ops import decode_layer as tdl
+
+        self.captures += 1
+        fn()
+        owner = self
+
+        class Graph:
+            def replay(self):
+                owner.replays += 1
+                counts = dict(tdl.LAUNCHES)
+                fn()
+                tdl.LAUNCHES.update(counts)
+
+        return Graph()
+
+
+@pytest.fixture
+def counted_tail(monkeypatch):
+    """K11 on the CPU (its plain version), counted as the card's launches are."""
+    from grit_tpu_torch.models import cap_generator as tcap
+    from grit_tpu_torch.ops import decode_layer as tdl
+
+    plain = tdl.fused_decode_layer_tail
+
+    def counted(*a, **kw):
+        tdl.LAUNCHES["decode_tail"] += 1
+        return plain(*a, **kw)
+
+    monkeypatch.setattr(tcap, "use_fused_tail", lambda layer, x: True)
+    monkeypatch.setattr(tdl, "fused_decode_layer_tail", counted)
+    return tdl.LAUNCHES
+
+
+def _graphed_twin(seed: int = 0):
+    from grit_tpu_torch.decoding.step_graphs import StepGraphs
+
+    model = port_twin("parallel", seed)
+    model.cap_generator.step_graphs = StepGraphs(ReplayedGraphs())
+    return model
+
+
+def _search(model, feats):
+    """Beam 3 x STEPS, every beam running all steps (EOS no vocabulary id)."""
+    from grit_tpu_torch.decoding.beam_search import beam_search
+
+    with torch.inference_mode():
+        return beam_search(_port_decode_fn(model, BEAM), model.init_cache(2 * BEAM, STEPS),
+                           _port_vis(model, feats), 2, BEAM, STEPS, BOS, VOCAB, out_size=BEAM,
+                           return_margins=True)
+
+
+def _assert_same_result(a, b):
+    for name, x, y in zip(a._fields, a, b):
+        assert (x is None) == (y is None), name
+        if x is not None:
+            assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("condition", ["cpu", "dropout", "grad", "tp"])
+def test_decode_step_bypasses_the_graphs(condition, monkeypatch):
+    """Where the step cannot be captured (CPU tensors under the card's graphs,
+    a live dropout, grad on, a tensor-parallel layer) ``decode_step`` is the
+    eager step, bit for bit, and captures nothing."""
+    from grit_tpu_torch.decoding.step_graphs import StepGraphs
+    from grit_tpu_torch.models import attention
+
+    model = port_twin("parallel")
+    gen = model.cap_generator
+    graphs = ReplayedGraphs()
+    if condition != "cpu":
+        gen.step_graphs = StepGraphs(graphs)
+    if condition == "dropout":
+        model.train()
+    if condition == "tp":
+        gen.layers[0].pwff.tp_group = object()
+        monkeypatch.setattr(attention, "copy_to_tp", lambda x, group: x)
+        monkeypatch.setattr(attention, "reduce_from_tp", lambda x, group: x.float())
+        monkeypatch.setattr(attention, "tp_rank", lambda group: 0)
+        monkeypatch.setattr(attention, "tp_size", lambda group: 1)
+    context = torch.enable_grad if condition == "grad" else torch.no_grad
+
+    def run(step):
+        model.set_generator(torch.Generator().manual_seed(3))
+        with context():
+            vis = model.compute_vis(cached_features())
+            kv = model.precompute_vis_kv(vis)
+            cache = model.init_cache(2 * BEAM, 4)
+            outs = []
+            for t in range(3):
+                token = torch.full((2 * BEAM, 1), BOS + t)
+                logp, cache = step(token, t, vis, cache, vis_kv=kv, vis_fold=BEAM)
+                outs.append(logp.detach().clone())
+            return outs, cache
+
+    outs, cache = run(gen.decode_step)
+    ref, ref_cache = run(gen.decode_step_eager)
+    assert all(torch.equal(a, b) for a, b in zip(outs, ref))
+    assert torch.equal(cache["pad_hist"], ref_cache["pad_hist"])
+    assert all(torch.equal(a, b) for kv, rkv in zip(cache["layers"], ref_cache["layers"])
+               for a, b in zip(kv, rkv))
+    assert (graphs.warm_ups, graphs.captures, graphs.replays) == (0, 0, 0)
+    assert not gen.step_graphs.sets
+
+
+def test_graphed_searches_equal_eager(counted_tail):
+    """Two searches with other visual inputs through the capture and replay
+    bookkeeping: each result equal to the eager step's; one capture a step,
+    made in the first search (whose steps are their warm-ups), replays in the
+    second; the visual inputs copied in at step 0."""
+    graphed, eager = _graphed_twin(), port_twin("parallel")
+    graphs = graphed.cap_generator.step_graphs.graphs
+    for seed in (7, 11):
+        feats = cached_features(seed)
+        _assert_same_result(_search(graphed, feats), _search(eager, feats))
+    assert (graphs.warm_ups, graphs.captures, graphs.replays) == (STEPS, STEPS, STEPS)
+    assert len(graphed.cap_generator.step_graphs.sets) == 1
+
+
+def test_kept_beam_result_survives_a_later_search(counted_tail):
+    """No tensor of a BeamResult is a graph buffer: a later search leaves a
+    kept result as it was."""
+    model = _graphed_twin()
+    kept = _search(model, cached_features(7))
+    copy = type(kept)(*[None if x is None else x.clone() for x in kept])
+    later = _search(model, cached_features(11))
+    assert not torch.equal(later.scores, kept.scores)
+    _assert_same_result(kept, copy)
+
+
+def test_replayed_launch_counts_equal_eager(counted_tail):
+    """A replay adds the launches its capture counted, and a capture's
+    counts are taken back: the capturing search and a search of replays each
+    count what the eager search counts (K11 once a layer a step)."""
+    graphed, eager = _graphed_twin(), port_twin("parallel")
+    layers = len(eager.cap_generator.layers)
+    feats = cached_features()
+
+    def launches(model):
+        before = counted_tail["decode_tail"]
+        _search(model, feats)
+        return counted_tail["decode_tail"] - before
+
+    assert launches(eager) == layers * STEPS
+    assert launches(graphed) == layers * STEPS
+    assert launches(graphed) == layers * STEPS
+    assert graphed.cap_generator.step_graphs.graphs.replays == STEPS
